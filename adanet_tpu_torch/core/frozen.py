@@ -1,0 +1,79 @@
+"""Frozen records of trained subnetworks and winning ensembles.
+
+Port of adanet_tpu/core/frozen.py over torch modules. A frozen member
+holds its `nn.Module` (parameters included, in eval mode) rather than a
+Flax module plus a parameter tree, and the builder spec that rebuilds it
+(`Builder.to_spec()`), which a serving generation records.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from adanet_tpu_torch.core.architecture import Architecture
+
+
+@dataclasses.dataclass
+class FrozenSubnetwork:
+    """A trained, frozen subnetwork.
+
+    Attributes:
+      iteration_number: iteration that trained this subnetwork.
+      name: its builder's name.
+      module: the `nn.Module` holding its parameters.
+      complexity: its scalar complexity r(h).
+      shared: the `Subnetwork.shared` payload recorded at freeze time.
+      builder_spec: the builder's `to_spec()`, enough to rebuild `module`
+        given the feature shape.
+    """
+
+    iteration_number: int
+    name: str
+    module: Any
+    complexity: Any = 0.0
+    shared: Any = None
+    builder_spec: Optional[Dict[str, Any]] = None
+
+    def apply(self, features, training: bool = False):
+        """Runs the frozen subnetwork's forward pass."""
+        with torch.inference_mode(not training):
+            return self.module(features, training=training)
+
+
+@dataclasses.dataclass
+class FrozenWeightedSubnetwork:
+    """A frozen member with its learned mixture weight."""
+
+    subnetwork: FrozenSubnetwork
+    weight: Any = None
+
+
+@dataclasses.dataclass
+class FrozenEnsemble:
+    """The frozen winning ensemble of an iteration.
+
+    Attributes:
+      name: ensemble candidate name.
+      iteration_number: the iteration this ensemble won.
+      weighted_subnetworks: frozen members with learned weights, oldest first.
+      ensembler_name: name of the ensembler that combined the members.
+      ensembler_params: `{"weights": [...], "bias": ...}` tensors.
+      architecture: the serializable `Architecture` record.
+    """
+
+    name: str
+    iteration_number: int
+    weighted_subnetworks: List[FrozenWeightedSubnetwork]
+    ensembler_name: str
+    ensembler_params: Any
+    architecture: Architecture
+
+    def member_outputs(self, features, training: bool = False):
+        """Forward passes of every frozen member on `features`."""
+        return [
+            ws.subnetwork.apply(features, training=training)
+            for ws in self.weighted_subnetworks
+        ]

@@ -1,0 +1,27 @@
+"""Serving plane of the port: publish generations, gate and flip them,
+batch requests into fixed buckets, and answer them through a bounded,
+admission-controlled front end.
+
+`ServingFrontend(Batcher(ModelPool(model_dir))).start()` serves the
+newest healthy generation under `<model_dir>/serving/gen-<t>/`.
+"""
+
+from adanet_tpu_torch.serving.batcher import (  # noqa: F401
+    Batcher,
+    BatcherConfig,
+    bucket_for,
+    pad_batch,
+    request_rows,
+    split_rows,
+)
+from adanet_tpu_torch.serving.frontend import (  # noqa: F401
+    FrontendConfig,
+    ServeResult,
+    ServingFrontend,
+)
+from adanet_tpu_torch.serving.model_pool import (  # noqa: F401
+    GenerationRecord,
+    ModelPool,
+    NoServableGeneration,
+)
+from adanet_tpu_torch.serving.publisher import publish_generation  # noqa: F401

@@ -1,0 +1,128 @@
+"""Rules of the PyTorch port that hold for every slice.
+
+- No module of `adanet_tpu_torch/`, and not `chip_smoke.py`, imports jax,
+  flax, optax or the JAX package (an AST scan, and an import of every
+  module with those blocked).
+- Each framework-free module the port copies stays in sync with its
+  original: the same lines once import statements are dropped and the
+  package name is mapped.
+- A CUDA request without CUDA raises; nothing carries on on the CPU.
+"""
+
+import ast
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "adanet_tpu_torch")
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "adanet_tpu"}
+
+#: Port copy -> original, both relative to the repo root.
+COPIES = {
+    "adanet_tpu_torch/core/architecture.py": "adanet_tpu/core/architecture.py",
+    "adanet_tpu_torch/observability/metrics.py": "adanet_tpu/observability/metrics.py",
+    "adanet_tpu_torch/observability/spans.py": "adanet_tpu/observability/spans.py",
+    "adanet_tpu_torch/observability/flightrec.py": "adanet_tpu/observability/flightrec.py",
+    "adanet_tpu_torch/robustness/faults.py": "adanet_tpu/robustness/faults.py",
+    "adanet_tpu_torch/serving/frontend.py": "adanet_tpu/serving/frontend.py",
+}
+
+
+def _port_sources():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PORT):
+        paths += [os.path.join(root, f) for f in sorted(files) if f.endswith(".py")]
+    return paths
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_no_jax_imports_anywhere_in_the_port():
+    sources = _port_sources()
+    assert len(sources) > 20
+    bad = {
+        os.path.relpath(path, REPO): sorted(set(_imported_roots(path)) & FORBIDDEN)
+        for path in sources
+    }
+    assert not {k: v for k, v in bad.items() if v}
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "for name in %r: sys.modules[name] = None\n"
+        "import adanet_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(adanet_tpu_torch.__path__, 'adanet_tpu_torch.')]\n"
+        "for name in names: importlib.import_module(name)\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in %r and sys.modules[m] is not None)\n"
+        "assert not leaked, leaked\n"
+        "print(len(names))\n" % (sorted(FORBIDDEN), sorted(FORBIDDEN))
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+def _without_imports(path, rename):
+    text = open(path).read()
+    if rename:
+        text = re.sub(r"\badanet_tpu\b", "adanet_tpu_torch", text)
+    lines = text.splitlines()
+    drop = set()
+    for node in ast.walk(ast.parse(text)):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            drop.update(range(node.lineno - 1, node.end_lineno))
+    return [line for i, line in enumerate(lines) if i not in drop]
+
+
+@pytest.mark.parametrize("copy,original", sorted(COPIES.items()))
+def test_copied_modules_stay_in_sync(copy, original):
+    want = _without_imports(os.path.join(REPO, original), rename=True)
+    got = _without_imports(os.path.join(REPO, copy), rename=False)
+    assert got == want, "%s drifted from %s" % (copy, original)
+
+
+def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
+    from adanet_tpu_torch import resolve_device
+    from adanet_tpu_torch.core import export
+    from adanet_tpu_torch.serving import ModelPool
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert resolve_device("cpu") == torch.device("cpu")
+    for call in (
+        lambda: resolve_device(),
+        lambda: resolve_device("cuda:0"),
+        lambda: ModelPool(str(tmp_path)),
+        lambda: export.load_serving_program(str(tmp_path)),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_chip_smoke_fails_without_cuda(tmp_path):
+    """The script exits non-zero and prints no result without a card,
+    and also when it stands alone without the package."""
+    bare = tmp_path / "chip_smoke.py"
+    bare.write_text(open(os.path.join(REPO, "chip_smoke.py")).read())
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    for cwd, script in ((REPO, "chip_smoke.py"), (str(tmp_path), str(bare))):
+        out = subprocess.run(
+            [sys.executable, script], cwd=cwd, env=env, capture_output=True, text=True, timeout=120
+        )
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
