@@ -13,7 +13,7 @@ Every C entry point launches on the stream it is given, returns
 raises on a non-zero code: a refused launch never passes silently.
 
 K0, the copy kernel, is the build's self-test: `library()` launches it
-once per process before it hands out K1 or K2, and `self_test()` runs it
+once per process before it hands out any other kernel, and `self_test()` runs it
 again wherever a caller wants proof that the kernels launch on a device
 (the serving loader does, before it smokes a generation).
 """
@@ -49,11 +49,20 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-#: Library name -> (source file, C function, argtypes).
+#: Library name -> (source file, {C function: argtypes}).
 KERNELS = {
-    "copy": ("copy_kernel.cu", "copy_forward", [_P, _P, ctypes.c_longlong, _P]),
-    "combine": ("combine_kernel.cu", "combine_forward", [_P] * 4 + [_I] * 4 + [_P]),
-    "sepconv": ("sepconv_kernel.cu", "sepconv_forward", [_P] * 4 + [_I] * 14 + [_P]),
+    "copy": ("copy_kernel.cu", {"copy_forward": [_P, _P, ctypes.c_longlong, _P]}),
+    "combine": ("combine_kernel.cu", {"combine_forward": [_P] * 4 + [_I] * 4 + [_P]}),
+    "sepconv": ("sepconv_kernel.cu", {"sepconv_forward": [_P] * 4 + [_I] * 14 + [_P]}),
+    "cell": (
+        "cell_kernel.cu",
+        {
+            "cell_conv1x1": [_P, _I, _P, _P, _P, _P, _I, _I] + [_I] * 13 + [_P],
+            "cell_sep_layer": [_P, _I, _P, _P, _P, _P, _P, _I, _I] + [_I] * 14 + [_P],
+            "cell_pool": [_P, _I, _P, _I, _I] + [_I] * 12 + [_P],
+            "cell_cast_bf16": [_P, _P, ctypes.c_longlong, _P],
+        },
+    ),
 }
 
 #: nvcc's output (ptxas register and shared-memory report) per library
@@ -61,7 +70,7 @@ KERNELS = {
 BUILD_LOG: Dict[str, str] = {}
 
 _lock = threading.Lock()
-_functions: Dict[str, ctypes._CFuncPtr] = {}
+_functions: Dict[str, Dict[str, ctypes._CFuncPtr]] = {}
 _error_string = None  # copy library's error_string(code) -> message
 _self_tested = False
 
@@ -120,26 +129,33 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     return paths
 
 
-def library(name: str):
-    """The bound C entry point of one kernel; builds all kernels that are
-    missing on first use and runs the K0 self-test once per process before
-    handing out any other kernel."""
+def library(name: str, function: Optional[str] = None):
+    """A bound C entry point of one kernel library (`function` may be
+    left out where the library has one); builds all kernels that are
+    missing on first use and runs the K0 self-test once per process
+    before handing out any other kernel."""
     global _error_string, _self_tested
     with _lock:
         if not _functions:
             paths = build()
             for lib_name, path in paths.items():
                 lib = ctypes.CDLL(path)
-                _, fn_name, argtypes = KERNELS[lib_name]
-                fn = getattr(lib, fn_name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-                _functions[lib_name] = fn
+                bound = {}
+                for fn_name, argtypes in KERNELS[lib_name][1].items():
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    bound[fn_name] = fn
+                _functions[lib_name] = bound
                 if lib_name == "copy":
                     _error_string = lib.error_string
                     _error_string.argtypes = [_I]
                     _error_string.restype = ctypes.c_char_p
-        fn = _functions[name]
+        bound = _functions[name]
+        if function is None:
+            (fn,) = bound.values()
+        else:
+            fn = bound[function]
     if name != "copy" and not _self_tested:
         self_test()
         _self_tested = True

@@ -19,16 +19,22 @@ rounds it to the compute dtype in between). `fused_sep_conv` takes it
 only for CPU tensors. A CUDA tensor launches the kernel or raises: there
 is no fallback by size, since the kernel tiles any shape that fits one
 pixel's channels in shared memory. Forward only.
+
+Tiles: `tile_p` output pixels per block come from the store-persisted
+autotuner (`ops/tuning.py`, family "sepconv") when it has a winner for
+this workload and device, as the JAX wrapper consults it before its VMEM
+heuristic, else `DEFAULT_TILE_P`; `tiles()` then shrinks the block until
+it fits. The tile changes only how the work is cut, never a result.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from adanet_tpu_torch.ops import _build
+from adanet_tpu_torch.ops import _build, tuning
 
 #: Shared memory one block may use on Hopper (bytes).
 MAX_SHARED_BYTES = 227 * 1024
@@ -85,6 +91,40 @@ def tiles(c: int, f: int, k: int, tile_p: int = DEFAULT_TILE_P) -> Tuple[int, in
     return tile_p, tile_f
 
 
+def tune_spec(x_shape, dtype, kernel: int, filters: int, stride: int) -> Dict[str, Any]:
+    """The autotuner's workload identity: the JAX `_sepconv_tune_spec`
+    dict, so one workload has one spec fingerprint in both packages."""
+    return {
+        "x_shape": list(x_shape),
+        "dtype": str(dtype).replace("torch.", ""),
+        "kernel": int(kernel),
+        "filters": int(filters),
+        "stride": int(stride),
+    }
+
+
+def tile_candidates(h: int, w: int, c: int, f: int, k: int, stride: int) -> List[int]:
+    """`tile_p` candidates for the autotuner, largest first: a block
+    tiles the output pixels of one image."""
+    h_out, w_out = -(-h // stride), -(-w // stride)
+    return tuning.candidate_tile_sizes(
+        h_out * w_out, 4 * c, 4 * (c * (f + 1) + k * k * c), MAX_SHARED_BYTES
+    )
+
+
+def select_tiles(x_shape, dtype, c: int, f: int, k: int, stride: int, device) -> Tuple[int, int]:
+    """(tile_p, tile_f): the tuned `tile_p` for this workload on `device`
+    when the store has one, else `DEFAULT_TILE_P`, shrunk by `tiles()`
+    until the block fits."""
+    tile_p = DEFAULT_TILE_P
+    tuned = tuning.lookup("sepconv", tune_spec(x_shape, dtype, k, f, stride), device=device)
+    if tuned:
+        candidate = tuned.get("tile_p")
+        if isinstance(candidate, int) and candidate > 0:
+            tile_p = candidate
+    return tiles(c, f, k, tile_p)
+
+
 def fused_sep_conv(
     x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, stride: int = 1
 ) -> torch.Tensor:
@@ -97,6 +137,14 @@ def fused_sep_conv(
         return sep_conv_reference(x, dw, pw, stride)
     if x.device.type != "cuda":
         raise ValueError("fused_sep_conv: unsupported device %s" % x.device)
+    f, c, k = pw.shape[0], x.shape[-1], dw.shape[-1]
+    tile = select_tiles(x.shape, x.dtype, c, f, k, stride, x.device)
+    return _launch(x, dw, pw, stride, tile)
+
+
+def _launch(x, dw, pw, stride: int, tile: Tuple[int, int]) -> torch.Tensor:
+    """One counted launch of K2 with (tile_p, tile_f) = `tile` (the
+    autotuner's entry)."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError("fused_sep_conv takes float32 or bfloat16, got %s" % x.dtype)
     b, h, w, c = x.shape
@@ -110,7 +158,7 @@ def fused_sep_conv(
         raise ValueError("fused_sep_conv: tensors on different devices")
     h_out, pt, _ = same_pads(h, k, stride)
     w_out, pl, _ = same_pads(w, k, stride)
-    tile_p, tile_f = tiles(c, f, k)
+    tile_p, tile_f = tile
     x = x.contiguous()
     dw = dw.to(torch.float32).contiguous()
     pw = pw.to(torch.float32).contiguous()
@@ -139,7 +187,10 @@ def fused_sep_conv(
     )
     _build.check(code, "sepconv_forward")
     fused_sep_conv.launches += 1
+    fused_sep_conv.last_tiles = (tile_p, tile_f)
     return out
 
 
 fused_sep_conv.launches = 0
+#: (tile_p, tile_f) of the last launch.
+fused_sep_conv.last_tiles = None

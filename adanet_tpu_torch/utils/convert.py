@@ -12,7 +12,9 @@ module never imports flax. Layout changes happen here and nowhere else:
   statistics keep their names and shapes.
 
 A Flax path `a/b/kernel` becomes the key `a.b.weight`; any other leaf
-keeps its name.
+keeps its name. `convert_cell_params` carries the fused cell's parameter
+tree (`adanet_tpu/ops/cell_kernels.py: init_cell_params`) across the
+same way, keeping its structure.
 """
 
 from __future__ import annotations
@@ -89,3 +91,35 @@ def convert_ensembler_params(params: Mapping[str, Any]) -> Dict[str, Any]:
     if params.get("bias") is not None:
         bias = torch.from_numpy(np.array(params["bias"], dtype=np.float32, copy=True))
     return {"weights": weights, "bias": bias}
+
+
+def convert_cell_params(params: Mapping[str, Any]) -> Dict[str, Any]:
+    """The JAX `init_cell_params` tree (numpy leaves) -> the port's tree
+    (`adanet_tpu_torch.ops.cell_kernels`), in the same structure:
+
+    - depthwise `dw` `[k, k, 1, C]` -> `[C, 1, k, k]` and pointwise `pw`
+      `[1, 1, C, F]` -> `[F, C, 1, 1]`;
+    - 1x1 `w` `[C, F]` -> `[F, C]`, and the factorized reduction's
+      `w1`/`w2` the same way;
+    - `scale` and `bias` unchanged.
+
+    Leaves keep their dtype (bfloat16 arrives as float32 from numpy and
+    is the caller's to cast); tuples stay tuples.
+    """
+
+    def leaf(name, value):
+        value = np.asarray(value)
+        if name in ("dw", "pw"):
+            value = conv_kernel(value)
+        elif name in ("w", "w1", "w2"):
+            value = dense_kernel(value)
+        return torch.from_numpy(np.array(value, copy=True))
+
+    def walk(node, name=None):
+        if isinstance(node, Mapping):
+            return {key: walk(value, key) for key, value in node.items()}
+        if isinstance(node, (tuple, list)):
+            return tuple(walk(item, name) for item in node)
+        return leaf(name, node)
+
+    return walk(params)

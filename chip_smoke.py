@@ -21,14 +21,27 @@
    generation, one K1 per executed program call, 400 K2 per K1.
 5. Compares one bucket, loaded at f32 compute, on the card against the
    same generation loaded with device="cpu".
-6. Times each kernel, its plain version and the library call that
+6. Holds K3, the fused cell, against its plain version on the card, in
+   f32 and bf16, at the two `cifar` autotuner cells (batch 64) and at
+   every distinct cell signature of NASNet-A (6@768) CIFAR at bucket 32
+   (derived from the served model and checked against `CELL_SIGNATURES`),
+   with random folded affines; and once its gradients against plain
+   autograd through `cell_reference` (f32, a normal and a reduction cell).
+7. Second main path, the kernel autotuner: with the launch counts zeroed,
+   `adanet_tpu_torch.tools.autotune.main` runs twice on a temporary store
+   with `--preset cifar` and must return 1, then 0 with no search; K2 and
+   K3 then run at the preset shapes with the stored `tile_p` (checked
+   against their plain versions), and the counts must show K2 and K3.
+8. Times each kernel, its plain version and the library call that
    computes the same function (K0: `torch.clone`, K1: `torch.einsum`,
-   K2: grouped plus 1x1 `F.conv2d`), with CUDA events, and computes each
-   kernel's bound from its shapes.
+   K2: grouped plus 1x1 `F.conv2d`; K3: none, no single PyTorch call
+   computes a cell), with CUDA events, and computes each kernel's bound
+   from its shapes. K3 per signature in bf16, with its device kernels per
+   call, and at the preset cells with the tuned against the default tile.
 
-Prints the per-shape K2 timings, the served latency and throughput, a
-`kernels` JSON line, and as its last line `{"ok": true, "device":
-{...}}`. Any failure raises and exits non-zero.
+Prints the per-shape K2 and K3 timings, the served latency and
+throughput, a `kernels` JSON line, and as its last line `{"ok": true,
+"device": {...}}`. Any failure raises and exits non-zero.
 """
 
 import argparse
@@ -49,6 +62,25 @@ SERIAL_ROWS = (1, 3, 8, 17, 32, 2, 5, 12, 30, 1)
 BURST_ROWS = (1, 7, 16, 32, 4, 24, 9, 2, 32, 13, 6, 19, 28, 3, 11, 32)
 MIXTURE = (0.6, 0.4)
 NUM_MEMBERS = 2
+# K3: (C_prev, C_cur, filters, cell, H = W) -> cells of one NASNet-A
+# (6@768) CIFAR forward with that signature, `prev` already at `cur`'s
+# resolution (as the model's factorized reduction of prev leaves it).
+CELL_SIGNATURES = {
+    (96, 96, 32, "normal", 32): 1,
+    (96, 192, 32, "normal", 32): 1,
+    (192, 192, 32, "normal", 32): 4,
+    (192, 192, 64, "reduction", 32): 1,
+    (64, 256, 64, "normal", 16): 1,
+    (256, 384, 64, "normal", 16): 1,
+    (384, 384, 64, "normal", 16): 4,
+    (384, 384, 128, "reduction", 16): 1,
+    (128, 512, 128, "normal", 8): 1,
+    (512, 768, 128, "normal", 8): 1,
+    (768, 768, 128, "normal", 8): 4,
+}
+# The autotuner's `cifar` cells (prev = cur = [64, 32, 32, 32]).
+CELL_PRESET = ((32, 32, 32, "normal", 32), (32, 32, 64, "reduction", 32))
+CELL_PRESET_BATCH = 64
 
 
 def card_line():
@@ -168,7 +200,27 @@ def publish(model_dir, seed):
     )
     sample = {"image": np.zeros((1, 32, 32, 3), np.float32)}
     path = publish_generation(model_dir, 1, frozen, ensembler, MultiClassHead(10), sample)
-    return path, members[0].subnetwork.module.nasnet.sepconv_launch_shapes()
+    nasnet = members[0].subnetwork.module.nasnet
+    return path, nasnet.sepconv_launch_shapes(), model_cell_signatures(nasnet)
+
+
+def model_cell_signatures(nasnet):
+    """{(C_prev, C_cur, filters, cell, H): count} of the model's cells,
+    with prev as the cell sees it after its own prev reduction."""
+    stem = (32, 32, int(nasnet.stem_bn.scale.shape[0]))
+    shapes = [None, stem]
+    out = collections.Counter()
+    for name in nasnet._cells:
+        cell = getattr(nasnet, name)
+        net, prev = shapes[-1], shapes[-2]
+        if cell.prev_mode == "current":
+            prev = net
+        elif cell.prev_mode == "factorized":
+            prev = (net[0], net[1], cell.filters)
+        kind = "reduction" if name.startswith("reduction") else "normal"
+        out[(prev[2], net[2], cell.filters, kind, net[0])] += 1
+        shapes.append(cell.out_shape)
+    return dict(out)
 
 
 def check_kernels(sep_shapes, rng):
@@ -211,6 +263,331 @@ def check_kernels(sep_shapes, rng):
     print("K2 worst abs err: f32 %g, bf16 %g" % (worst[torch.float32], worst[torch.bfloat16]))
     errors["sepconv"] = max(worst.values())
     return errors
+
+
+def make_cell(signature, batch, dtype, gen):
+    """prev, cur, params and spec of one K3 signature on the card: inputs
+    and weights from `gen`, folded affines scale ~ 1 + N(0, 0.1^2), bias
+    ~ N(0, 0.1^2), weights in `dtype` and affines in f32."""
+    import torch
+
+    from adanet_tpu_torch.ops import cell_kernels as ck
+
+    cp, cc, f, kind, hw = signature
+    spec = {"normal": ck.NORMAL_CELL, "reduction": ck.REDUCTION_CELL}[kind]
+    params = ck.init_cell_params(gen, spec, cp, cc, f, dtype=dtype, device="cuda")
+    for path, leaf in ck._flatten(params):
+        if path[-1] == "scale":
+            leaf.copy_(1.0 + 0.1 * torch.randn(leaf.shape, generator=gen))
+        elif path[-1] == "bias":
+            leaf.copy_(0.1 * torch.randn(leaf.shape, generator=gen))
+    prev = torch.randn(batch, hw, hw, cp, generator=gen).to("cuda", dtype)
+    cur = torch.randn(batch, hw, hw, cc, generator=gen).to("cuda", dtype)
+    return prev, cur, params, spec
+
+
+def cell_cases():
+    """(signature, batch) of every K3 shape the script checks and times."""
+    model = [(sig, max(BUCKETS)) for sig in CELL_SIGNATURES]
+    return [(sig, CELL_PRESET_BATCH) for sig in CELL_PRESET] + model
+
+
+def check_cells(gen):
+    """K3 against `cell_reference` on the card, f32 and bf16, at every
+    case; then its gradients against plain autograd. Returns the worst
+    absolute error."""
+    import torch
+
+    from adanet_tpu_torch.ops import cell_kernels as ck
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = {}
+    for signature, batch in cell_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            prev, cur, params, spec = make_cell(signature, batch, dtype, gen)
+            got = ck.fused_cell(prev, cur, params, spec)
+            want = ck.cell_reference(prev, cur, params, spec)
+            scale = float(want.float().abs().max())
+            if dtype == torch.float32:
+                tol = 1e-4 * max(1.0, scale)
+            else:
+                # One bf16 ulp at the largest output: both sides sum in
+                # f32 and round once, in other orders.
+                tol = 2.0 ** -7 * scale
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError("K3 %s: %s %s vs %s %s" % (signature, got.shape, got.dtype, want.shape, want.dtype))
+            if not torch.isfinite(got.float()).all():
+                raise AssertionError("K3 %s %s: non-finite output" % (signature, dtype))
+            name = "K3 %s b=%d %s" % (signature, batch, dtype)
+            worst[dtype] = max(worst.get(dtype, 0.0), check_close(name, got, want, tol))
+    torch.cuda.synchronize()
+    print(
+        "K3 checked at %d signatures x f32/bf16; worst abs err: f32 %g, bf16 %g"
+        % (len(cell_cases()), worst[torch.float32], worst[torch.bfloat16])
+    )
+    check_cell_grads(gen)
+    return max(worst.values())
+
+
+def check_cell_grads(gen, batch=4):
+    """Gradients through `fused_cell` (K3 forward, backward recomputed
+    through `cell_reference`) against plain autograd, f32, rtol 1e-4."""
+    import torch
+
+    from adanet_tpu_torch.ops import cell_kernels as ck
+
+    for signature in ((96, 96, 32, "normal", 32), (192, 192, 64, "reduction", 32)):
+        prev, cur, params, spec = make_cell(signature, batch, torch.float32, gen)
+        leaves = [leaf for _, leaf in ck._flatten(params)]
+        cot = None
+        grads = []
+        for fn in (ck.fused_cell, ck.cell_reference):
+            inputs = [t.detach().clone().requires_grad_(True) for t in (prev, cur, *leaves)]
+            out = fn(inputs[0], inputs[1], ck._unflatten(params, inputs[2:]), spec)
+            if cot is None:
+                cot = torch.randn(out.shape, generator=gen).cuda()
+            grads.append(torch.autograd.grad(out, inputs, cot))
+        worst = 0.0
+        for got, want in zip(*grads):
+            scale = float(want.abs().max())
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6 * max(1.0, scale))
+            worst = max(worst, float((got - want).abs().max()))
+        print("K3 gradients %s: %d tensors match plain autograd (max abs diff %g)" % (signature, len(leaves) + 2, worst))
+
+
+def cell_work(signature, batch, params, spec, elem_bytes):
+    """(bytes, operations) one K3 call needs: prev, cur, the parameters
+    and the output moved once each; the 1x1, depthwise and pointwise
+    multiply-adds (2 operations each), 9 per pooled value and 1 per
+    branch add."""
+    from adanet_tpu_torch.ops import cell_kernels as ck
+
+    cp, cc, f, _, hw = signature
+    s = spec.stride
+    full = batch * hw * hw
+    reduced = batch * (-(-hw // s)) ** 2
+    flops = 2 * full * cc * f + (2 * full * cp * f if cp != f else 0)
+    for b in range(spec.num_blocks):
+        for k in range(2):
+            idx = spec.hiddenstate_indices[2 * b + k]
+            op = spec.operations[2 * b + k]
+            stride = s if idx < 2 else 1
+            pixels = reduced if (idx >= 2 or stride > 1) else full
+            if "separable" in op:
+                kernel, layers = ck._parse_separable(op)
+                flops += layers * 2 * pixels * (kernel * kernel * f + f * f)
+            elif "pool" in op:
+                flops += 9 * pixels * f
+            elif stride > 1:
+                flops += 2 * pixels * f * f
+        flops += pixels * f
+    for idx, used in enumerate(spec.used_hiddenstates):
+        if not used and idx < 2 and s > 1:
+            flops += 2 * reduced * f * f
+    param_bytes = sum(leaf.numel() * leaf.element_size() for _, leaf in ck._flatten(params))
+    num_unused = sum(1 for u in spec.used_hiddenstates if not u)
+    nbytes = elem_bytes * full * (cp + cc) + param_bytes + elem_bytes * reduced * f * num_unused
+    return nbytes, flops
+
+
+def device_ms(fn, calls=3):
+    """Device time per call of `fn` from a torch.profiler trace: the sum
+    of its CUDA kernels' times, in all and by kernel name."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name = collections.Counter()
+    for event in prof.events():
+        if getattr(event, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            total = getattr(event, "device_time_total", None)
+            name = event.name.replace("void ", "").replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0]
+            by_name[name] += (event.cuda_time_total if total is None else total) / 1e3 / calls
+    return sum(by_name.values()), dict(by_name.most_common(6))
+
+
+def time_cells(gen):
+    """K3 per case in bf16: ms per `fused_cell` call, the plain version's
+    ms, device kernels per call and the bound; plus the sums over the 20
+    cells of one NASNet-A (6@768) forward at bucket 32."""
+    import torch
+
+    from adanet_tpu_torch.ops import cell_kernels as ck
+
+    rows = []
+    totals = collections.Counter()
+    for signature, batch in cell_cases():
+        prev, cur, params, spec = make_cell(signature, batch, torch.bfloat16, gen)
+        before = ck.fused_cell.device_kernels
+        ck.fused_cell(prev, cur, params, spec)
+        kernels = ck.fused_cell.device_kernels - before
+        nbytes, flops = cell_work(signature, batch, params, spec, 2)
+        t_bound, t_by = bound_ms(nbytes, flops, "bfloat16")
+        row = dict(
+            signature=list(signature),
+            batch=batch,
+            cells_per_forward=CELL_SIGNATURES.get(signature, 0) if batch == max(BUCKETS) else 0,
+            device_kernels_per_call=kernels,
+            ms=cuda_time_ms(lambda: ck.fused_cell(prev, cur, params, spec)),
+            plain_ms=cuda_time_ms(lambda: ck.cell_reference(prev, cur, params, spec)),
+            bound_ms=t_bound,
+            bound_by=t_by,
+            mbytes=nbytes / 1e6,
+            gflop=flops / 1e9,
+        )
+        row["device_ms"], row["device_ms_by_kernel"] = device_ms(
+            lambda: ck.fused_cell(prev, cur, params, spec)
+        )
+        rows.append(row)
+        count = row["cells_per_forward"]
+        for key in ("ms", "plain_ms", "bound_ms", "device_ms"):
+            totals[key] += count * row[key]
+        totals["bytes"] += count * nbytes
+        totals["flops"] += count * flops
+    byte_ms = totals["bytes"] / PEAK_BYTES_PER_S * 1e3
+    flop_ms = totals["flops"] / PEAK_FLOPS["bfloat16"] * 1e3
+    total = dict(
+        shapes="one NASNet-A (6@768) forward's 20 cells at bucket %d, bf16, default tile"
+        % max(BUCKETS),
+        ms=totals["ms"],
+        plain_ms=totals["plain_ms"],
+        library_ms=None,
+        bound_ms=totals["bound_ms"],
+        bound_by="bytes" if byte_ms >= flop_ms else "operations",
+        device_ms=totals["device_ms"],
+    )
+    return total, rows
+
+
+def autotune_path(rng):
+    """The second main path: the autotuner twice on a fresh store, then
+    K2 and K3 at its `cifar` shapes with the stored tiles. Launch counts
+    are zeroed just before and read just after. Returns (counts, the
+    tuned cases for timing)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from adanet_tpu_torch import ops
+    from adanet_tpu_torch.ops import cell_kernels as ck
+    from adanet_tpu_torch.ops import sepconv_kernels as sk
+    from adanet_tpu_torch.ops import tuning
+    from adanet_tpu_torch.store import ArtifactStore
+    from adanet_tpu_torch.tools import autotune
+
+    tuned = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as store_dir:
+        argv = ["--store", store_dir, "--preset", "cifar", "--json"]
+        ops.reset_launch_counts()
+        reports = []
+        for _ in range(2):
+            tuning.clear_cache()
+            buf = io.StringIO()
+            t0 = time.time()
+            with contextlib.redirect_stdout(buf):
+                rc = autotune.main(argv)
+            report = json.loads(buf.getvalue())
+            report["secs"] = time.time() - t0
+            reports.append((rc, report))
+        (rc1, first), (rc2, second) = reports
+        if rc1 != 1 or first["searched"] != 4 or first["failed"]:
+            raise AssertionError("first autotune run: rc %d, %s" % (rc1, first))
+        if rc2 != 0 or second["searched"] != 0 or second["hits"] != 4:
+            raise AssertionError("second autotune run: rc %d, %s" % (rc2, second))
+        print(
+            "autotune: rc %d then %d; searched %d then %d, hits %d then %d; %.1f s then %.1f s"
+            % (rc1, rc2, first["searched"], second["searched"], first["hits"], second["hits"],
+               first["secs"], second["secs"])
+        )
+        for entry in first["workloads"]:
+            print("autotune sweep %s %s: %s" % (
+                entry["kernel"], json.dumps(entry["workload"]),
+                json.dumps([[c["tile_p"], c.get("secs"), c.get("error")] for c in entry["candidates"]])))
+        tuning.clear_cache()
+        tuning.set_default_store(ArtifactStore(store_dir))
+        try:
+            for entry in second["workloads"]:
+                stored = entry["winner"]["tile_p"]
+                work = entry["workload"]
+                if entry["kernel"] == "sepconv":
+                    b, h, w, c = work["shape"]
+                    k, f, stride = work["kernel"], work["filters"], work["stride"]
+                    x = torch.randn(b, h, w, c, generator=rng).cuda()
+                    dw = (torch.randn(c, 1, k, k, generator=rng) / k).cuda()
+                    pw = (torch.randn(f, c, 1, 1, generator=rng) / c ** 0.5).cuda()
+                    got = sk.fused_sep_conv(x, dw, pw, stride)
+                    chose = sk.fused_sep_conv.last_tiles[0]
+                    want = sk.sep_conv_reference(x, dw, pw, stride)
+                    tuned.append(("sepconv", (x, dw, pw, stride), stored, entry["workload"]))
+                else:
+                    b, hw, _, c = work["shape"]
+                    signature = (c, c, work["filters"], work["spec"], hw)
+                    prev, cur, params, spec = make_cell(signature, b, torch.float32, rng)
+                    got = ck.fused_cell(prev, cur, params, spec)
+                    chose = ck.fused_cell.last_tile_p
+                    want = ck.cell_reference(prev, cur, params, spec)
+                    tuned.append(("cell", (prev, cur, params, spec), stored, entry["workload"]))
+                err = check_close(
+                    "%s at its tuned tile" % entry["kernel"], got, want,
+                    1e-4 * max(1.0, float(want.abs().max())),
+                )
+                print("tuned %s %s: tile_p %d chosen, %d stored; max abs err %g"
+                      % (entry["kernel"], json.dumps(work), chose, stored, err))
+                if chose != stored:
+                    raise AssertionError("%s ran with tile_p %d, the store holds %d" % (entry["kernel"], chose, stored))
+        finally:
+            tuning.set_default_store(None)
+            tuning.clear_cache()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    if counts["cell"] < 1 or counts["sepconv"] < 1:
+        raise AssertionError("the autotune path launched %s" % counts)
+    print("autotune path launches: %s" % counts)
+    return counts, tuned
+
+
+def time_tuned(tuned):
+    """At each preset shape: ms at the stored tile against the default."""
+    from adanet_tpu_torch.ops import cell_kernels as ck
+    from adanet_tpu_torch.ops import sepconv_kernels as sk
+
+    rows = []
+    for kernel, args, stored, workload in tuned:
+        if kernel == "sepconv":
+            x, dw, pw, stride = args
+            c, f, k = x.shape[-1], pw.shape[0], dw.shape[-1]
+
+            def run(tile_p):
+                return lambda: sk._launch(x, dw, pw, stride, sk.tiles(c, f, k, tile_p))
+
+            default = sk.DEFAULT_TILE_P
+        else:
+            prev, cur, params, spec = args
+
+            def run(tile_p):
+                return lambda: ck._launch(prev, cur, params, spec, tile_p)
+
+            default = ck.DEFAULT_TILE_P
+        rows.append(
+            dict(
+                kernel=kernel,
+                workload=workload,
+                tuned_tile_p=stored,
+                tuned_ms=cuda_time_ms(run(stored)),
+                default_tile_p=default,
+                default_ms=cuda_time_ms(run(default)),
+            )
+        )
+    print("tuned_vs_default: " + json.dumps(rows))
+    return rows
 
 
 def time_kernels(sep_shapes, rng):
@@ -348,7 +725,7 @@ def serve(model_dir, sep_shapes, rng):
             raise AssertionError("probabilities do not sum to 1")
     programs = batches + 1  # + the gate's smoke sample
     per_program = NUM_MEMBERS * len(sep_shapes)  # 2 x 200 at full width
-    expected = {"copy": 1, "combine": programs, "sepconv": per_program * programs}
+    expected = {"copy": 1, "combine": programs, "sepconv": per_program * programs, "cell": 0}
     if counts != expected:
         raise AssertionError("launch counts %s, expected %s" % (counts, expected))
     print(
@@ -454,21 +831,31 @@ def main(argv=None):
     rng = torch.Generator().manual_seed(args.seed + 1)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as model_dir:
         t0 = time.time()
-        gen_dir, sep_shapes = publish(model_dir, args.seed)
+        gen_dir, sep_shapes, cell_signatures = publish(model_dir, args.seed)
         print("published %s in %.1f s" % (os.path.basename(gen_dir), time.time() - t0))
+        if cell_signatures != CELL_SIGNATURES:
+            raise AssertionError("the model's cells %s differ from CELL_SIGNATURES" % cell_signatures)
         errors = check_kernels(sep_shapes, rng)
+        errors["cell"] = check_cells(rng)
         print("kernel checks passed: max abs err %s" % errors)
         counts, served = serve(model_dir, sep_shapes, rng)
+        tune_counts, tuned = autotune_path(rng)
         profile_batch(gen_dir, rng)
         compare_with_cpu(gen_dir, rng)
     rows, per_shape = time_kernels(sep_shapes, rng)
+    rows["cell"], cell_rows = time_cells(rng)
+    time_tuned(tuned)
+    # Each kernel's launches on the main path that runs it: serving for
+    # K0-K2, the autotuner for K3.
+    counts = dict(counts, cell=tune_counts["cell"])
     replaces = {
         "copy": ("adanet_tpu_torch/ops/csrc/copy_kernel.cu", "adanet_tpu/ops/sepconv_kernels.py:68"),
         "combine": ("adanet_tpu_torch/ops/csrc/combine_kernel.cu", "adanet_tpu/ops/ensemble_kernels.py:69"),
         "sepconv": ("adanet_tpu_torch/ops/csrc/sepconv_kernel.cu", "adanet_tpu/ops/sepconv_kernels.py:189"),
+        "cell": ("adanet_tpu_torch/ops/csrc/cell_kernel.cu", "adanet_tpu/ops/cell_kernels.py:519"),
     }
     kernels = []
-    for name in ("copy", "combine", "sepconv"):
+    for name in ("copy", "combine", "sepconv", "cell"):
         row = rows[name]
         kernels.append(
             {
@@ -487,6 +874,8 @@ def main(argv=None):
             }
         )
     print("sepconv_shapes: " + json.dumps(per_shape))
+    print("cell_shapes: " + json.dumps(cell_rows))
+    print("cell_forward: " + json.dumps(rows["cell"]))
     print("served: " + json.dumps(served))
     print(card_line())
     print(json.dumps({"kernels": kernels}))

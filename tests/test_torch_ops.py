@@ -137,13 +137,15 @@ def test_copy_plain_version():
 def test_kernel_sources_name_the_tpu_kernels_they_replace():
     import os
 
-    for name, (source, fn_name, argtypes) in _build.KERNELS.items():
+    for name, (source, functions) in _build.KERNELS.items():
         path = os.path.join(_build.CSRC_DIR, source)
         text = open(path).read()
         assert "Replaces: adanet_tpu/ops/" in text, source
         assert "Bound:" in text, source
-        assert 'extern "C" int %s(' % fn_name in text, source
-        # One ctypes argtype per C parameter.
-        signature = text.split('extern "C" int %s(' % fn_name)[1].split(")")[0]
-        assert len(signature.split(",")) == len(argtypes), source
+        assert functions, source
+        for fn_name, argtypes in functions.items():
+            assert 'extern "C" int %s(' % fn_name in text, (source, fn_name)
+            # One ctypes argtype per C parameter.
+            signature = text.split('extern "C" int %s(' % fn_name)[1].split(")")[0]
+            assert len(signature.split(",")) == len(argtypes), (source, fn_name)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
