@@ -16,6 +16,11 @@ K0, the copy kernel, is the build's self-test: `library()` launches it
 once per process before it hands out any other kernel, and `self_test()` runs it
 again wherever a caller wants proof that the kernels launch on a device
 (the serving loader does, before it smokes a generation).
+
+The host side of a launch is kept near PyTorch's own: once the libraries
+are bound and K0 has passed, `library()` hands out a bound function from
+a dict without the lock, and `stream_handle()` reads the current stream's
+raw handle with one C call, without building a `torch.cuda.Stream`.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -53,7 +58,7 @@ _I = ctypes.c_int
 KERNELS = {
     "copy": ("copy_kernel.cu", {"copy_forward": [_P, _P, ctypes.c_longlong, _P]}),
     "combine": ("combine_kernel.cu", {"combine_forward": [_P] * 4 + [_I] * 4 + [_P]}),
-    "sepconv": ("sepconv_kernel.cu", {"sepconv_forward": [_P] * 4 + [_I] * 14 + [_P]}),
+    "sepconv": ("sepconv_kernel.cu", {"sepconv_forward": [_P] * 6}),
     "cell": (
         "cell_kernel.cu",
         {
@@ -73,6 +78,9 @@ _lock = threading.Lock()
 _functions: Dict[str, Dict[str, ctypes._CFuncPtr]] = {}
 _error_string = None  # copy library's error_string(code) -> message
 _self_tested = False
+# (library, function) -> bound function, filled once the libraries are
+# bound and K0 has passed: the lock-free path of `library()`.
+_ready: Dict[Tuple[str, Optional[str]], ctypes._CFuncPtr] = {}
 
 
 def nvcc_path() -> str:
@@ -133,8 +141,11 @@ def library(name: str, function: Optional[str] = None):
     """A bound C entry point of one kernel library (`function` may be
     left out where the library has one); builds all kernels that are
     missing on first use and runs the K0 self-test once per process
-    before handing out any other kernel."""
-    global _error_string, _self_tested
+    before handing out any other kernel. After that, one dict lookup."""
+    fn = _ready.get((name, function))
+    if fn is not None:
+        return fn
+    global _error_string
     with _lock:
         if not _functions:
             paths = build()
@@ -158,8 +169,16 @@ def library(name: str, function: Optional[str] = None):
             fn = bound[function]
     if name != "copy" and not _self_tested:
         self_test()
-        _self_tested = True
+    if _self_tested:
+        _ready[(name, function)] = fn
     return fn
+
+
+def stream_handle(t: torch.Tensor) -> int:
+    """The raw `cudaStream_t` of the caller's current stream on `t`'s
+    device: one C call, no `torch.cuda.Stream` object. Every launch of
+    the port goes on this stream."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(code: int, what: str) -> None:
@@ -177,20 +196,15 @@ def copy_reference(x: torch.Tensor) -> torch.Tensor:
 def copy_tensor(x: torch.Tensor) -> torch.Tensor:
     """K0: identity copy. CPU tensors take the plain version; a CUDA
     tensor launches the kernel or raises."""
-    if x.device.type == "cpu":
-        return copy_reference(x)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return copy_reference(x)
         raise ValueError("copy_tensor: unsupported device %s" % x.device)
     x = x.contiguous()
     out = torch.empty_like(x)
-    fn = library("copy")
-    code = fn(
-        x.data_ptr(),
-        out.data_ptr(),
-        x.numel() * x.element_size(),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    check(code, "copy_forward")
+    code = library("copy")(x.data_ptr(), out.data_ptr(), x.nbytes, stream_handle(x))
+    if code:
+        check(code, "copy_forward")
     copy_tensor.launches += 1
     return out
 
@@ -201,7 +215,9 @@ copy_tensor.launches = 0
 def self_test(device="cuda") -> None:
     """Launches K0 on an [8] f32 tensor and checks the copy (the port's
     counterpart of the TPU package's lowering probe)."""
+    global _self_tested
     x = torch.arange(8, dtype=torch.float32, device=device)
     y = copy_tensor(x)
     if not torch.equal(x, y):
         raise RuntimeError("K0 self-test: the copy kernel returned wrong data")
+    _self_tested = True

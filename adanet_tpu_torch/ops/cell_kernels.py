@@ -415,10 +415,6 @@ class _Slot:
         return int(self.tensor.shape[-1])
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _threads_along_f(f: int) -> int:
     return 8 if f <= 32 else 16
 
@@ -450,7 +446,7 @@ class _Launcher:
             src.ptr, src.stride, w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             dst.ptr, dst.stride, int(accumulate), self.batch, src.h, src.w, c, f,
             stride, shift, int(relu), dst.h, dst.w, self.tile_p, _threads_along_f(f),
-            int(src.tensor.dtype == torch.bfloat16), _stream(dst.tensor),
+            int(src.tensor.dtype == torch.bfloat16), _build.stream_handle(dst.tensor),
         )
         self._done(code, "cell_conv1x1")
 
@@ -465,7 +461,7 @@ class _Launcher:
             src.ptr, src.stride, dw.data_ptr(), pw.data_ptr(), scale.data_ptr(),
             bias.data_ptr(), dst.ptr, dst.stride, int(accumulate), self.batch,
             src.h, src.w, c, f, k, stride, dst.h, dst.w, pt, pl, tile_p, tile_f,
-            _threads_along_f(tile_f), _stream(dst.tensor),
+            _threads_along_f(tile_f), _build.stream_handle(dst.tensor),
         )
         self._done(code, "cell_sep_layer")
 
@@ -477,13 +473,13 @@ class _Launcher:
             src.ptr, src.stride, dst.ptr, dst.stride, int(accumulate), self.batch,
             src.h, src.w, channels, {"copy": 0, "avg": 1, "max": 2}[mode], stride,
             dst.h, dst.w, pt, pl, self.tile_p, int(src.tensor.dtype == torch.bfloat16),
-            _stream(dst.tensor),
+            _build.stream_handle(dst.tensor),
         )
         self._done(code, "cell_pool")
 
     def cast(self, src: torch.Tensor, dst: torch.Tensor) -> None:
         code = _build.library("cell", "cell_cast_bf16")(
-            src.data_ptr(), dst.data_ptr(), src.numel(), _stream(dst)
+            src.data_ptr(), dst.data_ptr(), src.numel(), _build.stream_handle(dst)
         )
         self._done(code, "cell_cast_bf16")
 

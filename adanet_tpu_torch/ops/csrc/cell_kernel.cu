@@ -346,11 +346,13 @@ extern "C" int cell_sep_layer(const float* x, int x_stride, const float* dw,
     return (int)cudaErrorInvalidValue;
   size_t smem = sizeof(float) * ((size_t)tile_p * (C + 1) +
                                  (size_t)C * (tile_f + 1) + (size_t)K * K * C);
-  if (smem > 48 * 1024) {
+  static bool wide_smem = false;  // set once, not per launch
+  if (smem > 48 * 1024 && !wide_smem) {
     cudaError_t err = cudaFuncSetAttribute(
         sep_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        227 * 1024);
     if (err != cudaSuccess) return (int)err;
+    wide_smem = true;
   }
   dim3 grid(grid_for(total, tile_p), (F + tile_f - 1) / tile_f);
   sep_layer_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(

@@ -70,8 +70,7 @@ def fused_weighted_combine(
     weights = weights.contiguous()
     bias = bias.contiguous() if bias is not None else None
     out = torch.empty((b, c), dtype=torch.float32, device=stacked_logits.device)
-    fn = _build.library("combine")
-    code = fn(
+    code = _build.library("combine")(
         stacked_logits.data_ptr(),
         weights.data_ptr(),
         bias.data_ptr() if bias is not None else None,
@@ -80,9 +79,10 @@ def fused_weighted_combine(
         b,
         c,
         int(weights.dim() == 2),
-        torch.cuda.current_stream(stacked_logits.device).cuda_stream,
+        _build.stream_handle(stacked_logits),
     )
-    _build.check(code, "combine_forward")
+    if code:
+        _build.check(code, "combine_forward")
     fused_weighted_combine.launches += 1
     return out
 

@@ -28,16 +28,21 @@ document; the full sweep is content-addressed as a blob for audit.
 
 Lookup layering (cheapest first):
 
-1. an in-process cache (`_CACHE`);
+1. an in-process memo (`_CACHE`), of hits and of misses;
 2. the default store, when one was registered via
    `set_default_store(...)` or the `ADANET_TUNE_STORE` env var;
 3. miss: the caller keeps its static heuristic.
 
-PyTorch runs eagerly, so the wrappers consult `lookup` on every launch
-(the JAX package does so once per trace). With no store registered and
-an empty cache, `lookup` returns before it fingerprints anything. Misses
-are not cached, so a ref published mid-run is picked up on the next
-launch.
+A lookup reads the store at most once per (kernel, spec, environment,
+store) per process, hit or miss, as the JAX package looks up once per
+trace; K2's wrapper goes further and plans each launch signature once
+(`sepconv_kernels._PLANS`, registered here with `register_memo`). The
+memo and every registered one are dropped by `clear_cache()`,
+`set_default_store()` and `record()`, so a process that tunes launches
+its own winners; a ref that another process publishes mid-run is picked
+up after the next drop (or by the next process). With no store
+registered and an empty memo, `lookup` returns before it fingerprints
+anything.
 """
 
 from __future__ import annotations
@@ -52,6 +57,11 @@ TUNE_REF_KIND = "tune"
 
 # (kernel, spec_fingerprint, env_fingerprint) -> winner config dict.
 _CACHE: Dict[Tuple[str, str, str], Dict[str, Any]] = {}
+# (kernel, spec_fingerprint, env_fingerprint, store) of lookups that
+# missed (stores hash by identity).
+_MISSES: set = set()
+# Callers' memos derived from lookups, dropped with this one.
+_DEPENDENT_MEMOS: List[Dict] = []
 
 _DEFAULT_STORE = None
 # ADANET_TUNE_STORE root -> its ArtifactStore, opened once per process.
@@ -59,9 +69,11 @@ _ENV_STORES: Dict[str, Any] = {}
 
 
 def set_default_store(store) -> None:
-    """Registers the store consulted by `lookup` (None to clear)."""
+    """Registers the store consulted by `lookup` (None to clear); drops
+    the lookup memo."""
     global _DEFAULT_STORE
     _DEFAULT_STORE = store
+    _drop_memo()
 
 
 def _resolve_store():
@@ -83,8 +95,22 @@ def _resolve_store():
 
 
 def clear_cache() -> None:
-    """Drops the in-process lookup cache (tests)."""
+    """Drops the in-process lookup memo, hits and misses, and every memo
+    registered with `register_memo`."""
     _CACHE.clear()
+    _drop_memo()
+
+
+def _drop_memo() -> None:
+    _MISSES.clear()
+    for memo in _DEPENDENT_MEMOS:
+        memo.clear()
+
+
+def register_memo(memo: Dict) -> None:
+    """Has `clear_cache`, `set_default_store` and `record` clear `memo`
+    too (a caller's plans built from lookups)."""
+    _DEPENDENT_MEMOS.append(memo)
 
 
 def tune_ref_name(kernel: str, spec: Dict[str, Any], device=None) -> str:
@@ -118,11 +144,13 @@ def lookup(
         return hit
     if store is None:
         return None
-    doc = store.get_ref(TUNE_REF_KIND, tune_ref_name(kernel, spec, device))
-    if not isinstance(doc, dict):
+    miss_key = cache_key + (store,)
+    if miss_key in _MISSES:
         return None
-    winner = (doc.get("meta") or {}).get("winner")
+    doc = store.get_ref(TUNE_REF_KIND, tune_ref_name(kernel, spec, device))
+    winner = (doc.get("meta") or {}).get("winner") if isinstance(doc, dict) else None
     if not isinstance(winner, dict):
+        _MISSES.add(miss_key)
         return None
     _CACHE[cache_key] = winner
     return winner
@@ -159,6 +187,7 @@ def record(
         meta={"kernel": kernel, "spec": spec, "winner": winner},
     )
     adopted = (doc.get("meta") or {}).get("winner", winner)
+    _drop_memo()
     _CACHE[_cache_key(kernel, spec, device)] = adopted
     return doc
 

@@ -18,7 +18,10 @@
    requests of 1 to 32 rows through ServingFrontend -> Batcher ->
    ModelPool, checks every result is ok, finite and well formed, and
    checks the launch counts (zeroed just before): one K0 per gated
-   generation, one K1 per executed program call, 400 K2 per K1.
+   generation, one K1 per executed program call, 400 K2 per K1. A last
+   burst runs twice with an empty tuning store registered (no serving
+   winners), so that the tuning lookup's cost shows: one store read per
+   K2 signature in the first, none for a signature already planned.
 5. Compares one bucket, loaded at f32 compute, on the card against the
    same generation loaded with device="cpu".
 6. Holds K3, the fused cell, against its plain version on the card, in
@@ -36,8 +39,12 @@
    computes the same function (K0: `torch.clone`, K1: `torch.einsum`,
    K2: grouped plus 1x1 `F.conv2d`; K3: none, no single PyTorch call
    computes a cell), with CUDA events, and computes each kernel's bound
-   from its shapes. K3 per signature in bf16, with its device kernels per
-   call, and at the preset cells with the tuned against the default tile.
+   from its shapes. K2 per shape also with its device time from
+   torch.profiler at buckets 32 and 1 and its grid's block count. The
+   host's enqueue time per call (a host clock over 1000 calls, no
+   synchronize) of K0, `torch.clone` and one K2 launch. K3 per signature
+   in bf16, with its device kernels per call, and at the preset cells
+   with the tuned against the default tile.
 
 Prints the per-shape K2 and K3 timings, the served latency and
 throughput, a `kernels` JSON line, and as its last line `{"ok": true,
@@ -107,6 +114,21 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_enqueue_us(fn, calls=1000):
+    """Host time per call to enqueue `fn`: a host clock over `calls`
+    calls with no synchronize inside (the queue drained before)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / calls * 1e6
 
 
 def bound_ms(nbytes, flops, dtype_name):
@@ -391,26 +413,52 @@ def cell_work(signature, batch, params, spec, elem_bytes):
     return nbytes, flops
 
 
-def device_ms(fn, calls=3):
+def device_ms(fn, calls=3, expect=None, attempts=3):
     """Device time per call of `fn` from a torch.profiler trace: the sum
-    of its CUDA kernels' times, in all and by kernel name."""
+    of its CUDA kernels' times, in all and by kernel name, and the
+    source "profiler". A trace that holds no kernel (of the name
+    `expect`, if given) is taken again, up to `attempts` traces; if none
+    holds one (the card's tracer delivered nothing), the time comes from
+    `queued_device_ms` instead, with the source "queued events"."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    by_name = collections.Counter()
-    for event in prof.events():
-        if getattr(event, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            total = getattr(event, "device_time_total", None)
-            name = event.name.replace("void ", "").replace("(anonymous namespace)::", "")
-            name = name.split("(")[0].split("<")[0]
-            by_name[name] += (event.cuda_time_total if total is None else total) / 1e3 / calls
-    return sum(by_name.values()), dict(by_name.most_common(6))
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        by_name = collections.Counter()
+        for event in prof.events():
+            if getattr(event, "device_type", None) == torch.autograd.DeviceType.CUDA:
+                total = getattr(event, "device_time_total", None)
+                name = event.name.replace("void ", "").replace("(anonymous namespace)::", "")
+                name = name.split("(")[0].split("<")[0]
+                by_name[name] += (event.cuda_time_total if total is None else total) / 1e3 / calls
+        if by_name and (expect is None or any(expect in name for name in by_name)):
+            return sum(by_name.values()), dict(by_name.most_common(6)), "profiler"
+    return queued_device_ms(fn), {}, "queued events"
+
+
+def queued_device_ms(fn, calls=50):
+    """Device time per call of `fn` from CUDA events around `calls`
+    calls queued behind a sleeping kernel, so that they run back to back
+    whatever the host's enqueue time (a cross-check of `device_ms`)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(5e6))  # a few ms of device time, longer than the enqueue
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def time_cells(gen):
@@ -442,7 +490,7 @@ def time_cells(gen):
             mbytes=nbytes / 1e6,
             gflop=flops / 1e9,
         )
-        row["device_ms"], row["device_ms_by_kernel"] = device_ms(
+        row["device_ms"], row["device_ms_by_kernel"], row["device_ms_source"] = device_ms(
             lambda: ck.fused_cell(prev, cur, params, spec)
         )
         rows.append(row)
@@ -593,21 +641,30 @@ def time_tuned(tuned):
 def time_kernels(sep_shapes, rng):
     """Per-kernel times at the largest bucket: kernel, plain version,
     library call and bound. K2's numbers sum over the 200 launches of one
-    member forward (each shape times its launch count)."""
+    member forward (each shape times its launch count); per shape also
+    its device time (torch.profiler) at buckets 32 and 1, the library
+    call's device time at bucket 32, and the planned grid's blocks.
+    Returns (rows, K2 per shape, host enqueue times)."""
     import torch
     import torch.nn.functional as F
 
     from adanet_tpu_torch.ops import _build, ensemble_kernels, sepconv_kernels
 
     b = max(BUCKETS)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = {}
     x = torch.arange(8, dtype=torch.float32).cuda()
     t_bound, t_by = bound_ms(2 * x.numel() * 4, 0, "float32")
+    # K0 and the library call in turns (kernel, library, library, kernel).
+    copy_ms = [cuda_time_ms(lambda: _build.copy_tensor(x), iters=100)]
+    clone_ms = [cuda_time_ms(lambda: torch.clone(x), iters=100)]
+    clone_ms.append(cuda_time_ms(lambda: torch.clone(x), iters=100))
+    copy_ms.append(cuda_time_ms(lambda: _build.copy_tensor(x), iters=100))
     rows["copy"] = dict(
         shapes="[8] f32",
-        ms=cuda_time_ms(lambda: _build.copy_tensor(x), iters=100),
+        ms=sum(copy_ms) / 2,
         plain_ms=cuda_time_ms(lambda: _build.copy_reference(x), iters=100),
-        library_ms=cuda_time_ms(lambda: torch.clone(x), iters=100),
+        library_ms=sum(clone_ms) / 2,
         bound_ms=t_bound,
         bound_by=t_by,
     )
@@ -627,33 +684,53 @@ def time_kernels(sep_shapes, rng):
     per_shape = []
     totals = collections.Counter()
     flops_total = bytes_total = 0
+    host = {}
     for ((h, w_, c), f, k, s), count in sorted(counts.items()):
         dtype = torch.bfloat16
-        x = torch.randn(b, h, w_, c, generator=rng).cuda().to(dtype)
         dw = (torch.randn(c, 1, k, k, generator=rng) / k).cuda()
         pw = (torch.randn(f, c, 1, 1, generator=rng) / c ** 0.5).cuda()
         dwb, pwb = dw.to(dtype), pw.to(dtype)
         ho, pt, pb = sepconv_kernels.same_pads(h, k, s)
         wo, pl, pr = sepconv_kernels.same_pads(w_, k, s)
+        row = dict(shape=[b, h, w_, c, f, k, s], launches_per_member_forward=count)
+        for bucket in (b, 1):
+            x = torch.randn(bucket, h, w_, c, generator=rng).cuda().to(dtype)
 
-        def library():
-            y = F.pad(torch.relu(x).permute(0, 3, 1, 2), (pl, pr, pt, pb))
-            y = F.conv2d(y, dwb, stride=s, groups=c)
-            return F.conv2d(y, pwb)
+            def kernel():
+                return sepconv_kernels.fused_sep_conv(x, dw, pw, s)
 
+            def library():
+                y = F.pad(torch.relu(x).permute(0, 3, 1, 2), (pl, pr, pt, pb))
+                y = F.conv2d(y, dwb, stride=s, groups=c)
+                return F.conv2d(y, pwb)
+
+            plan = sepconv_kernels.launch_plan(x.shape, dtype, f, k, s, sms=sms)
+            suffix = "" if bucket == b else "_b1"
+            row["blocks" + suffix] = plan.blocks
+            # Kernel and library call in turns, CUDA events.
+            first = cuda_time_ms(kernel)
+            lib = [cuda_time_ms(library), cuda_time_ms(library)]
+            row["ms" + suffix] = (first + cuda_time_ms(kernel)) / 2
+            row["library_ms" + suffix] = sum(lib) / 2
+            row["device_ms" + suffix], by_name, row["device_ms_source" + suffix] = device_ms(
+                kernel, calls=10, expect="sepconv_kernel"
+            )
+            if len(by_name) > 1:
+                raise AssertionError("K2 ran device kernels %s" % by_name)
+            row["queued_device_ms" + suffix] = queued_device_ms(kernel)
+            if bucket == b:
+                if plan.blocks < sms:
+                    raise AssertionError("K2 %s: %d blocks < %d SMs" % (row["shape"], plan.blocks, sms))
+                row["plain_ms"] = cuda_time_ms(lambda: sepconv_kernels.sep_conv_reference(x, dw, pw, s))
+                row["library_device_ms"], _, row["library_device_ms_source"] = device_ms(library)
+                if (h, c, k) == (16, 64, 3):
+                    host["sepconv_us"] = host_enqueue_us(kernel)
+                    host["sepconv_shape"] = row["shape"]
         nbytes = 2 * b * h * w_ * c + 4 * (c * k * k + c * f) + 2 * b * ho * wo * f
         flops = 2 * b * ho * wo * (c * k * k + c * f)
-        t_bound, _ = bound_ms(nbytes, flops, "bfloat16")
-        row = dict(
-            shape=[b, h, w_, c, f, k, s],
-            launches_per_member_forward=count,
-            ms=cuda_time_ms(lambda: sepconv_kernels.fused_sep_conv(x, dw, pw, s)),
-            plain_ms=cuda_time_ms(lambda: sepconv_kernels.sep_conv_reference(x, dw, pw, s)),
-            library_ms=cuda_time_ms(library),
-            bound_ms=t_bound,
-        )
+        row["bound_ms"], _ = bound_ms(nbytes, flops, "bfloat16")
         per_shape.append(row)
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms", "library_device_ms"):
             totals[key] += count * row[key]
         flops_total += count * flops
         bytes_total += count * nbytes
@@ -667,8 +744,21 @@ def time_kernels(sep_shapes, rng):
         library_ms=totals["library_ms"],
         bound_ms=totals["bound_ms"],
         bound_by="bytes" if byte_ms >= flop_ms else "operations",
+        device_ms=totals["device_ms"],
+        library_device_ms=totals["library_device_ms"],
     )
-    return rows, per_shape
+    # Host enqueue per call, K0 and torch.clone in turns.
+    x = torch.arange(8, dtype=torch.float32).cuda()
+    copy_us = [host_enqueue_us(lambda: _build.copy_tensor(x))]
+    clone_us = [host_enqueue_us(lambda: torch.clone(x)), host_enqueue_us(lambda: torch.clone(x))]
+    copy_us.append(host_enqueue_us(lambda: _build.copy_tensor(x)))
+    host["copy_us"] = sum(copy_us) / 2
+    host["clone_us"] = sum(clone_us) / 2
+    host["copy_us_runs"] = copy_us
+    host["clone_us_runs"] = clone_us
+    rows["copy"]["host_us"] = host["copy_us"]
+    rows["copy"]["library_host_us"] = host["clone_us"]
+    return rows, per_shape, host
 
 
 def serve(model_dir, sep_shapes, rng):
@@ -679,13 +769,16 @@ def serve(model_dir, sep_shapes, rng):
 
     from adanet_tpu_torch import ops
     from adanet_tpu_torch.observability import metrics
+    from adanet_tpu_torch.ops import tuning
     from adanet_tpu_torch.serving import Batcher, FrontendConfig, ModelPool, ServingFrontend
+    from adanet_tpu_torch.store import ArtifactStore
 
     def request(n):
         return {"image": torch.randn(n, 32, 32, 3, generator=rng).numpy()}
 
     serial = [request(n) for n in SERIAL_ROWS]
     burst = [request(n) for n in BURST_ROWS]
+    store_burst = [request(n) for n in BURST_ROWS]
     dispatches = metrics.registry().counter("serving.batcher.dispatches")
     dispatched_before = dispatches.value
     ops.reset_launch_counts()
@@ -705,6 +798,28 @@ def serve(model_dir, sep_shapes, rng):
         handles = [frontend.submit_async(f) for f in burst]
         results += [h.wait(300.0) for h in handles]
         burst_secs = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as store_dir:
+            store = ArtifactStore(store_dir)
+            reads = collections.Counter()
+            get_ref = store.get_ref
+
+            def counted_get_ref(kind, name):
+                reads[kind] += 1
+                return get_ref(kind, name)
+
+            store.get_ref = counted_get_ref
+            tuning.set_default_store(store)
+            try:
+                t0 = time.perf_counter()
+                handles = [frontend.submit_async(f) for f in store_burst]
+                results += [h.wait(300.0) for h in handles]
+                store_burst_secs = time.perf_counter() - t0
+                first_reads = reads["tune"]
+                handles = [frontend.submit_async(f) for f in store_burst]
+                again = [h.wait(300.0) for h in handles]
+                results += again
+            finally:
+                tuning.set_default_store(None)
     finally:
         drained = frontend.drain(timeout=120.0)
     torch.cuda.synchronize()
@@ -712,7 +827,7 @@ def serve(model_dir, sep_shapes, rng):
     batches = int(dispatches.value - dispatched_before)
     if not drained:
         raise AssertionError("frontend did not drain")
-    for features, result in zip(serial + burst, results):
+    for features, result in zip(serial + burst + store_burst + store_burst, results):
         if not result.ok:
             raise AssertionError("request failed: %s %s" % (result.status, result.error))
         n = features["image"].shape[0]
@@ -729,7 +844,7 @@ def serve(model_dir, sep_shapes, rng):
     if counts != expected:
         raise AssertionError("launch counts %s, expected %s" % (counts, expected))
     print(
-        "served: %d requests (%d serial, %d burst), %d batches, all ok; launches %s "
+        "served: %d requests (%d serial, 3 x %d burst), %d batches, all ok; launches %s "
         "= 1 K0, 1 K1 and %d K2 per program call (%d batches + 1 smoke)"
         % (len(results), len(serial), len(burst), batches, counts, per_program, batches)
     )
@@ -738,6 +853,9 @@ def serve(model_dir, sep_shapes, rng):
         "serial_rows": int(sum(SERIAL_ROWS)),
         "burst_rows_per_s": float(sum(BURST_ROWS) / burst_secs),
         "burst_rows": int(sum(BURST_ROWS)),
+        "store_burst_rows_per_s": float(sum(BURST_ROWS) / store_burst_secs),
+        "store_reads_first_burst": first_reads,
+        "store_reads_second_burst": reads["tune"] - first_reads,
         "batches": batches,
     }
     return counts, stats
@@ -840,11 +958,14 @@ def main(argv=None):
         print("kernel checks passed: max abs err %s" % errors)
         counts, served = serve(model_dir, sep_shapes, rng)
         tune_counts, tuned = autotune_path(rng)
+        # The single-kernel traces come before the batch's large one
+        # (23,000 kernels), after which the tracer has been seen to
+        # deliver no kernels; device_ms then falls back to queued events.
+        rows, per_shape, host = time_kernels(sep_shapes, rng)
+        rows["cell"], cell_rows = time_cells(rng)
+        time_tuned(tuned)
         profile_batch(gen_dir, rng)
         compare_with_cpu(gen_dir, rng)
-    rows, per_shape = time_kernels(sep_shapes, rng)
-    rows["cell"], cell_rows = time_cells(rng)
-    time_tuned(tuned)
     # Each kernel's launches on the main path that runs it: serving for
     # K0-K2, the autotuner for K3.
     counts = dict(counts, cell=tune_counts["cell"])
@@ -874,6 +995,8 @@ def main(argv=None):
             }
         )
     print("sepconv_shapes: " + json.dumps(per_shape))
+    print("sepconv_forward: " + json.dumps(rows["sepconv"]))
+    print("host_enqueue: " + json.dumps(host))
     print("cell_shapes: " + json.dumps(cell_rows))
     print("cell_forward: " + json.dumps(rows["cell"]))
     print("served: " + json.dumps(served))

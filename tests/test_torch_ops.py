@@ -118,12 +118,20 @@ def test_same_pads_matches_jax(size, kernel, stride):
 
 
 def test_tiles_fit_shared_memory():
-    # The slice's widest case keeps whole rows of output channels.
-    assert sepconv_kernels.tiles(128, 128, 7) == (32, 128)
+    # A tuned 32-pixel tile of the slice's widest case keeps whole rows of
+    # output channels in the block's register tile.
+    assert sepconv_kernels.tiles(128, 128, 7, 32) == (32, 128)
+    # The kernel streams input channels in chunks, so every plan fits one
+    # block's shared memory, however wide C is.
     for c, f, k in [(128, 128, 7), (1024, 1024, 7), (4096, 64, 3)]:
-        tp, tf = sepconv_kernels.tiles(c, f, k)
-        assert 4 * (tp * c + c * (tf + 1) + k * k * c) <= sepconv_kernels.MAX_SHARED_BYTES
-        assert tp >= 1 and tf >= 1
+        for tile_p in (sepconv_kernels.AUTO, 16, 64):
+            tp, tf = sepconv_kernels.tiles(c, f, k, tile_p)
+            assert tp == tile_p and 1 <= tf <= f
+            plan = sepconv_kernels.launch_plan((32, 8, 8, c), torch.bfloat16, f, k, 1, tile_p)
+            fields = plan.fields
+            assert fields["smem"] <= sepconv_kernels.MAX_SHARED_BYTES
+            assert -(-fields["th"] * fields["tw"] // 16) * 16 * -(-fields["tf"] // 8) * 8 <= sepconv_kernels.TILE_OUTPUTS
+            assert 8 <= fields["cc"] <= c and sepconv_kernels.THREADS % fields["cc"] == 0
 
 
 def test_copy_plain_version():
