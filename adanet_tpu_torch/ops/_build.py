@@ -62,10 +62,8 @@ KERNELS = {
     "cell": (
         "cell_kernel.cu",
         {
-            "cell_conv1x1": [_P, _I, _P, _P, _P, _P, _I, _I] + [_I] * 13 + [_P],
-            "cell_sep_layer": [_P, _I, _P, _P, _P, _P, _P, _I, _I] + [_I] * 14 + [_P],
-            "cell_pool": [_P, _I, _P, _I, _I] + [_I] * 12 + [_P],
-            "cell_cast_bf16": [_P, _P, ctypes.c_longlong, _P],
+            # (program, steps, pointers, failed step, stream).
+            "cell_forward": [_P, _I, _P, _P, _P],
         },
     ),
 }

@@ -361,26 +361,32 @@ def _launch(x, dw, pw, stride: int, tile: Tuple[int, int]) -> torch.Tensor:
     return _run(plan_for(x, dw, pw, stride, tile[0]), x, dw, pw)
 
 
-# id(pw) -> (weakref to pw, pw's version, dtype, pw transposed to [C][F]
-# in dtype). An entry is used only for the same live tensor at the same
-# version: a weight changed in place is prepared again.
-_POINTWISE: Dict[int, tuple] = {}
+# (id(tensor), layout) -> (weakref to the tensor, its version, the
+# prepared tensor, its address). An entry is used only for the same live
+# tensor at the same version: a weight changed in place is prepared again.
+_PREPARED: Dict[Tuple[int, Any], tuple] = {}
+
+
+def prepare(t: torch.Tensor, layout, make) -> torch.Tensor:
+    """`make(t)`, the weight `t` in the layout a kernel reads, prepared
+    once per tensor, version and `layout` (K2's and K3's weights); an
+    inference tensor, which has no version counter, every call."""
+    key = (id(t), layout)
+    entry = _PREPARED.get(key)
+    if entry is not None and entry[0]() is t and entry[1] == t._version:
+        return entry[2]
+    with torch.no_grad():
+        prepared = make(t)
+    if not t.is_inference():
+        ref = weakref.ref(t, lambda _, key=key, memo=_PREPARED: memo.pop(key, None))
+        _PREPARED[key] = (ref, t._version, prepared, prepared.data_ptr())
+    return prepared
 
 
 def pointwise_t(pw: torch.Tensor, dtype) -> torch.Tensor:
     """The pointwise weight [F, C, 1, 1] as the kernel reads it: [C, F],
-    rounded to `dtype`. Prepared once per tensor, version and dtype; an
-    inference tensor, which has no version counter, every call."""
-    key = id(pw)
-    entry = _POINTWISE.get(key)
-    if entry is not None and entry[0]() is pw and entry[2] == dtype and entry[1] == pw._version:
-        return entry[3]
-    with torch.no_grad():
-        prepared = pw.reshape(pw.shape[0], -1).t().to(dtype).contiguous()
-    if not pw.is_inference():
-        ref = weakref.ref(pw, lambda _, key=key: _POINTWISE.pop(key, None))
-        _POINTWISE[key] = (ref, pw._version, dtype, prepared)
-    return prepared
+    rounded to `dtype`, prepared once per tensor, version and dtype."""
+    return prepare(pw, dtype, lambda t: t.reshape(t.shape[0], -1).t().to(dtype).contiguous())
 
 
 def _run(plan: LaunchPlan, x, dw, pw) -> torch.Tensor:

@@ -2,7 +2,7 @@
 
 Port of adanet_tpu/ops/tuning.py, with the same API and the same ref
 layout. Tile choices for the hand-written kernels (`sepconv_kernels`,
-`cell_kernels`) come from a static shared-memory heuristic unless a
+`cell_kernels`) come from each wrapper's own planner unless a
 measured winner exists: `adanet_tpu_torch.tools.autotune` sweeps the
 candidate tiles for a (kernel, shape) workload, and the winner lands as
 a set-once `tune/` ref in the content-addressed artifact store
@@ -225,15 +225,18 @@ def sweep(
     repeats: int = 2,
     clock: Callable[[], float] = time.perf_counter,
     synchronize: Optional[Callable[[], None]] = None,
+    timer: Optional[Callable[[Callable[[], Any]], float]] = None,
 ) -> Tuple[Dict[str, Any], List[Dict[str, Any]]]:
     """Times `run(candidate)` for each candidate; returns (winner, all).
 
     With `synchronize` (`torch.cuda.synchronize` for kernels on the
     card) the clock starts after the queue drains and stops after the
-    run's work finished. The first invocation per candidate is a
-    discarded warmup (first-use build and launch); the reported time is
-    the best of `repeats` timed runs. Candidates that raise are recorded
-    as failed and never win; at least one candidate must survive.
+    run's work finished. With `timer` (a function that runs its argument
+    and returns the seconds it took, e.g. by CUDA events) that takes the
+    clock's place. The first invocation per candidate is a discarded
+    warmup (first-use build and launch); the reported time is the best
+    of `repeats` timed runs. Candidates that raise are recorded as failed
+    and never win; at least one candidate must survive.
     """
     if not candidates:
         raise ValueError("sweep needs at least one candidate")
@@ -246,10 +249,13 @@ def sweep(
             sync()
             best = None
             for _ in range(max(1, repeats)):
-                started = clock()
-                run(cand)
-                sync()
-                elapsed = clock() - started
+                if timer is not None:
+                    elapsed = timer(lambda: run(cand))
+                else:
+                    started = clock()
+                    run(cand)
+                    sync()
+                    elapsed = clock() - started
                 best = elapsed if best is None else min(best, elapsed)
             entry["secs"] = best
         except Exception as exc:

@@ -18,11 +18,13 @@ Usage:
     python -m adanet_tpu_torch.tools.autotune --store PATH --dry-run  # report only
     python -m adanet_tpu_torch.tools.autotune --store PATH --json     # machine-readable
 
-`--device cuda` (the default) times the CUDA kernels around
-`torch.cuda.synchronize()`, and raises without CUDA. `--device cpu`
-times the plain versions as a proxy; its winners record `"device":
-"cpu"` and land under the CPU's env fingerprint, so they never apply on
-a card.
+`--device cuda` (the default) times the CUDA kernels by CUDA events,
+on the card's own clock (`cuda_event_timer`), and raises without CUDA.
+`--device cpu` times the plain versions as a proxy, by the host clock;
+its winners record `"device": "cpu"` and land under the CPU's env
+fingerprint, so they never apply on a card. K3's candidates start with
+`AUTO`, its planned tiles, so a sweep never stores a fixed tile that is
+slower than the plan.
 
 Exit status (the ckpt_fsck/fleetctl/servectl contract):
     0  clean: every workload was already tuned (pure store hit, zero
@@ -46,6 +48,23 @@ class _Parser(argparse.ArgumentParser):
     def error(self, message):
         self.print_usage(sys.stderr)
         self.exit(64, "%s: error: %s\n" % (self.prog, message))
+
+
+def cuda_event_timer(fn, calls: int = 5) -> float:
+    """Seconds per call of `fn` on the card: CUDA events around `calls`
+    calls queued behind a sleeping kernel, so that they run back to back
+    on the device whatever the host's enqueue time."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(5e6))  # a few ms of device time, longer than the enqueue
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3 / calls
 
 
 def _tiny_cell_spec():
@@ -213,7 +232,8 @@ def main(argv=None) -> int:
         sys.stderr.write("autotune: unusable store: %s\n" % exc)
         return 2
 
-    synchronize = torch.cuda.synchronize if device.type == "cuda" else None
+    on_card = device.type == "cuda"
+    synchronize = torch.cuda.synchronize if on_card else None
     kernels = (
         ("sepconv", "cell") if args.kernel == "all" else (args.kernel,)
     )
@@ -263,6 +283,7 @@ def main(argv=None) -> int:
                         candidates,
                         repeats=args.repeats,
                         synchronize=synchronize,
+                        timer=cuda_event_timer if on_card else None,
                     )
                     winner = dict(winner)
                     winner["device"] = device.type

@@ -28,8 +28,11 @@
    f32 and bf16, at the two `cifar` autotuner cells (batch 64) and at
    every distinct cell signature of NASNet-A (6@768) CIFAR at bucket 32
    (derived from the served model and checked against `CELL_SIGNATURES`),
-   with random folded affines; and once its gradients against plain
-   autograd through `cell_reference` (f32, a normal and a reduction cell).
+   with random folded affines, at two small cells that factorize-reduce
+   an input (one at odd widths) and at a fixed tile; and once its
+   gradients against plain autograd through `cell_reference` (f32, a
+   normal and a reduction cell). Every K3 launch at the 13 cases has at
+   least one block per SM (its planned schedule).
 7. Second main path, the kernel autotuner: with the launch counts zeroed,
    `adanet_tpu_torch.tools.autotune.main` runs twice on a temporary store
    with `--preset cifar` and must return 1, then 0 with no search; K2 and
@@ -42,9 +45,13 @@
    from its shapes. K2 per shape also with its device time from
    torch.profiler at buckets 32 and 1 and its grid's block count. The
    host's enqueue time per call (a host clock over 1000 calls, no
-   synchronize) of K0, `torch.clone` and one K2 launch. K3 per signature
-   in bf16, with its device kernels per call, and at the preset cells
-   with the tuned against the default tile.
+   synchronize) of K0, `torch.clone`, one K2 launch and one K3 call. K3
+   per signature in bf16: CUDA-event and device ms, device ms by kernel
+   (separable layer, 1x1, pool/copy, cast), launches and the fewest
+   blocks a launch, host us per call, against the bound; a bf16 call's
+   trace must hold K3's kernels only. The sum over one forward's 20
+   cells is printed beside the first K3 design's (`FIRST_K3_FORWARD`).
+   At the preset cells, the tuned against the default tile.
 
 Prints the per-shape K2 and K3 timings, the served latency and
 throughput, a `kernels` JSON line, and as its last line `{"ok": true,
@@ -88,6 +95,12 @@ CELL_SIGNATURES = {
 # The autotuner's `cifar` cells (prev = cur = [64, 32, 32, 32]).
 CELL_PRESET = ((32, 32, 32, "normal", 32), (32, 32, 64, "reduction", 32))
 CELL_PRESET_BATCH = 64
+# K3's CUDA kernels, as torch.profiler names them.
+CELL_KERNELS = ("sep_layer_kernel", "conv1x1_kernel", "pool_kernel", "cast_bf16_kernel")
+# The first K3 design (18 launches a cell on CUDA cores, 64-pixel tiles)
+# over one forward's 20 cells at bucket 32, bf16, on an H100 80GB HBM3
+# at 700 W (PERF.md, "K3 per signature"): the yardstick of this one.
+FIRST_K3_FORWARD = {"ms": 23.73, "device_ms": 20.80}
 
 
 def card_line():
@@ -298,14 +311,24 @@ def make_cell(signature, batch, dtype, gen):
     cp, cc, f, kind, hw = signature
     spec = {"normal": ck.NORMAL_CELL, "reduction": ck.REDUCTION_CELL}[kind]
     params = ck.init_cell_params(gen, spec, cp, cc, f, dtype=dtype, device="cuda")
+    randomize_affines(params, gen)
+    prev = torch.randn(batch, hw, hw, cp, generator=gen).to("cuda", dtype)
+    cur = torch.randn(batch, hw, hw, cc, generator=gen).to("cuda", dtype)
+    return prev, cur, params, spec
+
+
+def randomize_affines(params, gen):
+    """Folded affines of a K3 parameter tree: scale ~ 1 + N(0, 0.1^2),
+    bias ~ N(0, 0.1^2)."""
+    import torch
+
+    from adanet_tpu_torch.ops import cell_kernels as ck
+
     for path, leaf in ck._flatten(params):
         if path[-1] == "scale":
             leaf.copy_(1.0 + 0.1 * torch.randn(leaf.shape, generator=gen))
         elif path[-1] == "bias":
             leaf.copy_(0.1 * torch.randn(leaf.shape, generator=gen))
-    prev = torch.randn(batch, hw, hw, cp, generator=gen).to("cuda", dtype)
-    cur = torch.randn(batch, hw, hw, cc, generator=gen).to("cuda", dtype)
-    return prev, cur, params, spec
 
 
 def cell_cases():
@@ -343,9 +366,39 @@ def check_cells(gen):
                 raise AssertionError("K3 %s %s: non-finite output" % (signature, dtype))
             name = "K3 %s b=%d %s" % (signature, batch, dtype)
             worst[dtype] = max(worst.get(dtype, 0.0), check_close(name, got, want, tol))
+    # Paths the model's cells do not take: a factorized reduction of an
+    # unused input (shifted 1x1, half-F slots) on an odd 9x9 input, at
+    # aligned widths and at widths that take the element-load paths.
+    spec = ck.CellSpec(
+        operations=("separable_3x3_1", "max_pool_3x3", "none", "avg_pool_3x3"),
+        hiddenstate_indices=(0, 1, 0, 1),
+        used_hiddenstates=(0, 1, 0, 0),
+        stride=2,
+    )
+    for f, cp, cc in ((8, 6, 8), (6, 5, 7)):
+        for dtype in (torch.float32, torch.bfloat16):
+            params = ck.init_cell_params(gen, spec, cp, cc, f, dtype=dtype, device="cuda")
+            randomize_affines(params, gen)
+            prev = torch.randn(3, 9, 9, cp, generator=gen).to("cuda", dtype)
+            cur = torch.randn(3, 9, 9, cc, generator=gen).to("cuda", dtype)
+            got = ck.fused_cell(prev, cur, params, spec)
+            want = ck.cell_reference(prev, cur, params, spec)
+            scale = float(want.float().abs().max())
+            tol = 1e-4 * max(1.0, scale) if dtype == torch.float32 else 2.0 ** -7 * scale
+            name = "K3 factorized F=%d Cp=%d Cc=%d %s" % (f, cp, cc, dtype)
+            worst[dtype] = max(worst[dtype], check_close(name, got, want, tol))
+    # A fixed tile, as a tuned one is launched: the autotuner's smallest.
+    for dtype in (torch.float32, torch.bfloat16):
+        prev, cur, params, spec = make_cell(CELL_PRESET[1], CELL_PRESET_BATCH, dtype, gen)
+        got = ck._launch(prev, cur, params, spec, 16)
+        want = ck.cell_reference(prev, cur, params, spec)
+        scale = float(want.float().abs().max())
+        tol = 1e-4 * max(1.0, scale) if dtype == torch.float32 else 2.0 ** -7 * scale
+        worst[dtype] = max(worst[dtype], check_close("K3 %s at tile_p 16 %s" % (CELL_PRESET[1], dtype), got, want, tol))
     torch.cuda.synchronize()
     print(
-        "K3 checked at %d signatures x f32/bf16; worst abs err: f32 %g, bf16 %g"
+        "K3 checked at %d signatures x f32/bf16, 2 factorized cells and tile_p 16; "
+        "worst abs err: f32 %g, bf16 %g"
         % (len(cell_cases()), worst[torch.float32], worst[torch.bfloat16])
     )
     check_cell_grads(gen)
@@ -438,7 +491,7 @@ def device_ms(fn, calls=3, expect=None, attempts=3):
                 name = name.split("(")[0].split("<")[0]
                 by_name[name] += (event.cuda_time_total if total is None else total) / 1e3 / calls
         if by_name and (expect is None or any(expect in name for name in by_name)):
-            return sum(by_name.values()), dict(by_name.most_common(6)), "profiler"
+            return sum(by_name.values()), dict(by_name.most_common()), "profiler"
     return queued_device_ms(fn), {}, "queued events"
 
 
@@ -463,19 +516,31 @@ def queued_device_ms(fn, calls=50):
 
 def time_cells(gen):
     """K3 per case in bf16: ms per `fused_cell` call, the plain version's
-    ms, device kernels per call and the bound; plus the sums over the 20
-    cells of one NASNet-A (6@768) forward at bucket 32."""
+    ms, device kernels per call, the fewest blocks a launch, host us per
+    call and the bound; plus the sums over the 20 cells of one NASNet-A
+    (6@768) forward at bucket 32. Returns (forward sums, rows, host us
+    of one call at the widest 8x8 signature)."""
     import torch
 
     from adanet_tpu_torch.ops import cell_kernels as ck
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     totals = collections.Counter()
+    by_kernel = collections.Counter()
+    host = {}
     for signature, batch in cell_cases():
         prev, cur, params, spec = make_cell(signature, batch, torch.bfloat16, gen)
+
+        def call():
+            return ck.fused_cell(prev, cur, params, spec)
+
         before = ck.fused_cell.device_kernels
-        ck.fused_cell(prev, cur, params, spec)
+        call()
         kernels = ck.fused_cell.device_kernels - before
+        sched = ck.schedule_for(prev, cur, params, spec)
+        if sched.min_blocks < sms:
+            raise AssertionError("K3 %s: a launch of %d blocks < %d SMs" % (signature, sched.min_blocks, sms))
         nbytes, flops = cell_work(signature, batch, params, spec, 2)
         t_bound, t_by = bound_ms(nbytes, flops, "bfloat16")
         row = dict(
@@ -483,20 +548,28 @@ def time_cells(gen):
             batch=batch,
             cells_per_forward=CELL_SIGNATURES.get(signature, 0) if batch == max(BUCKETS) else 0,
             device_kernels_per_call=kernels,
-            ms=cuda_time_ms(lambda: ck.fused_cell(prev, cur, params, spec)),
+            min_blocks=sched.min_blocks,
+            ms=cuda_time_ms(call),
             plain_ms=cuda_time_ms(lambda: ck.cell_reference(prev, cur, params, spec)),
             bound_ms=t_bound,
             bound_by=t_by,
             mbytes=nbytes / 1e6,
             gflop=flops / 1e9,
+            host_us=host_enqueue_us(call, calls=200),
         )
-        row["device_ms"], row["device_ms_by_kernel"], row["device_ms_source"] = device_ms(
-            lambda: ck.fused_cell(prev, cur, params, spec)
-        )
+        row["device_ms"], row["device_ms_by_kernel"], row["device_ms_source"] = device_ms(call)
+        row["device_over_bound"] = row["device_ms"] / t_bound
+        row["other_kernels"] = sorted(set(row["device_ms_by_kernel"]) - set(CELL_KERNELS))
+        if row["other_kernels"]:
+            raise AssertionError("a bf16 K3 call ran other kernels: %s" % row["other_kernels"])
+        if signature == (768, 768, 128, "normal", 8):
+            host = {"cell_us": row["host_us"], "cell_signature": list(signature) + [batch]}
         rows.append(row)
         count = row["cells_per_forward"]
-        for key in ("ms", "plain_ms", "bound_ms", "device_ms"):
+        for key in ("ms", "plain_ms", "bound_ms", "device_ms", "host_us"):
             totals[key] += count * row[key]
+        for name, ms in row["device_ms_by_kernel"].items():
+            by_kernel[name] += count * ms
         totals["bytes"] += count * nbytes
         totals["flops"] += count * flops
     byte_ms = totals["bytes"] / PEAK_BYTES_PER_S * 1e3
@@ -510,8 +583,11 @@ def time_cells(gen):
         bound_ms=totals["bound_ms"],
         bound_by="bytes" if byte_ms >= flop_ms else "operations",
         device_ms=totals["device_ms"],
+        device_ms_by_kernel=dict(by_kernel),
+        host_ms=totals["host_us"] / 1e3,
+        first_design=FIRST_K3_FORWARD,
     )
-    return total, rows
+    return total, rows, host
 
 
 def autotune_path(rng):
@@ -962,7 +1038,8 @@ def main(argv=None):
         # (23,000 kernels), after which the tracer has been seen to
         # deliver no kernels; device_ms then falls back to queued events.
         rows, per_shape, host = time_kernels(sep_shapes, rng)
-        rows["cell"], cell_rows = time_cells(rng)
+        rows["cell"], cell_rows, cell_host = time_cells(rng)
+        host.update(cell_host)
         time_tuned(tuned)
         profile_batch(gen_dir, rng)
         compare_with_cpu(gen_dir, rng)

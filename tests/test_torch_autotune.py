@@ -96,7 +96,10 @@ def test_first_run_sweeps_second_run_pure_store_hit(tmp_path, capsys):
     assert report1["device"] == "cpu"
     for entry in report1["workloads"]:
         assert entry["status"] == "tuned", entry
-        assert entry["winner"]["tile_p"] >= 1
+        # The winner is one of the swept tiles: a pixel count, or for K3
+        # also AUTO (0, the planned tiles), which its sweep lists first.
+        assert entry["winner"]["tile_p"] in [c["tile_p"] for c in entry["candidates"]]
+        assert entry["winner"]["tile_p"] >= (ck.AUTO if entry["kernel"] == "cell" else 1)
         assert entry["winner"]["device"] == "cpu"
         assert entry["ref"].startswith(entry["kernel"] + "-")
         assert entry["ref"].endswith(keys.env_fingerprint("cpu"))
@@ -109,9 +112,9 @@ def test_first_run_sweeps_second_run_pure_store_hit(tmp_path, capsys):
     assert report2["searched"] == 0
     assert report2["hits"] == 2
     assert report2["failed"] == 0
-    for entry in report2["workloads"]:
+    for entry, tuned in zip(report2["workloads"], report1["workloads"]):
         assert entry["status"] == "hit", entry
-        assert entry["winner"]["tile_p"] >= 1
+        assert entry["winner"]["tile_p"] == tuned["winner"]["tile_p"]
 
 
 def test_dry_run_reports_pending_without_writing(tmp_path, capsys):
@@ -185,6 +188,29 @@ def test_sweep_requires_a_survivor():
     assert len(synced) == 3
 
 
+def test_sweep_ranks_by_the_timer_when_given():
+    """On the card the sweep times with CUDA events (`timer`) instead of
+    the host clock: the timer's seconds rank the candidates, warmup
+    excluded."""
+    calls = []
+    seconds = {16: 3e-4, 32: 1e-4, 0: 2e-4}
+
+    def timer(fn):
+        fn()
+        return seconds[calls[-1]]
+
+    def clock():
+        raise AssertionError("the host clock was read")
+
+    winner, results = tuning.sweep(
+        lambda cand: calls.append(cand["tile_p"]), [{"tile_p": t} for t in (0, 16, 32)],
+        repeats=2, clock=clock, timer=timer,
+    )
+    assert winner == {"tile_p": 32, "secs": 1e-4}
+    assert [r["secs"] for r in results] == [2e-4, 3e-4, 1e-4]
+    assert calls == [0, 0, 0, 16, 16, 16, 32, 32, 32]  # warmup + 2 timed each
+
+
 def test_candidate_tile_sizes_respect_budget():
     # 100 pixels: tiles start at 128, the first power of two covering
     # them. At 4 bytes a pixel plus 100 fixed against a 400-byte budget,
@@ -194,9 +220,16 @@ def test_candidate_tile_sizes_respect_budget():
     # than an empty sweep.
     assert tuning.candidate_tile_sizes(100, 1000, 0, 850, smallest=16) == [16]
     assert tuning.candidate_tile_sizes(0, 4, 0, 400) == []
-    # The kernels' candidates fit the card's 227 KB of shared memory.
+    # The kernels' candidates fit the card's 227 KB of shared memory: at
+    # each K3 candidate every launch of the cell's schedule does, and its
+    # separable layers keep all F channels in a block up to that tile.
     for tile in ck.tile_candidates(64, 32, 32, 64, ck.REDUCTION_CELL):
-        assert ck.sep_layer_tiles(64, 64, 7, tile) == (tile, 64)
+        sched = ck.cell_schedule((64, 32, 32, 32), (64, 32, 32, 32), torch.float32, 64,
+                                 ck.REDUCTION_CELL, True, tile, 132)
+        for step in sched.steps:
+            assert step.fields.get("smem", 0) <= sk.MAX_SHARED_BYTES
+            if step.kind == "sep_layer" and tile != ck.AUTO:
+                assert step.fields["th"] * step.fields["tw"] <= tile and step.fields["tf"] == 64
     for tile in sk.tile_candidates(32, 32, 32, 32, 5, 1):
         assert sk.tiles(32, 32, 5, tile) == (tile, 32)
 
@@ -278,6 +311,8 @@ def test_tuned_tile_is_consulted(tmp_path, fake_card, device):
     assert sk.select_tiles(x_shape, torch.float32, c, f, k, stride, device) == sk.tiles(c, f, k)
     prev_shape, cur_shape = (2, 8, 8, 6), (2, 8, 8, 8)
     spec = ck.NORMAL_CELL
+    # Without a winner K3 plans its tiles itself (AUTO), as K2 does.
+    assert ck.DEFAULT_TILE_P == ck.AUTO == sk.AUTO
     assert ck.select_tile_p(prev_shape, cur_shape, torch.bfloat16, 4, spec, device) == ck.DEFAULT_TILE_P
 
     tuning.record(store, "sepconv", sk.tune_spec(x_shape, torch.float32, k, f, stride),

@@ -249,7 +249,7 @@ def test_wrappers_take_the_stream_from_the_helper():
         assert ".cuda_stream" not in source, module.__name__
     assert "_build.stream_handle(" in inspect.getsource(sk._run)
     assert "_build.stream_handle(" in inspect.getsource(ensemble_kernels.fused_weighted_combine)
-    assert "_build.stream_handle(" in inspect.getsource(cell_kernels._Launcher)
+    assert "_build.stream_handle(" in inspect.getsource(cell_kernels._launch_schedule)
     assert "stream_handle(x)" in inspect.getsource(_build.copy_tensor)
 
 
@@ -274,9 +274,10 @@ def test_pointwise_weights_are_prepared_once_per_version():
     other = pw.clone()
     assert sk.pointwise_t(other, torch.bfloat16) is not again
     # A tensor that dies takes its entry with it.
-    key = id(other)
+    key = (id(other), torch.bfloat16)
+    assert key in sk._PREPARED
     del other
-    assert key not in sk._POINTWISE
+    assert key not in sk._PREPARED
     with torch.inference_mode():
         frozen = torch.ones(4, 2, 1, 1)
     assert torch.equal(sk.pointwise_t(frozen, torch.float32), torch.ones(2, 4))
