@@ -5,9 +5,9 @@ logits as `bias + sum_j w_j h_j` and computes the complexity term
 `sum_j (lambda * r(h_j) + beta) * |w_j|_1`. SCALAR and VECTOR weights
 multiply member logits; with `use_fused_combine` and same-shape
 single-head logits (the JAX `_can_fuse` rule) the combine is one launch
-of K1 (`ops/ensemble_kernels.py`). MATRIX weights right-multiply each
-member's last layer in full f32 (TF32 off, as the JAX package runs them at
-`Precision.HIGHEST`).
+of K1 (`ops/ensemble_kernels.py`) on the members' logits as they lie.
+MATRIX weights right-multiply each member's last layer in full f32 (TF32
+off, as the JAX package runs them at `Precision.HIGHEST`).
 
 Parameters are `{"weights": [tensor per member], "bias": tensor or None}`
 (`utils.convert.convert_ensembler_params`). Initialisation, warm start,
@@ -23,7 +23,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from adanet_tpu_torch.ops.ensemble_kernels import fused_weighted_combine
+from adanet_tpu_torch.ops.ensemble_kernels import fused_weighted_combine_members
 
 
 class MixtureWeightType(str, enum.Enum):
@@ -125,10 +125,15 @@ class ComplexityRegularizedEnsembler:
         return all(s.logits.shape == shape for s in subnetworks)
 
     def _build_fused(self, weights, subnetworks, bias):
-        """K1 path: the per-member weighted logits are not materialised."""
-        stacked = torch.stack([s.logits.to(torch.float32) for s in subnetworks])
-        wstack = torch.stack([torch.as_tensor(w).to(torch.float32) for w in weights])
-        logits = fused_weighted_combine(stacked, wstack, bias)
+        """K1 path: one launch reads each member's logits where they lie
+        (cast to f32 only where they are not, as the JAX path casts every
+        member), with the weights prepared once per version by the
+        wrapper; the per-member weighted logits are not materialised."""
+        logits = fused_weighted_combine_members(
+            [s.logits if s.logits.dtype is torch.float32 else s.logits.float() for s in subnetworks],
+            weights,
+            bias,
+        )
         return ComplexityRegularized(
             weighted_subnetworks=[
                 WeightedSubnetwork(subnetwork=s, weight=w, logits=None)

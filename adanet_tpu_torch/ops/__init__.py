@@ -3,7 +3,7 @@
 | Kernel | Wrapper | Replaces (TPU kernel) |
 |---|---|---|
 | K0 copy | `_build.copy_tensor` | `adanet_tpu/ops/sepconv_kernels.py` `_platform_dependent_prunes` |
-| K1 combine | `ensemble_kernels.fused_weighted_combine` | `adanet_tpu/ops/ensemble_kernels.py` `_combine_kernel` |
+| K1 combine | `ensemble_kernels.fused_weighted_combine` (and `_members`) | `adanet_tpu/ops/ensemble_kernels.py` `_combine_kernel` |
 | K2 sep-conv | `sepconv_kernels.fused_sep_conv` | `adanet_tpu/ops/sepconv_kernels.py` `_sepconv_kernel` |
 | K3 cell | `cell_kernels.fused_cell` | `adanet_tpu/ops/cell_kernels.py` `_cell_kernel` |
 

@@ -57,7 +57,8 @@ _I = ctypes.c_int
 #: Library name -> (source file, {C function: argtypes}).
 KERNELS = {
     "copy": ("copy_kernel.cu", {"copy_forward": [_P, _P, ctypes.c_longlong, _P]}),
-    "combine": ("combine_kernel.cu", {"combine_forward": [_P] * 4 + [_I] * 4 + [_P]}),
+    # (plan, pointers: member table, weights, bias, output; stream).
+    "combine": ("combine_kernel.cu", {"combine_forward": [_P, _P, _P]}),
     "sepconv": ("sepconv_kernel.cu", {"sepconv_forward": [_P] * 6}),
     "cell": (
         "cell_kernel.cu",

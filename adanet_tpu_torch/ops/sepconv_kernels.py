@@ -43,7 +43,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import weakref
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -364,23 +364,55 @@ def _launch(x, dw, pw, stride: int, tile: Tuple[int, int]) -> torch.Tensor:
 # (id(tensor), layout) -> (weakref to the tensor, its version, the
 # prepared tensor, its address). An entry is used only for the same live
 # tensor at the same version: a weight changed in place is prepared again.
-_PREPARED: Dict[Tuple[int, Any], tuple] = {}
+# A group of tensors prepared together (`prepare_all`) is keyed by the
+# tuple of their ids, and its entry holds a tuple of weakrefs and one of
+# versions.
+_PREPARED: Dict[Tuple[Any, Any], tuple] = {}
 
 
 def prepare(t: torch.Tensor, layout, make) -> torch.Tensor:
     """`make(t)`, the weight `t` in the layout a kernel reads, prepared
-    once per tensor, version and `layout` (K2's and K3's weights); an
-    inference tensor, which has no version counter, every call."""
+    once per tensor, version and `layout` (K1's, K2's and K3's weights);
+    an inference tensor, which has no version counter, every call."""
     key = (id(t), layout)
     entry = _PREPARED.get(key)
     if entry is not None and entry[0]() is t and entry[1] == t._version:
         return entry[2]
     with torch.no_grad():
         prepared = make(t)
+    prepare.made += 1
     if not t.is_inference():
         ref = weakref.ref(t, lambda _, key=key, memo=_PREPARED: memo.pop(key, None))
         _PREPARED[key] = (ref, t._version, prepared, prepared.data_ptr())
     return prepared
+
+
+def prepare_all(ts: Sequence[torch.Tensor], layout, make) -> torch.Tensor:
+    """`make(ts)` for a group of tensors read as one (K1's member
+    weights, stacked), prepared once per group, version of every member
+    and `layout`: an in-place change to any member prepares again, and
+    any member's death drops the entry. With an inference tensor (or a
+    number) among them, every call."""
+    key = (tuple(map(id, ts)), layout)
+    entry = _PREPARED.get(key)
+    # Every member is live while its entry is (its death drops the
+    # entry before its id can be reused), so the versions decide.
+    if entry is not None and entry[1] == tuple([t._version for t in ts]):
+        return entry[2]
+    with torch.no_grad():
+        prepared = make(ts)
+    prepare.made += 1
+    if all(torch.is_tensor(t) and not t.is_inference() for t in ts):
+        def drop(_, key=key, memo=_PREPARED):
+            memo.pop(key, None)
+
+        refs = tuple(weakref.ref(t, drop) for t in ts)
+        _PREPARED[key] = (refs, tuple(t._version for t in ts), prepared, prepared.data_ptr())
+    return prepared
+
+
+#: Preparations made (`make` called) by `prepare` and `prepare_all`.
+prepare.made = 0
 
 
 def pointwise_t(pw: torch.Tensor, dtype) -> torch.Tensor:

@@ -10,7 +10,11 @@
    every distinct shape the serving path launches it at: K0 on [8] f32,
    K1 at [2, bucket, 10] f32 for each bucket, K2 at each of its 14
    (H, W, C, F, k, stride) signatures for each bucket, in bf16 and in
-   f32 (cuDNN TF32 off for the f32 plain version).
+   f32 (cuDNN TF32 off for the f32 plain version). K1 also at N = 2 and
+   8 for each bucket and at the byte-bound [4, 4096, 1001] f32 and
+   [4, 8192, 1001] bf16: f32 and bf16 logits, scalar and vector weights,
+   with and without bias, through both entry points (stacked, and the
+   members as separate tensors); then a misaligned member and N = 500.
 4. Main path at full width: a two-member NASNet-A (6@768) CIFAR ensemble
    (18 cells, 32 filters, bf16, fused sep-conv, SCALAR fused combine),
    weights from a seeded `torch.Generator`, batch-norm statistics random
@@ -51,7 +55,14 @@
    blocks a launch, host us per call, against the bound; a bf16 call's
    trace must hold K3's kernels only. The sum over one forward's 20
    cells is printed beside the first K3 design's (`FIRST_K3_FORWARD`).
-   At the preset cells, the tuned against the default tile.
+   At the preset cells, the tuned against the default tile. K1 per
+   shape (`combine_shapes:`), at buckets 32 and 1 as served and at the
+   byte-bound shapes: CUDA-event ms, device us (torch.profiler), host
+   enqueue us, plain and `torch.einsum` ms, bound and device / bound;
+   K0's and `torch.clone`'s device us.
+9. Traces one served `build_ensemble` on the served generation's member
+   outputs: one K1 launch and no stack or cast kernel (the complexity
+   term's zero fill may remain), no weight prepared.
 
 Prints the per-shape K2 and K3 timings, the served latency and
 throughput, a `kernels` JSON line, and as its last line `{"ok": true,
@@ -76,6 +87,13 @@ SERIAL_ROWS = (1, 3, 8, 17, 32, 2, 5, 12, 30, 1)
 BURST_ROWS = (1, 7, 16, 32, 4, 24, 9, 2, 32, 13, 6, 19, 28, 3, 11, 32)
 MIXTURE = (0.6, 0.4)
 NUM_MEMBERS = 2
+# K1 beyond serving: the NASNet ImageNet head's 1001 classes at sizes
+# whose 82 MB exceed the 50 MB L2, so that device memory bounds them:
+# (members, rows, classes, logits dtype).
+COMBINE_BYTE_BOUND = ((4, 4096, 1001, "float32"), (4, 8192, 1001, "bfloat16"))
+# K1 member counts checked at each bucket; 500 is past the kernel's
+# pointer table (448), where the members are stacked first.
+COMBINE_MEMBERS = (2, 8)
 # K3: (C_prev, C_cur, filters, cell, H = W) -> cells of one NASNet-A
 # (6@768) CIFAR forward with that signature, `prev` already at `cur`'s
 # resolution (as the model's factorized reduction of prev leaves it).
@@ -298,6 +316,163 @@ def check_kernels(sep_shapes, rng):
     print("K2 worst abs err: f32 %g, bf16 %g" % (worst[torch.float32], worst[torch.bfloat16]))
     errors["sepconv"] = max(worst.values())
     return errors
+
+
+def combine_inputs(n, b, c, dtype, vector, use_bias, gen):
+    """Member logits (separate tensors), one f32 weight tensor per member
+    ([] or [C]) and a bias, on the card."""
+    import torch
+
+    members = [torch.randn(b, c, generator=gen).to("cuda", dtype) for _ in range(n)]
+    weights = [torch.randn((c,) if vector else (), generator=gen).cuda() for _ in range(n)]
+    bias = torch.randn(c, generator=gen).cuda() if use_bias else None
+    return members, weights, bias
+
+
+def combine_tolerance(want):
+    """f32: atol 1e-5 x max(1, max|ref|) (the kernel's unfused products
+    and sums are the plain version's; the bound allows for FMA
+    contraction). bf16: one bf16 ulp of the largest output, 2^-7 x
+    max|ref|: both sum in f32 and round once."""
+    import torch
+
+    scale = float(want.float().abs().max())
+    return 1e-5 * max(1.0, scale) if want.dtype == torch.float32 else 2.0 ** -7 * scale
+
+
+def check_combine(gen):
+    """K1 against its plain version on the card: at each bucket for N = 2
+    and 8, and at the byte-bound shapes; f32 and bf16 logits, scalar and
+    vector weights, with and without bias; through both entry points
+    (the stacked tensor with [N] / [N, C] weights, and the members as
+    separate tensors with one weight tensor each, as the ensembler hands
+    them). Then a member that is not 16-byte aligned (the scalar
+    variant) and N = 500 (stacked past the pointer table). Returns the
+    worst absolute error by dtype and the number of cases."""
+    import torch
+
+    from adanet_tpu_torch.ops import ensemble_kernels as ek
+
+    shapes = [(n, b, 10, dtype) for b in BUCKETS for n in COMBINE_MEMBERS
+              for dtype in ("float32", "bfloat16")]
+    worst = collections.Counter()
+    cases = 0
+    for n, b, c, dtype_name in shapes + list(COMBINE_BYTE_BOUND):
+        dtype = getattr(torch, dtype_name)
+        for vector in (False, True):
+            for use_bias in (False, True):
+                members, weights, bias = combine_inputs(n, b, c, dtype, vector, use_bias, gen)
+                stacked, w = torch.stack(members), torch.stack(weights)
+                want = ek.combine_reference(stacked, w, bias)
+                tol = combine_tolerance(want)
+                for form, got in (
+                    ("stacked", ek.fused_weighted_combine(stacked, w, bias)),
+                    ("members", ek.fused_weighted_combine_members(members, weights, bias)),
+                ):
+                    name = "K1 %s [%d, %d, %d] %s vector=%s bias=%s" % (
+                        form, n, b, c, dtype_name, vector, use_bias)
+                    if got.dtype != dtype or got.shape != want.shape:
+                        raise AssertionError("%s: %s %s" % (name, got.dtype, tuple(got.shape)))
+                    worst[dtype_name] = max(worst[dtype_name], check_close(name, got, want, tol))
+                    cases += 1
+    for n, b, offset in ((2, 32, 1), (500, 3, 0)):
+        for dtype in (torch.float32, torch.bfloat16):
+            members, weights, bias = combine_inputs(n, b, 10, dtype, True, True, gen)
+            if offset:
+                buf = torch.empty(n, b * 10 + offset, dtype=dtype, device="cuda")
+                for i, m in enumerate(members):
+                    buf[i, offset:] = m.reshape(-1)
+                members = [buf[i, offset:].view(b, 10) for i in range(n)]
+            got = ek.fused_weighted_combine_members(members, weights, bias)
+            want = ek.combine_reference(members, torch.stack(weights), bias)
+            name = "K1 members [%d, %d, 10] %s at offset %d" % (n, b, dtype, offset)
+            worst[str(dtype).replace("torch.", "")] = max(
+                worst[str(dtype).replace("torch.", "")], check_close(name, got, want, combine_tolerance(want)))
+            cases += 1
+    torch.cuda.synchronize()
+    print("K1 checked at %d cases (buckets x N %s, %s, a misaligned member, N = 500); "
+          "worst abs err: %s" % (cases, COMBINE_MEMBERS, COMBINE_BYTE_BOUND, dict(worst)))
+    return dict(worst), cases
+
+
+def combine_work(n, b, c, elem, vector, use_bias):
+    """(bytes, operations) of one K1 call: the members read and the
+    output written once, f32 weights and bias read once; a multiply and
+    an add per member and element, an add per element for the bias."""
+    nbytes = elem * (n + 1) * b * c + 4 * (n * c if vector else n) + (4 * c if use_bias else 0)
+    return nbytes, 2 * n * b * c + (b * c if use_bias else 0)
+
+
+def time_combine(gen):
+    """K1 per shape: the served call ([2, 32, 10] and [2, 1, 10] f32,
+    scalar weights, no bias, members as the ensembler hands them) and
+    the byte-bound shapes (scalar weights without bias, and vector
+    weights with bias). Per row: CUDA-event ms, device us from
+    torch.profiler (queued-behind-a-sleep events where the tracer gives
+    nothing), host enqueue us (also with the calls inside
+    `torch.inference_mode`, as the served program makes them), the plain
+    version's ms, `torch.einsum`'s ms on the stacked logits (weights in
+    the logits' dtype: einsum takes one), the bound and device / bound,
+    the plan's blocks, and the stacked form's CUDA-event ms."""
+    import torch
+
+    from adanet_tpu_torch.ops import ensemble_kernels as ek
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [(NUM_MEMBERS, max(BUCKETS), 10, "float32", False, False),
+             (NUM_MEMBERS, 1, 10, "float32", False, False)]
+    for n, b, c, dtype_name in COMBINE_BYTE_BOUND:
+        cases += [(n, b, c, dtype_name, False, False), (n, b, c, dtype_name, True, True)]
+    rows = []
+    for n, b, c, dtype_name, vector, use_bias in cases:
+        dtype = getattr(torch, dtype_name)
+        members, weights, bias = combine_inputs(n, b, c, dtype, vector, use_bias, gen)
+        stacked, w = torch.stack(members), torch.stack(weights)
+        w_lib = w.to(dtype)
+        big = b * c > 1 << 16
+        iters = 50 if big else 100
+
+        def kernel():
+            return ek.fused_weighted_combine_members(members, weights, bias)
+
+        def stacked_kernel():
+            return ek.fused_weighted_combine(stacked, w, bias)
+
+        def plain():
+            return ek.combine_reference(stacked, w, bias)
+
+        spec = "nbc,nc->bc" if vector else "nbc,n->bc"
+
+        def library():
+            return torch.einsum(spec, stacked, w_lib)
+
+        # Kernel and library call in turns (kernel, library, library, kernel).
+        first = cuda_time_ms(kernel, iters=iters)
+        lib = [cuda_time_ms(library, iters=iters), cuda_time_ms(library, iters=iters)]
+        ms = (first + cuda_time_ms(kernel, iters=iters)) / 2
+        device, by_name, source = device_ms(kernel, calls=10, expect="combine_kernel")
+        if set(by_name) - {"combine_kernel"}:
+            raise AssertionError("a K1 call ran other kernels: %s" % by_name)
+        with torch.inference_mode():  # as the served program calls it
+            host_inference = host_enqueue_us(kernel, calls=200 if big else 1000)
+        nbytes, flops = combine_work(n, b, c, 2 if dtype == torch.bfloat16 else 4, vector, use_bias)
+        t_bound, t_by = bound_ms(nbytes, flops, "float32")
+        plan = ek.launch_plan(n, b, c, dtype, vector, use_bias, False)
+        rows.append(
+            dict(
+                shape=[n, b, c], dtype=dtype_name, weights="vector" if vector else "scalar",
+                bias=use_bias, ms=ms, stacked_ms=cuda_time_ms(stacked_kernel, iters=iters),
+                device_us=device * 1e3, device_source=source,
+                queued_device_us=queued_device_ms(kernel) * 1e3,
+                host_us=host_enqueue_us(kernel, calls=200 if big else 1000),
+                host_us_inference=host_inference,
+                plain_ms=cuda_time_ms(plain, iters=iters), einsum_ms=sum(lib) / 2,
+                bound_ms=t_bound, bound_by=t_by, mbytes=nbytes / 1e6,
+                device_over_bound=device / t_bound, blocks=plan.wide["blocks"],
+            )
+        )
+    print("combine_shapes: " + json.dumps(rows))
+    return rows
 
 
 def make_cell(signature, batch, dtype, gen):
@@ -714,9 +889,10 @@ def time_tuned(tuned):
     return rows
 
 
-def time_kernels(sep_shapes, rng):
+def time_kernels(sep_shapes, combine_rows, rng):
     """Per-kernel times at the largest bucket: kernel, plain version,
-    library call and bound. K2's numbers sum over the 200 launches of one
+    library call and bound; K0's and torch.clone's device time; K1's
+    from its served row of `time_combine`. K2's numbers sum over the 200 launches of one
     member forward (each shape times its launch count); per shape also
     its device time (torch.profiler) at buckets 32 and 1, the library
     call's device time at bucket 32, and the planned grid's blocks.
@@ -724,7 +900,7 @@ def time_kernels(sep_shapes, rng):
     import torch
     import torch.nn.functional as F
 
-    from adanet_tpu_torch.ops import _build, ensemble_kernels, sepconv_kernels
+    from adanet_tpu_torch.ops import _build, sepconv_kernels
 
     b = max(BUCKETS)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -744,17 +920,26 @@ def time_kernels(sep_shapes, rng):
         bound_ms=t_bound,
         bound_by=t_by,
     )
-    logits = torch.randn(NUM_MEMBERS, b, 10, generator=rng).cuda()
-    w = torch.tensor(MIXTURE, dtype=torch.float32).cuda()
-    n, c = NUM_MEMBERS, 10
-    t_bound, t_by = bound_ms(4 * (n * b * c + n + b * c), 2 * n * b * c, "float32")
+    # Device time of K0 and of torch.clone, in turns: the launch's cost
+    # on the card, without the host's.
+    copy_dev = [device_ms(lambda: _build.copy_tensor(x), calls=10, expect="copy_bytes_kernel")]
+    clone_dev = [device_ms(lambda: torch.clone(x), calls=10) for _ in range(2)]
+    copy_dev.append(device_ms(lambda: _build.copy_tensor(x), calls=10, expect="copy_bytes_kernel"))
+    rows["copy"]["device_us"] = sum(d[0] for d in copy_dev) / 2 * 1e3
+    rows["copy"]["library_device_us"] = sum(d[0] for d in clone_dev) / 2 * 1e3
+    rows["copy"]["device_sources"] = sorted({d[2] for d in copy_dev + clone_dev})
+    rows["copy"]["library_device_kernels"] = sorted(clone_dev[0][1])
+    served = combine_rows[0]
     rows["combine"] = dict(
-        shapes="[%d, %d, %d] f32" % (n, b, c),
-        ms=cuda_time_ms(lambda: ensemble_kernels.fused_weighted_combine(logits, w, None), iters=100),
-        plain_ms=cuda_time_ms(lambda: ensemble_kernels.combine_reference(logits, w, None), iters=100),
-        library_ms=cuda_time_ms(lambda: torch.einsum("nbc,n->bc", logits, w), iters=100),
-        bound_ms=t_bound,
-        bound_by=t_by,
+        shapes="[%d, %d, %d] %s, %s weights, members as the ensembler hands them"
+        % (*served["shape"], served["dtype"], served["weights"]),
+        ms=served["ms"],
+        plain_ms=served["plain_ms"],
+        library_ms=served["einsum_ms"],
+        bound_ms=served["bound_ms"],
+        bound_by=served["bound_by"],
+        device_us=served["device_us"],
+        host_us=served["host_us"],
     )
     counts = collections.Counter(sep_shapes)
     per_shape = []
@@ -832,6 +1017,11 @@ def time_kernels(sep_shapes, rng):
     host["clone_us"] = sum(clone_us) / 2
     host["copy_us_runs"] = copy_us
     host["clone_us_runs"] = clone_us
+    with torch.inference_mode():  # as the served program makes its calls
+        host["copy_us_inference"] = host_enqueue_us(lambda: _build.copy_tensor(x))
+    host["combine_us"] = combine_rows[0]["host_us"]
+    host["combine_us_inference"] = combine_rows[0]["host_us_inference"]
+    host["combine_shape"] = combine_rows[0]["shape"]
     rows["copy"]["host_us"] = host["copy_us"]
     rows["copy"]["library_host_us"] = host["clone_us"]
     return rows, per_shape, host
@@ -987,6 +1177,54 @@ def profile_batch(gen_dir, rng, batches=3):
     return out
 
 
+def trace_served_combine(gen_dir, rng):
+    """One served `build_ensemble` traced on the served generation's
+    member outputs at bucket 32: it must launch K1 once and no stack or
+    cast kernel (the zero fill of the complexity term may remain, and is
+    named), prepare no weight, and agree with the plain version."""
+    import torch
+
+    from adanet_tpu_torch.core import export
+    from adanet_tpu_torch.ensemble.weighted import ComplexityRegularizedEnsembler
+    from adanet_tpu_torch.ops import ensemble_kernels as ek
+    from adanet_tpu_torch.ops import sepconv_kernels as sk
+
+    frozen = export.load_frozen_ensemble(gen_dir)
+    ensembler = ComplexityRegularizedEnsembler.from_spec(export.serving_signature(gen_dir)["ensembler"])
+    params = frozen.ensembler_params
+    features = {"image": torch.randn(max(BUCKETS), 32, 32, 3, generator=rng).cuda()}
+    with torch.inference_mode():
+        outs = frozen.member_outputs(features, training=False)
+        ensembler.build_ensemble(params, outs)  # the first call prepares the weights
+    torch.cuda.synchronize()
+    launches, made = ek.fused_weighted_combine.launches, sk.prepare.made
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        with torch.inference_mode():
+            ensemble = ensembler.build_ensemble(params, outs)
+        torch.cuda.synchronize()
+    kernels = collections.Counter(
+        event.name for event in prof.events()
+        if getattr(event, "device_type", None) == torch.autograd.DeviceType.CUDA
+    )
+    k1 = sum(count for name, count in kernels.items() if "combine_kernel" in name)
+    fills = sum(count for name, count in kernels.items() if "FillFunctor" in name)
+    others = {name: count for name, count in kernels.items()
+              if "combine_kernel" not in name and "FillFunctor" not in name}
+    if k1 != 1 or others:
+        raise AssertionError("a served combine ran %d K1 and other kernels %s" % (k1, others))
+    if ek.fused_weighted_combine.launches != launches + 1 or sk.prepare.made != made:
+        raise AssertionError("a served combine launched %d K1, prepared %d weights"
+                             % (ek.fused_weighted_combine.launches - launches, sk.prepare.made - made))
+    want = ek.combine_reference([o.logits for o in outs], torch.stack(params["weights"]), None)
+    err = check_close("served combine", ensemble.logits, want, combine_tolerance(want))
+    out = {"device_kernels": dict(kernels), "k1_launches": k1, "fill_kernels": fills,
+           "other_kernels": others, "member_logits": [str(o.logits.dtype) for o in outs],
+           "max_abs_err": err}
+    print("served_combine_trace: " + json.dumps(out))
+    return out
+
+
 def compare_with_cpu(gen_dir, rng):
     """One bucket at f32 compute on the card against the CPU."""
     import torch
@@ -1030,6 +1268,8 @@ def main(argv=None):
         if cell_signatures != CELL_SIGNATURES:
             raise AssertionError("the model's cells %s differ from CELL_SIGNATURES" % cell_signatures)
         errors = check_kernels(sep_shapes, rng)
+        combine_errors, _ = check_combine(rng)
+        errors["combine"] = max([errors["combine"]] + list(combine_errors.values()))
         errors["cell"] = check_cells(rng)
         print("kernel checks passed: max abs err %s" % errors)
         counts, served = serve(model_dir, sep_shapes, rng)
@@ -1037,10 +1277,12 @@ def main(argv=None):
         # The single-kernel traces come before the batch's large one
         # (23,000 kernels), after which the tracer has been seen to
         # deliver no kernels; device_ms then falls back to queued events.
-        rows, per_shape, host = time_kernels(sep_shapes, rng)
+        combine_rows = time_combine(rng)
+        rows, per_shape, host = time_kernels(sep_shapes, combine_rows, rng)
         rows["cell"], cell_rows, cell_host = time_cells(rng)
         host.update(cell_host)
         time_tuned(tuned)
+        trace_served_combine(gen_dir, rng)
         profile_batch(gen_dir, rng)
         compare_with_cpu(gen_dir, rng)
     # Each kernel's launches on the main path that runs it: serving for
@@ -1071,6 +1313,9 @@ def main(argv=None):
                 "timed_at": row["shapes"],
             }
         )
+    print("copy_vs_clone: " + json.dumps({key: rows["copy"][key] for key in (
+        "ms", "library_ms", "device_us", "library_device_us", "device_sources", "library_device_kernels",
+        "host_us", "library_host_us")}))
     print("sepconv_shapes: " + json.dumps(per_shape))
     print("sepconv_forward: " + json.dumps(rows["sepconv"]))
     print("host_enqueue: " + json.dumps(host))

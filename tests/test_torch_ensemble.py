@@ -91,6 +91,83 @@ def test_build_ensemble_matches_jax(kind, fused, use_bias, rank):
     assert (got.weighted_subnetworks[0].logits is None) == (want.weighted_subnetworks[0].logits is None)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("use_bias", [False, True])
+@pytest.mark.parametrize("kind", ["scalar", "vector"])
+def test_fused_equals_unfused_and_jax(kind, use_bias, dtype):
+    """The fused combine (K1 on the members' logits as they lie) against
+    the port's unfused path and the JAX ensembler's fused path. bf16
+    member logits are cast to f32 first on both fused paths; the unfused
+    path gets the same f32 logits."""
+    rng = np.random.RandomState(zlib.crc32(repr((kind, use_bias, dtype)).encode()))
+    members = _members(rng, (B, D))
+    params = {"weights": _weights(rng, kind)}
+    if use_bias:
+        params["bias"] = rng.randn(C).astype(np.float32)
+    kwargs = dict(mixture_weight_type=kind, adanet_lambda=0.01, use_bias=use_bias)
+    want = JaxEnsembler(use_fused_combine=True, **kwargs).build_ensemble(
+        {k: (v if k == "bias" else [jnp.asarray(w) for w in v]) for k, v in params.items()},
+        [
+            JaxSubnetwork(
+                last_layer=jnp.asarray(m["last_layer"]),
+                logits=jnp.asarray(m["logits"], getattr(jnp, dtype)),
+                complexity=m["complexity"],
+            )
+            for m in members
+        ],
+    )
+    torch_params = convert.convert_ensembler_params(params)
+    logits = [torch.from_numpy(m["logits"]).to(getattr(torch, dtype)) for m in members]
+
+    def build(fused, member_logits):
+        return ComplexityRegularizedEnsembler(use_fused_combine=fused, **kwargs).build_ensemble(
+            torch_params,
+            [
+                Subnetwork(last_layer=torch.from_numpy(m["last_layer"]), logits=l, complexity=m["complexity"])
+                for m, l in zip(members, member_logits)
+            ],
+        )
+
+    fused = build(True, logits)
+    unfused = build(False, [l.float() for l in logits])
+    assert fused.logits.dtype == torch.float32
+    np.testing.assert_allclose(fused.logits.numpy(), unfused.logits.numpy(), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(fused.logits.numpy(), np.asarray(want.logits), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(
+        float(fused.complexity_regularization), float(want.complexity_regularization), atol=1e-6, rtol=0
+    )
+
+
+def test_fused_combine_prepares_weights_once_per_version():
+    """A second `build_ensemble` with unchanged weights prepares nothing
+    (the served call stacks nothing); an in-place change to one member's
+    weight prepares again, and the result follows it."""
+    from adanet_tpu_torch.ops import sepconv_kernels
+
+    rng = np.random.RandomState(9)
+    members = [Subnetwork(**{k: (torch.from_numpy(v) if k != "complexity" else v) for k, v in m.items()})
+               for m in _members(rng, (B, D))]
+    params = convert.convert_ensembler_params({"weights": _weights(rng, "vector")})
+    ensembler = ComplexityRegularizedEnsembler(mixture_weight_type="vector", use_fused_combine=True)
+    unfused = ComplexityRegularizedEnsembler(mixture_weight_type="vector")
+    before = sepconv_kernels.prepare.made
+    with torch.inference_mode():
+        first = ensembler.build_ensemble(params, members).logits
+    assert sepconv_kernels.prepare.made == before + 1
+    with torch.inference_mode():
+        second = ensembler.build_ensemble(params, members).logits
+    assert sepconv_kernels.prepare.made == before + 1
+    assert torch.equal(first, second)
+    with torch.no_grad():
+        params["weights"][1].mul_(-2.0)
+    with torch.inference_mode():
+        third = ensembler.build_ensemble(params, members).logits
+        want = unfused.build_ensemble(params, members).logits
+    assert sepconv_kernels.prepare.made == before + 2
+    assert not torch.equal(third, first)
+    np.testing.assert_allclose(third.numpy(), want.numpy(), atol=1e-6, rtol=0)
+
+
 def test_multiclass_predictions_match_jax():
     logits = np.random.RandomState(0).randn(7, C).astype(np.float32)
     want = JaxHead(C).predictions(jnp.asarray(logits))

@@ -187,3 +187,24 @@ def test_frontend_rejects_oversized_and_unavailable(tmp_path):
     assert big.status == "invalid_argument"
     early = frontend.submit({"image": np.zeros((1,) + SHAPE, np.float32)})
     assert early.status == "unavailable"
+
+
+def test_served_weights_are_prepared_once(tmp_path, reference):
+    """The loaded program's ensembler weights are ordinary tensors (loaded
+    outside `torch.inference_mode`), so they carry a version counter and
+    K1's wrapper prepares them on the first served call only."""
+    from adanet_tpu_torch.core import export
+    from adanet_tpu_torch.ops import sepconv_kernels
+
+    requests, variables, want = reference
+    gen = _publish(str(tmp_path / "model"), variables)
+    frozen = export.load_frozen_ensemble(gen, "cpu")
+    assert all(torch.is_tensor(w) and not w.is_inference() for w in frozen.ensembler_params["weights"])
+    predict = export.load_serving_program(gen, "cpu")
+    before = sepconv_kernels.prepare.made
+    first = predict({"image": requests[0]})
+    assert sepconv_kernels.prepare.made == before + 1
+    second = predict({"image": requests[0]})
+    assert sepconv_kernels.prepare.made == before + 1
+    assert torch.equal(first["logits"], second["logits"])
+    np.testing.assert_allclose(first["logits"].numpy(), want["logits"][: len(requests[0])], atol=1e-4, rtol=0)
