@@ -3,13 +3,16 @@
 Port of adanet_tpu/core/frozen.py over torch modules. A frozen member
 holds its `nn.Module` (parameters included, in eval mode) rather than a
 Flax module plus a parameter tree, and the builder spec that rebuilds it
-(`Builder.to_spec()`), which a serving generation records.
+(`Builder.to_spec()`), which a serving generation records. The search
+loop freezes an iteration's winner into these records
+(`Iteration.freeze_candidate`): they are the `previous_ensemble` of the
+next iteration and what `Estimator.evaluate` runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
@@ -62,6 +65,9 @@ class FrozenEnsemble:
       ensembler_name: name of the ensembler that combined the members.
       ensembler_params: `{"weights": [...], "bias": ...}` tensors.
       architecture: the serializable `Architecture` record.
+      final_ema: the training-loss EMA this ensemble finished its
+        iteration with; the carried-over candidate of the next iteration
+        competes at it.
     """
 
     name: str
@@ -70,6 +76,11 @@ class FrozenEnsemble:
     ensembler_name: str
     ensembler_params: Any
     architecture: Architecture
+    final_ema: Optional[float] = None
+
+    @property
+    def subnetworks(self) -> Sequence[FrozenSubnetwork]:
+        return tuple(ws.subnetwork for ws in self.weighted_subnetworks)
 
     def member_outputs(self, features, training: bool = False):
         """Forward passes of every frozen member on `features`."""

@@ -1,4 +1,4 @@
-"""The AdaNet complexity-regularized ensembler, forward.
+"""The AdaNet complexity-regularized ensembler.
 
 Port of adanet_tpu/ensemble/weighted.py: `build_ensemble` combines member
 logits as `bias + sum_j w_j h_j` and computes the complexity term
@@ -6,12 +6,18 @@ logits as `bias + sum_j w_j h_j` and computes the complexity term
 multiply member logits; with `use_fused_combine` and same-shape
 single-head logits (the JAX `_can_fuse` rule) the combine is one launch
 of K1 (`ops/ensemble_kernels.py`) on the members' logits as they lie.
-MATRIX weights right-multiply each member's last layer in full f32 (TF32
-off, as the JAX package runs them at `Precision.HIGHEST`).
+Under autograd the member weights are stacked into K1's
+`torch.autograd.Function`, whose backward gives each member its
+gradient. MATRIX weights right-multiply each member's last layer in full
+f32 (TF32 off, as the JAX package runs them at `Precision.HIGHEST`).
 
-Parameters are `{"weights": [tensor per member], "bias": tensor or None}`
-(`utils.convert.convert_ensembler_params`). Initialisation, warm start,
-multi-head logits and training come with the training slice.
+Parameters are `{"weights": [tensor per member]}` plus `"bias"` with
+`use_bias` (`init_ensemble`; `utils.convert.convert_ensembler_params`
+carries the JAX package's across): 1/N for SCALAR and VECTOR weights,
+zeros for MATRIX ones and the bias, or warm-started from the previous
+ensemble's. The optimizer is a factory `params -> torch.optim.Optimizer`
+(or None: the weights keep their init). Multi-head logits come with a
+later slice.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from adanet_tpu_torch.ensemble.ensembler import Ensemble, Ensembler
 from adanet_tpu_torch.ops.ensemble_kernels import fused_weighted_combine_members
 
 
@@ -42,7 +49,7 @@ class WeightedSubnetwork:
 
 
 @dataclasses.dataclass
-class ComplexityRegularized:
+class ComplexityRegularized(Ensemble):
     """An AdaNet-weighted ensemble output."""
 
     weighted_subnetworks: List[WeightedSubnetwork]
@@ -52,8 +59,9 @@ class ComplexityRegularized:
 
 
 @contextlib.contextmanager
-def _full_f32_matmul():
-    """TF32 off for the MATRIX combine (JAX: Precision.HIGHEST)."""
+def full_f32_matmul():
+    """TF32 off for f32 matrix products: the MATRIX combine (JAX:
+    Precision.HIGHEST) and the training and eval steps' Dense layers."""
     previous = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -62,19 +70,40 @@ def _full_f32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = previous
 
 
-class ComplexityRegularizedEnsembler:
-    """Forward of the AdaNet mixture-weight ensembler."""
+class ComplexityRegularizedEnsembler(Ensembler):
+    """Learns mixture weights minimizing the complexity-regularized loss.
+
+    Args (those of the JAX ensembler):
+      optimizer: a factory `params -> torch.optim.Optimizer`, or None
+        (the mixture weights keep their init, as the reference's no-op
+        train op leaves them).
+      mixture_weight_type: a `MixtureWeightType`.
+      mixture_weight_initializer: optional `fn(generator, shape, dtype)
+        -> tensor` overriding the default initializer.
+      warm_start_mixture_weights: initialize the weights of members kept
+        from the previous ensemble from their learned values.
+      adanet_lambda, adanet_beta: the complexity penalty's lambda and beta.
+      use_bias: add a trainable bias to the ensemble logits.
+      name: defaults to "complexity_regularized".
+      use_fused_combine: combine SCALAR/VECTOR weights through K1.
+    """
 
     def __init__(
         self,
+        optimizer=None,
         mixture_weight_type: MixtureWeightType = MixtureWeightType.SCALAR,
+        mixture_weight_initializer=None,
+        warm_start_mixture_weights: bool = False,
         adanet_lambda: float = 0.0,
         adanet_beta: float = 0.0,
         use_bias: bool = False,
         name: Optional[str] = None,
         use_fused_combine: bool = False,
     ):
+        self._optimizer = optimizer
         self._mixture_weight_type = MixtureWeightType(mixture_weight_type)
+        self._mixture_weight_initializer = mixture_weight_initializer
+        self._warm_start_mixture_weights = warm_start_mixture_weights
         self._adanet_lambda = float(adanet_lambda)
         self._adanet_beta = float(adanet_beta)
         self._use_bias = use_bias
@@ -95,6 +124,69 @@ class ComplexityRegularizedEnsembler:
     def from_spec(cls, spec: Dict[str, Any]) -> "ComplexityRegularizedEnsembler":
         return cls(**spec)
 
+    @property
+    def name(self) -> str:
+        return self._name or "complexity_regularized"
+
+    # ------------------------------------------------------------------ init
+
+    def _weight_shape(self, subnetwork):
+        """Weight shape per type (reference: weighted.py:417-426)."""
+        logits_size = subnetwork.logits.shape[-1]
+        if self._mixture_weight_type == MixtureWeightType.SCALAR:
+            return ()
+        if self._mixture_weight_type == MixtureWeightType.VECTOR:
+            return (logits_size,)
+        if subnetwork.last_layer is None:
+            raise ValueError("MATRIX mixture weights require subnetworks to expose last_layer.")
+        return (subnetwork.last_layer.shape[-1], logits_size)
+
+    def init_ensemble(self, generator, subnetworks, previous_params=None):
+        """Returns `{"weights": [...]}` (plus `"bias"` with `use_bias`)
+        f32 tensors on the members' device.
+
+        `previous_params["weights"]` is aligned with `subnetworks`; its
+        non-None entries warm-start that member's weight when
+        `warm_start_mixture_weights`. The bias is warm-started from
+        `previous_params["bias"]` only when the engine passes one (it
+        withholds it when the previous ensemble was pruned).
+        """
+        if any(isinstance(s.logits, dict) for s in subnetworks):
+            raise NotImplementedError("multi-head ensembles come with a later slice")
+        n = len(subnetworks)
+        device = subnetworks[0].logits.device
+        prev_weights = prev_bias = None
+        if previous_params is not None:
+            prev_weights = previous_params.get("weights")
+            prev_bias = previous_params.get("bias")
+        weights = []
+        for i, subnetwork in enumerate(subnetworks):
+            if self._warm_start_mixture_weights and prev_weights is not None and i < len(prev_weights) \
+                    and prev_weights[i] is not None:
+                weights.append(torch.as_tensor(prev_weights[i]).detach().clone().to(device))
+                continue
+            shape = self._weight_shape(subnetwork)
+            if self._mixture_weight_initializer is not None:
+                w = self._mixture_weight_initializer(generator, shape, torch.float32)
+            elif self._mixture_weight_type == MixtureWeightType.MATRIX:
+                w = torch.zeros(shape, dtype=torch.float32)
+            else:
+                w = torch.full(shape, 1.0 / n, dtype=torch.float32)
+            weights.append(torch.as_tensor(w, dtype=torch.float32).to(device))
+        params: Dict[str, Any] = {"weights": weights}
+        if self._use_bias:
+            logits = subnetworks[0].logits
+            if prev_bias is not None and self._warm_start_mixture_weights:
+                params["bias"] = torch.as_tensor(prev_bias).detach().clone().to(device)
+            else:
+                dim = 1 if logits.dim() == 1 else logits.shape[-1]
+                params["bias"] = torch.zeros((dim,), dtype=torch.float32, device=device)
+        return params
+
+    def build_train_optimizer(self):
+        """The optimizer factory `params -> torch.optim.Optimizer`, or None."""
+        return self._optimizer
+
     # ----------------------------------------------------------------- apply
 
     def _weighted_logits(self, weight, subnetwork):
@@ -107,7 +199,7 @@ class ComplexityRegularizedEnsembler:
                 "Last layers with more than 3 dimensions are not supported "
                 "with matrix mixture weights."
             )
-        with _full_f32_matmul():
+        with full_f32_matmul():
             if last_layer.dim() == 3:
                 b, t, d = last_layer.shape
                 out = torch.matmul(last_layer.reshape(-1, d), weight)

@@ -23,7 +23,10 @@ in f32 into the pointwise product (the Pallas path; the unfused Flax path
 rounds it to the compute dtype in between). `fused_sep_conv` takes it
 only for CPU tensors. A CUDA tensor launches the kernel or raises: there
 is no fallback by size, since the kernel streams input channels in chunks
-and so tiles any shape. Forward only.
+and so tiles any shape. Where a gradient is wanted the launch goes through
+`_FusedSepConv`, whose backward recomputes through `sep_conv_reference`
+under autograd (the JAX `_fused_bwd`, a `jax.vjp` of the reference);
+under `no_grad` or `inference_mode` the wrapper launches directly.
 
 Launch plan: `launch_plan` turns a signature (x shape, dtype, k, F,
 stride) and a pixel tile into the kernel's tile, grid and shared memory.
@@ -279,12 +282,12 @@ def tune_spec(x_shape, dtype, kernel: int, filters: int, stride: int) -> Dict[st
 
 
 def tile_candidates(h: int, w: int, c: int, f: int, k: int, stride: int) -> List[int]:
-    """`tile_p` candidates for the autotuner, largest first: the powers
-    of two from the first that covers one image's output pixels down to
-    16 whose register tile holds all F channels (the plain `AUTO` plan is
-    the default the sweep is compared against)."""
+    """`tile_p` candidates for the autotuner: `AUTO` (the planned tile)
+    first, so that a sweep never stores a fixed tile slower than the
+    plan, then the powers of two from the first that covers one image's
+    output pixels down to 16 whose register tile holds all F channels."""
     h_out, w_out = -(-h // stride), -(-w // stride)
-    return tuning.candidate_tile_sizes(h_out * w_out, _ceil(f, 8), 0, TILE_OUTPUTS)
+    return [AUTO] + tuning.candidate_tile_sizes(h_out * w_out, _ceil(f, 8), 0, TILE_OUTPUTS)
 
 
 def select_tiles(x_shape, dtype, c: int, f: int, k: int, stride: int, device) -> Tuple[int, int]:
@@ -350,7 +353,35 @@ def fused_sep_conv(
         if x.device.type == "cpu":
             return sep_conv_reference(x, dw, pw, stride)
         raise ValueError("fused_sep_conv: unsupported device %s" % x.device)
-    return _run(plan_for(x, dw, pw, stride), x, dw, pw)
+    return _on_card(x, dw, pw, stride)
+
+
+def _on_card(x, dw, pw, stride: int) -> torch.Tensor:
+    """The CUDA branch of `fused_sep_conv`: one counted launch, through
+    `_FusedSepConv` where a gradient is wanted."""
+    plan = plan_for(x, dw, pw, stride)
+    if torch.is_grad_enabled() and (x.requires_grad or dw.requires_grad or pw.requires_grad):
+        return _FusedSepConv.apply(x, dw, pw, stride, plan)
+    return _run(plan, x, dw, pw)
+
+
+class _FusedSepConv(torch.autograd.Function):
+    """Forward through K2; backward through `sep_conv_reference` under
+    autograd (one extra forward, the JAX `_fused_bwd` trade)."""
+
+    @staticmethod
+    def forward(ctx, x, dw, pw, stride, plan):
+        ctx.stride = stride
+        ctx.save_for_backward(x, dw, pw)
+        return _run(plan, x, dw, pw)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = sep_conv_reference(*inputs, ctx.stride)
+        gx, gdw, gpw = torch.autograd.grad(out, inputs, grad)
+        return gx, gdw, gpw, None, None
 
 
 def _launch(x, dw, pw, stride: int, tile: Tuple[int, int]) -> torch.Tensor:

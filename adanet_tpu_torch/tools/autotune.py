@@ -22,9 +22,9 @@ Usage:
 on the card's own clock (`cuda_event_timer`), and raises without CUDA.
 `--device cpu` times the plain versions as a proxy, by the host clock;
 its winners record `"device": "cpu"` and land under the CPU's env
-fingerprint, so they never apply on a card. K3's candidates start with
-`AUTO`, its planned tiles, so a sweep never stores a fixed tile that is
-slower than the plan.
+fingerprint, so they never apply on a card. K2's and K3's candidates
+start with `AUTO`, the tiles they plan without a store, so a sweep never
+stores a fixed tile that is slower than the plan.
 
 Exit status (the ckpt_fsck/fleetctl/servectl contract):
     0  clean: every workload was already tuned (pure store hit, zero

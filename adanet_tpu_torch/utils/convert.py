@@ -14,11 +14,13 @@ module never imports flax. Layout changes happen here and nowhere else:
 A Flax path `a/b/kernel` becomes the key `a.b.weight`; any other leaf
 keeps its name. `convert_cell_params` carries the fused cell's parameter
 tree (`adanet_tpu/ops/cell_kernels.py: init_cell_params`) across the
-same way, keeping its structure.
+same way, keeping its structure, and `convert_simple_dnn` a simple_dnn
+subnetwork's variables (a builder's `initial_variables` in the port).
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -123,3 +125,15 @@ def convert_cell_params(params: Mapping[str, Any]) -> Dict[str, Any]:
         return leaf(name, node)
 
     return walk(params)
+
+
+def convert_simple_dnn(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX simple_dnn subnetwork's variables (`{"params": {"dense_<i>":
+    {"kernel", "bias"}, ..., "logits": {...}}}`, numpy leaves) -> the
+    `state_dict` of the port's `examples.simple_dnn._SimpleDNN`, whose
+    layers carry the Flax names. Raises on any other leaf."""
+    state = convert_variables(variables, collections=("params",))
+    unknown = [key for key in state if not re.fullmatch(r"(dense_\d+|logits)\.(weight|bias)", key)]
+    if unknown:
+        raise ValueError("not a simple_dnn subnetwork: %s" % unknown)
+    return state

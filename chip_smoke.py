@@ -63,10 +63,28 @@
 9. Traces one served `build_ensemble` on the served generation's member
    outputs: one K1 launch and no stack or cast kernel (the complexity
    term's zero fill may remain), no weight prepared.
+10. Holds K2's gradients, through `fused_sep_conv` (K2 forward, backward
+   recomputed through `sep_conv_reference`), against plain autograd at
+   its 14 model shapes, f32 (`check_sepconv_grads`).
+11. Third main path, the AdaNet search (`train_search`): the tier-1
+   gate's configuration at full width (simple_dnn on the synthetic
+   digits, 4096 training and 1024 test examples, batch 128, 128 wide,
+   adam 1e-3 for the subnetworks and the mixture weights, 2 iterations x
+   400 steps), through `Estimator.train` and `Estimator.evaluate` with
+   `use_fused_combine=True`, launch counts zeroed just before and read
+   just after: accuracy >= 0.88, both architectures written, and one K1
+   launch per ensemble candidate a step plus one per eval batch. Then a
+   window of iteration 1's steps is timed (host clock and CUDA events)
+   and traced (device busy, idle share, kernels and K1 launches a step).
+12. `train_vs_cpu`: the same converted init (`initial_variables`) and
+   batches through 2 iterations x 50 steps on the card (K1) and on the
+   CPU (plain version), TF32 off: per-step losses and mixture weights
+   within atol 1e-4 x max(1, |value|), the same best candidates.
 
 Prints the per-shape K2 and K3 timings, the served latency and
-throughput, a `kernels` JSON line, and as its last line `{"ok": true,
-"device": {...}}`. Any failure raises and exits non-zero.
+throughput, the `train:` line, a `kernels` JSON line (K1's row also with
+its launches on the search path, `train_launches`), and as its last line
+`{"ok": true, "device": {...}}`. Any failure raises and exits non-zero.
 """
 
 import argparse
@@ -119,6 +137,14 @@ CELL_KERNELS = ("sep_layer_kernel", "conv1x1_kernel", "pool_kernel", "cast_bf16_
 # over one forward's 20 cells at bucket 32, bf16, on an H100 80GB HBM3
 # at 700 W (PERF.md, "K3 per signature"): the yardstick of this one.
 FIRST_K3_FORWARD = {"ms": 23.73, "device_ms": 20.80}
+# The search path: tests/test_convergence.py::test_search_beats_linear_baseline.
+TRAIN_EXAMPLES, EVAL_EXAMPLES, TRAIN_BATCH = 4096, 1024, 128
+TRAIN_STEPS, TRAIN_ITERATIONS, LAYER_SIZE = 400, 2, 128
+GATE_ACCURACY, LINEAR_BASELINE_ACCURACY = 0.88, 0.76
+# Steps of iteration 1 timed, and traced, on the card.
+STEP_WINDOW, TRACED_STEPS = 100, 5
+# train_vs_cpu: steps per iteration.
+PARITY_STEPS = 50
 
 
 def card_line():
@@ -1244,6 +1270,288 @@ def compare_with_cpu(gen_dir, rng):
     return err
 
 
+def check_sepconv_grads(sep_shapes, gen, batch=2):
+    """Gradients of x, dw and pw through `fused_sep_conv` on the card
+    (K2 forward, `_FusedSepConv` backward) against plain autograd through
+    `sep_conv_reference`, f32 with TF32 off, at each distinct K2 shape of
+    the model: atol 1e-4 x max(1, max|ref|)."""
+    import torch
+
+    from adanet_tpu_torch.ops import sepconv_kernels as sk
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = 0.0
+    shapes = sorted(set(sep_shapes))
+    for (h, w, c), f, k, s in shapes:
+        x = torch.randn(batch, h, w, c, generator=gen).cuda()
+        dw = (torch.randn(c, 1, k, k, generator=gen) / k).cuda()
+        pw = (torch.randn(f, c, 1, 1, generator=gen) / c ** 0.5).cuda()
+        cot = None
+        grads = []
+        for fn in (sk.fused_sep_conv, sk.sep_conv_reference):
+            inputs = [t.clone().requires_grad_(True) for t in (x, dw, pw)]
+            before = sk.fused_sep_conv.launches
+            out = fn(*inputs, s)
+            if fn is sk.fused_sep_conv and (
+                sk.fused_sep_conv.launches != before + 1 or type(out.grad_fn).__name__ != "_FusedSepConvBackward"
+            ):
+                raise AssertionError("K2 %s: no launch through _FusedSepConv (%s)" % ((h, w, c, f, k, s), out.grad_fn))
+            if cot is None:
+                cot = torch.randn(out.shape, generator=gen).cuda()
+            grads.append(torch.autograd.grad(out, inputs, cot))
+        for name, got, want in zip(("x", "dw", "pw"), *grads):
+            tol = 1e-4 * max(1.0, float(want.abs().max()))
+            worst = max(worst, check_close("K2 grad %s %s" % (name, (h, w, c, f, k, s)), got, want, tol))
+    torch.cuda.synchronize()
+    print("K2 gradients at %d shapes (batch %d, f32): x, dw and pw match plain autograd; max abs err %g"
+          % (len(shapes), batch, worst))
+    return worst
+
+
+def simple_dnn_variables(num_layers, layer_size, input_dim, n_classes, seed):
+    """Flax-layout variables of a simple_dnn subnetwork (numpy, kernels
+    [in, out]), drawn from `seed`: what a JAX checkpoint holds."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    params = {}
+    width = input_dim
+    for name, out in [("dense_%d" % i, layer_size) for i in range(num_layers)] + [("logits", n_classes)]:
+        params[name] = {
+            "kernel": (rng.randn(width, out) / np.sqrt(width)).astype(np.float32),
+            "bias": (0.1 * rng.randn(out)).astype(np.float32),
+        }
+        width = out
+    return {"params": params}
+
+
+def search_parts():
+    """(head, simple_dnn generator, ensembler) of the gate's
+    configuration, the combine fused."""
+    import torch
+
+    from adanet_tpu_torch.core.heads import MultiClassHead
+    from adanet_tpu_torch.ensemble.weighted import ComplexityRegularizedEnsembler
+    from adanet_tpu_torch.examples import simple_dnn
+
+    def adam(params):
+        return torch.optim.Adam(params, lr=1e-3, eps=1e-8)
+
+    generator = simple_dnn.Generator(optimizer_fn=adam, layer_size=LAYER_SIZE, initial_num_layers=1, seed=0)
+    ensembler = ComplexityRegularizedEnsembler(optimizer=adam, use_fused_combine=True)
+    return MultiClassHead(10), generator, ensembler
+
+
+def train_search(model_dir):
+    """The search path: `Estimator.train` and `Estimator.evaluate` at the
+    gate's configuration on the card, launch counts zeroed just before
+    and read just after; then iteration 1's step timed and traced.
+    Returns (launch counts, the `train:` numbers)."""
+    import torch
+
+    from adanet_tpu_torch import ops
+    from adanet_tpu_torch.core.estimator import Estimator
+    from adanet_tpu_torch.examples.synthetic_digits import input_fn, make_dataset
+
+    head, generator, ensembler = search_parts()
+    xtr, ytr = make_dataset(TRAIN_EXAMPLES, seed=7)
+    xte, yte = make_dataset(EVAL_EXAMPLES, seed=8)
+    search_dir = os.path.join(model_dir, "search")
+    estimator = Estimator(
+        head, generator, max_iteration_steps=TRAIN_STEPS, max_iterations=TRAIN_ITERATIONS,
+        ensemblers=[ensembler], model_dir=search_dir, log_every_steps=0, device="cuda",
+    )
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    estimator.train(input_fn(xtr, ytr, TRAIN_BATCH), max_steps=10**6)
+    torch.cuda.synchronize()
+    train_secs = time.perf_counter() - t0
+    metrics = estimator.evaluate(input_fn(xte, yte, TRAIN_BATCH))
+    torch.cuda.synchronize()
+    search_secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    steps = estimator.latest_global_step()
+    # GrowStrategy over two builders: 2 candidates at t = 0, and at t = 1
+    # those 2 and the carried-over winner; each combines once a step
+    # (its ensemble update), and evaluate once a batch.
+    candidates = (2, 3)
+    eval_batches = -(-EVAL_EXAMPLES // TRAIN_BATCH)
+    expected = dict(copy=0, sepconv=0, cell=0, combine=TRAIN_STEPS * sum(candidates) + eval_batches)
+    if steps != TRAIN_STEPS * TRAIN_ITERATIONS or counts != expected:
+        raise AssertionError("search: %d steps, launches %s, expected %s" % (steps, counts, expected))
+    if not (metrics["accuracy"] >= GATE_ACCURACY and metrics["accuracy"] > LINEAR_BASELINE_ACCURACY):
+        raise AssertionError("search accuracy %s below the gate %s" % (metrics, GATE_ACCURACY))
+    for t in range(TRAIN_ITERATIONS):
+        if not os.path.exists(os.path.join(search_dir, "architecture-%d.json" % t)):
+            raise AssertionError("architecture-%d.json was not written" % t)
+    stats = dict(
+        steps=steps,
+        search_ms_per_step=train_secs / steps * 1e3,
+        search_secs=search_secs,
+        k1_launches=counts["combine"],
+        k1_launches_per_step=(counts["combine"] - eval_batches) / steps,
+        accuracy=metrics["accuracy"],
+        top_5_accuracy=metrics["top_5_accuracy"],
+        loss=metrics["loss"],
+        best_ensemble=metrics["best_ensemble"],
+    )
+    stats.update(time_train_step(head, generator, ensembler, xtr, ytr))
+    stats["card"] = card_line()
+    print("train: " + json.dumps(stats))
+    return counts, stats
+
+
+def time_train_step(head, generator, ensembler, xtr, ytr):
+    """Iteration 1 of the search (two new subnetworks, three candidates,
+    one frozen member), built on the card from a short iteration 0:
+    ms a step by the host clock and by CUDA events over STEP_WINDOW
+    steps, then TRACED_STEPS steps under torch.profiler: device busy ms,
+    idle share against the untraced host time, kernels and K1 launches
+    a step."""
+    import torch
+
+    from adanet_tpu_torch.core.iteration import IterationBuilder
+    from adanet_tpu_torch.ensemble.strategy import GrowStrategy
+    from adanet_tpu_torch.examples.synthetic_digits import input_fn
+
+    batches = list(input_fn(xtr, ytr, TRAIN_BATCH)())
+    factory = IterationBuilder(head, [ensembler], [GrowStrategy()], device="cuda")
+    it0 = factory.build_iteration(0, generator.generate_candidates(None, 0, [], []), input_shape=(xtr[0].size,))
+    s0 = it0.init_state(torch.Generator().manual_seed(0), batches[0])
+    for batch in batches[:20]:
+        s0, _ = it0.train_step(s0, batch)
+    frozen = it0.freeze_candidate(s0, it0.ensemble_specs[it0.best_candidate_index(s0)].name, batches[0])
+    it1 = factory.build_iteration(1, generator.generate_candidates(frozen, 1, [], []), frozen,
+                                  input_shape=(xtr[0].size,))
+    state = it1.init_state(torch.Generator().manual_seed(1), batches[0])
+
+    def steps(n, offset=0):
+        nonlocal state
+        for i in range(n):
+            state, _ = it1.train_step(state, batches[(offset + i) % len(batches)])
+
+    steps(10)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    steps(STEP_WINDOW, 10)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / STEP_WINDOW * 1e3
+    event_ms = start.elapsed_time(end) / STEP_WINDOW
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        steps(TRACED_STEPS)
+        torch.cuda.synchronize()
+    kernels = collections.Counter()
+    launches = collections.Counter()
+    for event in prof.events():
+        # The device's kernels and copies; not the optimizers' annotation
+        # ranges, which span kernels of their own.
+        if getattr(event, "device_type", None) == torch.autograd.DeviceType.CUDA and not getattr(
+            event, "is_user_annotation", False
+        ):
+            total = getattr(event, "device_time_total", None)
+            kernels[event.name] += event.cuda_time_total if total is None else total
+            launches[event.name] += 1
+    busy_ms = sum(kernels.values()) / 1e3 / TRACED_STEPS
+    host_ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
+    return dict(
+        window_steps=STEP_WINDOW,
+        window_candidates=len(it1.ensemble_specs),
+        window_host_ms_per_step=host_ms,
+        window_event_ms_per_step=event_ms,
+        device_busy_ms_per_step=busy_ms,
+        device_idle_share=1.0 - busy_ms / host_ms,
+        device_kernels_per_step=sum(launches.values()) / TRACED_STEPS,
+        k1_launches_per_traced_step=sum(n for k, n in launches.items() if "combine_kernel" in k) / TRACED_STEPS,
+        k1_device_us=sum(us for k, us in kernels.items() if "combine_kernel" in k)
+        / max(1, sum(n for k, n in launches.items() if "combine_kernel" in k)),
+        top_kernels_ms_per_step=[[name[:60], us / 1e3 / TRACED_STEPS] for name, us in kernels.most_common(6)],
+        top_kernels_by_launches=[[name[:60], n / TRACED_STEPS] for name, n in launches.most_common(8)],
+        # Host time by operation (self time, traced, so inflated).
+        top_host_ms_per_step=[[e.key[:50], e.self_cpu_time_total / 1e3 / TRACED_STEPS, e.count / TRACED_STEPS]
+                              for e in host_ops],
+    )
+
+
+class _WithInitialVariables:
+    """A simple_dnn generator whose builders carry `initial_variables`:
+    Flax-layout numpy variables per (iteration, builder) converted by
+    `utils.convert.convert_simple_dnn`, the same on every device."""
+
+    def __init__(self, generator):
+        self._generator = generator
+
+    def generate_candidates(self, previous_ensemble, iteration_number, previous_ensemble_reports, all_reports,
+                            config=None):
+        import zlib
+
+        from adanet_tpu_torch.utils import convert
+
+        builders = self._generator.generate_candidates(previous_ensemble, iteration_number, [], [])
+        for builder in builders:
+            seed = zlib.crc32(("%d/%s" % (iteration_number, builder.name)).encode())
+            builder.initial_variables = convert.convert_simple_dnn(
+                simple_dnn_variables(builder._num_layers, LAYER_SIZE, 256, 10, seed)
+            )
+        return builders
+
+
+def train_vs_cpu():
+    """The same search steps on the card (K1) and on the CPU (plain
+    version): 2 iterations x PARITY_STEPS from the same converted init
+    and batches. Per-step adanet and subnetwork losses and mixture
+    weights within atol 1e-4 x max(1, |value|); the same best index."""
+    import torch
+
+    from adanet_tpu_torch.core.iteration import IterationBuilder
+    from adanet_tpu_torch.ensemble.strategy import GrowStrategy
+    from adanet_tpu_torch.examples.synthetic_digits import input_fn, make_dataset
+
+    x, y = make_dataset(TRAIN_BATCH * PARITY_STEPS * TRAIN_ITERATIONS, seed=7)
+    batches = list(input_fn(x, y, TRAIN_BATCH)())
+    runs = []
+    for device in ("cuda", "cpu"):
+        head, generator, ensembler = search_parts()
+        generator = _WithInitialVariables(generator)
+        factory = IterationBuilder(head, [ensembler], [GrowStrategy()], device=device)
+        trace, best, previous = [], [], None
+        for t in range(TRAIN_ITERATIONS):
+            sample = batches[t * PARITY_STEPS]
+            iteration = factory.build_iteration(
+                t, generator.generate_candidates(previous, t, [], []), previous, input_shape=(x[0].size,)
+            )
+            state = iteration.init_state(torch.Generator().manual_seed(t), sample)
+            for i in range(PARITY_STEPS):
+                state, metrics = iteration.train_step(state, batches[t * PARITY_STEPS + i])
+                row = {k: float(v) for k, v in metrics.items()}
+                for name, est in state.ensembles.items():
+                    for j, w in enumerate(est.params["weights"]):
+                        row["weight/%s/%d" % (name, j)] = float(w.detach())
+                trace.append(row)
+            best.append(iteration.best_candidate_index(state))
+            previous = iteration.freeze_candidate(state, iteration.ensemble_specs[best[-1]].name, sample)
+        runs.append((trace, best))
+    (card, card_best), (cpu, cpu_best) = runs
+    worst = 0.0
+    for step, (got, want) in enumerate(zip(card, cpu)):
+        if sorted(got) != sorted(want):
+            raise AssertionError("train_vs_cpu step %d: metrics %s vs %s" % (step, sorted(got), sorted(want)))
+        for key, value in want.items():
+            err = abs(got[key] - value)
+            if not err <= 1e-4 * max(1.0, abs(value)):
+                raise AssertionError("train_vs_cpu step %d %s: card %r, cpu %r" % (step, key, got[key], value))
+            worst = max(worst, err)
+    if card_best != cpu_best:
+        raise AssertionError("train_vs_cpu: best candidates %s on the card, %s on the CPU" % (card_best, cpu_best))
+    out = dict(steps=len(card), values_per_step=len(card[0]), best=card_best, max_abs_err=worst)
+    print("train_vs_cpu: " + json.dumps(out))
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1283,10 +1591,13 @@ def main(argv=None):
         host.update(cell_host)
         time_tuned(tuned)
         trace_served_combine(gen_dir, rng)
+        check_sepconv_grads(sep_shapes, rng)
+        train_counts, _ = train_search(model_dir)
+        train_vs_cpu()
         profile_batch(gen_dir, rng)
         compare_with_cpu(gen_dir, rng)
     # Each kernel's launches on the main path that runs it: serving for
-    # K0-K2, the autotuner for K3.
+    # K0-K2, the autotuner for K3; K1's on the search path beside them.
     counts = dict(counts, cell=tune_counts["cell"])
     replaces = {
         "copy": ("adanet_tpu_torch/ops/csrc/copy_kernel.cu", "adanet_tpu/ops/sepconv_kernels.py:68"),
@@ -1313,6 +1624,8 @@ def main(argv=None):
                 "timed_at": row["shapes"],
             }
         )
+        if name == "combine":
+            kernels[-1]["train_launches"] = train_counts["combine"]
     print("copy_vs_clone: " + json.dumps({key: rows["copy"][key] for key in (
         "ms", "library_ms", "device_us", "library_device_us", "device_sources", "library_device_kernels",
         "host_us", "library_host_us")}))

@@ -96,10 +96,11 @@ def test_first_run_sweeps_second_run_pure_store_hit(tmp_path, capsys):
     assert report1["device"] == "cpu"
     for entry in report1["workloads"]:
         assert entry["status"] == "tuned", entry
-        # The winner is one of the swept tiles: a pixel count, or for K3
-        # also AUTO (0, the planned tiles), which its sweep lists first.
+        # The winner is one of the swept tiles: a pixel count, or AUTO
+        # (0, the planned tiles), which both kernels' sweeps list first.
         assert entry["winner"]["tile_p"] in [c["tile_p"] for c in entry["candidates"]]
-        assert entry["winner"]["tile_p"] >= (ck.AUTO if entry["kernel"] == "cell" else 1)
+        assert entry["candidates"][0]["tile_p"] == ck.AUTO == sk.AUTO
+        assert entry["winner"]["tile_p"] >= ck.AUTO
         assert entry["winner"]["device"] == "cpu"
         assert entry["ref"].startswith(entry["kernel"] + "-")
         assert entry["ref"].endswith(keys.env_fingerprint("cpu"))
@@ -335,3 +336,51 @@ def test_tuned_tile_is_consulted(tmp_path, fake_card, device):
                             torch.randn(c, 1, k, k), torch.randn(f, c, 1, 1), stride)
     assert tuple(out.shape) == (4, 8, 8, f)
     assert (sk.fused_sep_conv.launches, ck.fused_cell.launches) == before
+
+
+@pytest.mark.parametrize("preset", ["tiny", "cifar"])
+def test_sepconv_sweep_lists_auto_first(preset):
+    """K2's sweep, like K3's, starts with AUTO, the tile K2 plans without
+    a store, so that a stored winner is never slower than no tuning."""
+    for workload in autotune._sepconv_workloads(preset):
+        _, candidates, _ = autotune._tune_sepconv(workload, torch.device("cpu"))
+        assert candidates[0] == {"tile_p": sk.AUTO}
+        assert all(c["tile_p"] > 0 for c in candidates[1:])
+
+
+def test_auto_timed_fastest_is_stored_and_launches_the_plan(tmp_path, capsys, monkeypatch):
+    """When AUTO is timed fastest (a stubbed timer), the K2 sweep stores
+    AUTO, and the wrapper then launches the plan it makes without a store."""
+    running = []
+    tune_sepconv = autotune._tune_sepconv
+
+    def recording(workload, device):
+        spec, candidates, run = tune_sepconv(workload, device)
+        return spec, candidates, lambda cand: running.append(cand["tile_p"]) or run(cand)
+
+    def timer(fn):
+        fn()
+        return 1e-4 if running[-1] == sk.AUTO else 2e-4
+
+    monkeypatch.setattr(autotune, "_tune_sepconv", recording)
+    sweep = tuning.sweep
+    monkeypatch.setattr(tuning, "sweep", lambda *args, **kwargs: sweep(*args, **dict(kwargs, timer=timer)))
+    monkeypatch.setattr(sk, "_sm_count", lambda device: 132)
+    store = str(tmp_path / "store")
+    rc, out = _run(capsys, "--store", store, "--preset", "tiny", "--device", "cpu", "--kernel", "sepconv", "--json")
+    report = json.loads(out)
+    assert rc == 1, report
+    (entry,) = report["workloads"]
+    assert entry["winner"]["tile_p"] == sk.AUTO
+    assert sk.AUTO in running and len(set(running)) == len(entry["candidates"])
+
+    tuning.clear_cache()
+    tuning.set_default_store(ArtifactStore(store))
+    (b, h, w, c), k, f, stride = entry["workload"]["shape"], 3, 8, 1
+    assert (entry["workload"]["kernel"], entry["workload"]["filters"]) == (k, f)
+    stored = tuning.lookup("sepconv", sk.tune_spec((b, h, w, c), torch.float32, k, f, stride), device="cpu")
+    assert stored["tile_p"] == sk.AUTO
+    x = torch.zeros(b, h, w, c)
+    plan = sk.plan_for(x, torch.zeros(c, 1, k, k), torch.zeros(f, c, 1, 1), stride)
+    assert plan.tile == sk.tiles(c, f, k, sk.AUTO)
+    assert plan.fields == sk.launch_plan(x.shape, torch.float32, f, k, stride, sk.AUTO, 132).fields

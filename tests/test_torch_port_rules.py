@@ -38,6 +38,13 @@ COPIES = {
     "adanet_tpu_torch/store/gc.py": "adanet_tpu/store/gc.py",
     "adanet_tpu_torch/store/fsck.py": "adanet_tpu/store/fsck.py",
     "adanet_tpu_torch/store/keys.py": "adanet_tpu/store/keys.py",
+    "adanet_tpu_torch/subnetwork/report.py": "adanet_tpu/subnetwork/report.py",
+    "adanet_tpu_torch/core/timer.py": "adanet_tpu/core/timer.py",
+    "adanet_tpu_torch/core/summary.py": "adanet_tpu/core/summary.py",
+    "adanet_tpu_torch/core/report_accessor.py": "adanet_tpu/core/report_accessor.py",
+    "adanet_tpu_torch/ensemble/ensembler.py": "adanet_tpu/ensemble/ensembler.py",
+    "adanet_tpu_torch/ensemble/strategy.py": "adanet_tpu/ensemble/strategy.py",
+    "adanet_tpu_torch/examples/synthetic_digits.py": "adanet_tpu/examples/synthetic_digits.py",
 }
 
 #: Top-level definitions a copy replaces on purpose ("__doc__": the
@@ -55,6 +62,19 @@ SLICE_MODULES = (
     "adanet_tpu_torch.store.keys",
     "adanet_tpu_torch.store.blobstore",
     "adanet_tpu_torch.tools.autotune",
+    "adanet_tpu_torch.core.candidate",
+    "adanet_tpu_torch.core.estimator",
+    "adanet_tpu_torch.core.iteration",
+    "adanet_tpu_torch.core.report_accessor",
+    "adanet_tpu_torch.core.summary",
+    "adanet_tpu_torch.core.timer",
+    "adanet_tpu_torch.ensemble.ensembler",
+    "adanet_tpu_torch.ensemble.strategy",
+    "adanet_tpu_torch.examples.simple_dnn",
+    "adanet_tpu_torch.examples.synthetic_digits",
+    "adanet_tpu_torch.subnetwork.report",
+    "adanet_tpu_torch.utils.batches",
+    "adanet_tpu_torch.utils.trees",
 )
 
 
@@ -149,15 +169,24 @@ def test_copied_modules_stay_in_sync(copy, original):
 def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
     from adanet_tpu_torch import resolve_device
     from adanet_tpu_torch.core import export
+    from adanet_tpu_torch.core.estimator import Estimator
+    from adanet_tpu_torch.core.heads import MultiClassHead
+    from adanet_tpu_torch.core.iteration import IterationBuilder
+    from adanet_tpu_torch.ensemble.strategy import GrowStrategy
+    from adanet_tpu_torch.ensemble.weighted import ComplexityRegularizedEnsembler
+    from adanet_tpu_torch.examples import simple_dnn
     from adanet_tpu_torch.serving import ModelPool
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert resolve_device("cpu") == torch.device("cpu")
+    head, generator = MultiClassHead(10), simple_dnn.Generator()
     for call in (
         lambda: resolve_device(),
         lambda: resolve_device("cuda:0"),
         lambda: ModelPool(str(tmp_path)),
         lambda: export.load_serving_program(str(tmp_path)),
+        lambda: Estimator(head, generator, 10, model_dir=str(tmp_path)),
+        lambda: IterationBuilder(head, [ComplexityRegularizedEnsembler()], [GrowStrategy()]),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

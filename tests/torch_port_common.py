@@ -7,17 +7,20 @@ both packages: the JAX module as is, the port through `utils.convert`.
 Drawing them with numpy keeps the tests fast (an eager or jitted Flax
 init of even a 3-cell NASNet takes tens of seconds on the CPU) and
 makes the parameters independent of either framework's generator.
+jax is imported inside the functions that use it, so that the tests that
+run on the card, where jax is not installed, can use `require_cuda`.
 """
 
 import functools
 
-import jax
 import numpy as np
 
 
 def variable_shapes(module, sample):
     """The variable tree (`ShapeDtypeStruct` leaves) of a training-mode
     init of `module` on inputs like `sample`."""
+    import jax
+
     return jax.eval_shape(
         functools.partial(module.init, training=True),
         {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
@@ -35,6 +38,8 @@ def numpy_variables(shapes, seed, trained_stats=False):
     0.1^2), var ~ U(0.5, 1.5)) with count = 1, so the trained-statistics
     branch runs; otherwise they are the init values (count = 0).
     """
+    import jax
+
     rng = np.random.RandomState(seed)
 
     def leaf(path, spec):
@@ -57,3 +62,75 @@ def numpy_variables(shapes, seed, trained_stats=False):
         return np.zeros(shape, spec.dtype)
 
     return jax.tree_util.tree_map_with_path(leaf, dict(shapes))
+
+
+def require_cuda():
+    """Skips the calling test unless a CUDA card is present. Call it
+    inside the test (marked `@pytest.mark.cuda`), never at import, so
+    that every worker collects the same tests."""
+    import pytest
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: python -m pytest --noconftest -m cuda tests/test_torch_card.py")
+
+
+def simple_dnn_variables(num_layers, layer_size, input_dim, n_classes, seed):
+    """Flax variables (numpy) of a JAX simple_dnn subnetwork
+    (`{"params": {"dense_<i>": ..., "logits": ...}}`), drawn from `seed`
+    as `numpy_variables` draws them."""
+    rng = np.random.RandomState(seed)
+    params = {}
+    width = input_dim
+    for name, out in [("dense_%d" % i, layer_size) for i in range(num_layers)] + [("logits", n_classes)]:
+        params[name] = {
+            "kernel": (rng.randn(width, out) / np.sqrt(width)).astype(np.float32),
+            "bias": (0.1 * rng.randn(out)).astype(np.float32),
+        }
+        width = out
+    return {"params": params}
+
+
+class WithInitialVariables:
+    """Wraps a simple_dnn `Generator` of either package: each builder it
+    returns carries `initial_variables`, drawn per (iteration, builder
+    name) from `seed` (`simple_dnn_variables`) and passed through
+    `convert` (identity for the JAX package, `utils.convert.
+    convert_simple_dnn` for the port), so both packages start every
+    candidate from the same numbers."""
+
+    def __init__(self, generator, convert, input_dim, n_classes, seed=0):
+        self._generator = generator
+        self._convert = convert
+        self._input_dim = input_dim
+        self._n_classes = n_classes
+        self._seed = seed
+
+    def generate_candidates(self, previous_ensemble, iteration_number, previous_ensemble_reports,
+                            all_reports, config=None):
+        import zlib
+
+        builders = self._generator.generate_candidates(
+            previous_ensemble, iteration_number, previous_ensemble_reports, all_reports, config
+        )
+        for builder in builders:
+            seed = zlib.crc32(("%d/%s/%d" % (iteration_number, builder.name, self._seed)).encode())
+            builder.initial_variables = self._convert(simple_dnn_variables(
+                builder._num_layers, builder._layer_size, self._input_dim, self._n_classes, seed
+            ))
+        return builders
+
+
+def one_torch_thread():
+    """A fixture body: torch's CPU ops on one thread for the test, the
+    previous count restored after. The search tests run many small ops,
+    which parallel test workers (pytest -n) would otherwise run on every
+    core each, to everyone's loss."""
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
