@@ -20,12 +20,12 @@ unless the caller passes "cpu"), with TF32 off.
 
 `model_dir` receives `architecture-<t>.json` (the JAX package's file,
 byte for byte) and `frozen-<t>.pt`, the winner's numbers saved with
-`torch.save`. A `train` call that stops inside an iteration (`max_steps`)
-keeps that iteration's state in memory, and the next `train` call of the
-same Estimator continues it; resuming from `model_dir` in a new process,
-the manifest and its integrity checks, the artifact store, serving
-export, multi-host placement, input prefetch and profiling come with
-later slices.
+`torch.save`. Training stops only at the end of an iteration: a
+`max_steps` inside one is refused, since going on from there needs the
+checkpoint and resume of a later slice. The manifest and its integrity
+checks, the generator's reports (`report_materializer`), the artifact
+store, serving export, multi-host placement, input prefetch and
+profiling come with later slices too.
 """
 
 from __future__ import annotations
@@ -42,7 +42,6 @@ import torch
 from adanet_tpu_torch._device import resolve_device
 from adanet_tpu_torch.core.frozen import FrozenEnsemble
 from adanet_tpu_torch.core.iteration import Iteration, IterationBuilder
-from adanet_tpu_torch.core.report_accessor import ReportAccessor
 from adanet_tpu_torch.core.summary import ScopedSummary
 from adanet_tpu_torch.ensemble.strategy import GrowStrategy
 from adanet_tpu_torch.ensemble.weighted import ComplexityRegularizedEnsembler, full_f32_matmul
@@ -51,7 +50,7 @@ from adanet_tpu_torch.robustness import retry as retry_lib
 from adanet_tpu_torch.utils.batches import (
     EVAL_FETCH_WINDOW,
     WeightedMeanAccumulator,
-    batch_metric_weight,
+    batch_example_count,
     feature_shape,
     to_device,
 )
@@ -154,7 +153,6 @@ class Estimator:
         self._max_iterations = max_iterations
         self._model_dir = model_dir or tempfile.mkdtemp(prefix="adanet_tpu_torch_")
         os.makedirs(self._model_dir, exist_ok=True)
-        self._report_accessor = ReportAccessor(os.path.join(self._model_dir, "report"))
         self._random_seed = int(random_seed)
         self._log_every_steps = int(log_every_steps)
         self._summary: Optional[ScopedSummary] = None
@@ -170,9 +168,6 @@ class Estimator:
         self._iteration_number = 0
         # The frozen winner of the last completed iteration.
         self._previous: Optional[FrozenEnsemble] = None
-        # (iteration, state, steps done) of an iteration a train() call
-        # stopped inside; the next train() continues it.
-        self._pending = None
 
     # ------------------------------------------------------------ properties
 
@@ -200,18 +195,37 @@ class Estimator:
           input_fn: zero-arg callable returning an iterator of
             (features, labels) batches; re-invoked when exhausted.
           max_steps: total global steps to train to (across iterations
-            and train() calls).
+            and train() calls); it must end an iteration, unless
+            `max_iterations` stops the search first.
           steps: train this many additional steps instead of max_steps.
         """
         if steps is not None:
             if max_steps is not None:
                 raise ValueError("Set at most one of steps and max_steps.")
             max_steps = self._global_step + steps
+        self._check_stops_at_an_iteration_end(max_steps)
         with full_f32_matmul():
             self._train_loop(input_fn, max_steps)
         if self._summary is not None:
             self._summary.close()
         return self
+
+    def _check_stops_at_an_iteration_end(self, max_steps):
+        """Refuses a `max_steps` inside an iteration (training starts at
+        an iteration's first step, and going on from inside one needs
+        resume)."""
+        if max_steps is None or max_steps <= self._global_step:
+            return
+        if self._max_iterations is not None:
+            last = self._max_iterations * self._max_iteration_steps
+            if max_steps >= last:
+                return
+        if max_steps % self._max_iteration_steps:
+            raise ValueError(
+                "max_steps=%d falls inside iteration %d (%d steps each): stopping inside an "
+                "iteration needs the resume of a later slice"
+                % (max_steps, max_steps // self._max_iteration_steps, self._max_iteration_steps)
+            )
 
     def _iteration_generator(self, iteration_number: int) -> torch.Generator:
         """The CPU generator iteration t initialises from: seeded from
@@ -232,23 +246,15 @@ class Estimator:
             batch, data_iter = self._next_batch(input_fn, data_iter)
             sample_batch = batch
             data_iter = itertools.chain([batch], data_iter)
-            if self._pending is not None:
-                iteration, state, steps_done = self._pending
-                self._pending = None
-            else:
-                iteration = self._build_iteration(t, sample_batch)
-                state = iteration.init_state(self._iteration_generator(t), sample_batch)
-                steps_done = 0
+            iteration = self._build_iteration(t, sample_batch)
+            state = iteration.init_state(self._iteration_generator(t), sample_batch)
             _LOG.info(
-                "Starting iteration %d at iteration_step %d (global step %d): candidates=%s",
-                t, steps_done, self._global_step, iteration.candidate_names(),
+                "Starting iteration %d (global step %d): candidates=%s",
+                t, self._global_step, iteration.candidate_names(),
             )
-            while steps_done < self._max_iteration_steps and (
-                max_steps is None or self._global_step < max_steps
-            ):
+            for steps_done in range(1, self._max_iteration_steps + 1):
                 batch, data_iter = self._next_batch(input_fn, data_iter)
                 state, metrics = iteration.train_step(state, batch)
-                steps_done += 1
                 self._global_step += 1
                 if self._log_every_steps and steps_done % self._log_every_steps == 0:
                     emas = iteration.ema_losses(state)
@@ -258,10 +264,6 @@ class Estimator:
                         {k: round(v, 6) for k, v in emas.items()},
                     )
                     self._write_train_summaries(iteration, metrics, emas, state)
-            if steps_done < self._max_iteration_steps:
-                # Stopped by max_steps: the next train() call goes on from here.
-                self._pending = (iteration, state, steps_done)
-                break
             self._previous = self._complete_iteration(iteration, state, sample_batch)
 
     def _next_batch(self, input_fn, data_iter, attempts: int = 3):
@@ -331,24 +333,13 @@ class Estimator:
 
     # ----------------------------------------------------- build and select
 
-    def _reports_for_iteration(self, iteration_number: int):
-        """(previous_ensemble_reports, all_reports) for the generator:
-        the previous iteration's reports of members of its winner, and
-        every report of every past iteration."""
-        per_iteration = self._report_accessor.read_iteration_reports()[:iteration_number]
-        all_reports = [r for reports in per_iteration for r in reports]
-        previous = []
-        if per_iteration:
-            previous = [r for r in per_iteration[-1] if r.included_in_final_ensemble]
-        return previous, all_reports
-
     def _generate_builders(self, iteration_number, previous_ensemble):
-        prev_reports, all_reports = self._reports_for_iteration(iteration_number)
+        # No reports yet: they come with `report_materializer`.
         builders = self._generator.generate_candidates(
             previous_ensemble=previous_ensemble,
             iteration_number=iteration_number,
-            previous_ensemble_reports=prev_reports,
-            all_reports=all_reports,
+            previous_ensemble_reports=[],
+            all_reports=[],
         )
         if not builders:
             raise ValueError("Generator returned no builders at iteration %d" % iteration_number)
@@ -393,31 +384,13 @@ class Estimator:
 
     # -------------------------------------------------------------- evaluate
 
-    def _final_ensemble(self, sample_batch):
-        """(frozen ensemble, name) of the best model: the current best
-        candidate of an iteration stopped inside, else the winner of the
-        last completed iteration."""
-        if self._pending is not None:
-            iteration, state, _ = self._pending
-            best = self._get_best_ensemble_index(iteration, state)
-            name = iteration.ensemble_specs[best].name
-            return iteration.freeze_candidate(state, name, sample_batch), name
-        if self._previous is None:
-            raise ValueError("No completed iteration to evaluate; call train() first.")
-        return self._previous, self._previous.name
-
     def evaluate(self, input_fn: Callable[[], Iterator], steps: Optional[int] = None) -> Dict[str, Any]:
         """Evaluates the best ensemble on up to `steps` batches of
         `input_fn`; returns the head's metrics and `loss` averaged by
         example count, with `best_ensemble` and `global_step`."""
-        data = iter(input_fn())
-        try:
-            first = next(data)
-        except StopIteration:
-            raise ValueError("input_fn yielded no batches.")
-        data = itertools.chain([first], data)
-        with full_f32_matmul():
-            frozen, name = self._final_ensemble(first)
+        frozen = self._previous
+        if frozen is None:
+            raise ValueError("No completed iteration to evaluate; call train() first.")
         ensembler = self._iteration_builder._ensembler_by_name(frozen.ensembler_name)
         acc = WeightedMeanAccumulator()
         staged = []
@@ -431,10 +404,10 @@ class Estimator:
             staged.clear()
 
         with full_f32_matmul(), torch.no_grad():
-            for index, batch in enumerate(data):
+            for index, batch in enumerate(input_fn()):
                 if steps is not None and index >= steps:
                     break
-                n = batch_metric_weight(batch)
+                n = batch_example_count(batch)
                 features, labels = to_device(batch, self._device)
                 outs = [ws.subnetwork.module(features, training=False) for ws in frozen.weighted_subnetworks]
                 ensemble = ensembler.build_ensemble(frozen.ensembler_params, outs)
@@ -445,7 +418,9 @@ class Estimator:
                     drain()
             if staged:
                 drain()
+        if not acc.batches:
+            raise ValueError("input_fn yielded no batches.")
         result = acc.means()
-        result["best_ensemble"] = name
+        result["best_ensemble"] = frozen.name
         result["global_step"] = self._global_step
         return result

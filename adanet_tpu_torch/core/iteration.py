@@ -35,7 +35,7 @@ import copy
 import dataclasses
 import inspect
 import math
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -130,32 +130,6 @@ def _complexity_regularization(ensemble):
     return getattr(ensemble, "complexity_regularization", 0.0)
 
 
-def split_example_weights(features, weight_key, require=True):
-    """Splits per-example weights out of a features mapping.
-
-    Returns `(model_features, weights)`; `weights` is None when
-    `weight_key` is None. With `require=False` a missing key is tolerated
-    (serving-time features carry no weights).
-    """
-    if weight_key is None:
-        return features, None
-    if not isinstance(features, Mapping) or weight_key not in features:
-        if not require:
-            return features, None
-        raise ValueError(
-            "weight_key=%r is set but the features batch %s; pass features as a dict "
-            "holding the per-example weight column."
-            % (
-                weight_key,
-                "is not a mapping"
-                if not isinstance(features, Mapping)
-                else "with keys %s does not contain it" % sorted(features),
-            )
-        )
-    model_features = {k: v for k, v in features.items() if k != weight_key}
-    return model_features, features[weight_key]
-
-
 def _params_list(params: Dict[str, Any]) -> List[torch.Tensor]:
     """The ensembler params in a fixed order: the weights, then the bias."""
     out = list(params["weights"])
@@ -216,7 +190,6 @@ class Iteration:
         adanet_loss_decay: float = 0.9,
         previous_ensemble: Optional[FrozenEnsemble] = None,
         collect_summaries: bool = True,
-        weight_key: Optional[str] = None,
         device=None,
     ):
         if not ensemble_specs:
@@ -226,7 +199,6 @@ class Iteration:
         self.ensemble_specs = list(ensemble_specs)
         self.frozen_subnetworks = list(frozen_subnetworks)
         self.head = head
-        self.weight_key = weight_key
         self.adanet_loss_decay = float(adanet_loss_decay)
         self.collect_summaries = bool(collect_summaries)
         self.previous_ensemble = previous_ensemble
@@ -239,7 +211,6 @@ class Iteration:
         """Initializes every candidate's parameters and optimizer state,
         drawing from `generator` (a CPU `torch.Generator`)."""
         features, _ = to_device(sample_batch, self.device)
-        features, _ = split_example_weights(features, self.weight_key, require=False)
         sub_states = {}
         sub_outs = {}
         for spec in self.subnetwork_specs:
@@ -365,12 +336,11 @@ class Iteration:
 
     def _train_step(self, state: IterationState, batch):
         features, labels = to_device(batch, self.device)
-        model_features, weights = split_example_weights(features, self.weight_key)
         metrics: Dict[str, Any] = {}
         flags = []
 
         # 1) The frozen members, once for every candidate.
-        frozen_outs = self.frozen_outputs(state.frozen, model_features)
+        frozen_outs = self.frozen_outputs(state.frozen, features)
 
         # 2) Every new subnetwork on its own loss.
         sub_outs = {}
@@ -378,15 +348,15 @@ class Iteration:
         for spec in self.subnetwork_specs:
             st = state.subnetworks[spec.name]
             kwargs = {"generator": state.generator} if spec.takes_generator else {}
-            out = st.module(model_features, training=True, **kwargs)
+            out = st.module(features, training=True, **kwargs)
             loss = spec.builder.build_subnetwork_loss(out, labels, self.head, None)
             if loss is None:
-                loss = self.head.loss(out.logits, labels, weights)
+                loss = self.head.loss(out.logits, labels)
             params = list(st.module.parameters())
             grads = _grads(loss, params)
             flags += [torch.isfinite(loss), tree_finite(grads)]
             sub_updates.append((st, params, grads))
-            metrics.update(self.builder_summary_metrics(spec, out, model_features, labels))
+            metrics.update(self.builder_summary_metrics(spec, out, features, labels))
             sub_outs[spec.name] = _detached(out)
             metrics["subnetwork_loss/%s" % spec.name] = loss.detach()
 
@@ -398,7 +368,7 @@ class Iteration:
             member_outs = self.member_outputs(espec, sub_outs, frozen_outs)
             with torch.set_grad_enabled(est.optimizer is not None):
                 ens = espec.ensembler.build_ensemble(est.params, member_outs)
-                loss = self.head.loss(ens.logits, labels, weights)
+                loss = self.head.loss(ens.logits, labels)
                 adanet_loss = loss + _complexity_regularization(ens)
             if est.optimizer is not None:
                 params = _params_list(est.params)
@@ -432,7 +402,6 @@ class Iteration:
         """Every candidate's losses and head metrics on one batch."""
         with full_f32_matmul(), torch.no_grad():
             features, labels = to_device(batch, self.device)
-            features, weights = split_example_weights(features, self.weight_key)
             sub_outs = {
                 spec.name: state.subnetworks[spec.name].module(features, training=False)
                 for spec in self.subnetwork_specs
@@ -442,13 +411,13 @@ class Iteration:
             for espec in self.ensemble_specs:
                 member_outs = self.member_outputs(espec, sub_outs, frozen_outs)
                 ens = espec.ensembler.build_ensemble(state.ensembles[espec.name].params, member_outs)
-                loss = self.head.loss(ens.logits, labels, weights)
+                loss = self.head.loss(ens.logits, labels)
                 out = {"loss": loss, "adanet_loss": loss + _complexity_regularization(ens)}
-                out.update(self.head.eval_metrics(ens.logits, labels, weights))
+                out.update(self.head.eval_metrics(ens.logits, labels))
                 results[espec.name] = out
             for spec in self.subnetwork_specs:
                 results["subnetwork/%s" % spec.name] = {
-                    "loss": self.head.loss(sub_outs[spec.name].logits, labels, weights)
+                    "loss": self.head.loss(sub_outs[spec.name].logits, labels)
                 }
             return results
 
@@ -495,7 +464,6 @@ class Iteration:
         forward on `sample_batch`, and a copy of the mixture weights."""
         espec = self._spec_by_name[spec_name]
         features, _ = to_device(sample_batch, self.device)
-        features, _ = split_example_weights(features, self.weight_key, require=False)
         params = state.ensembles[espec.name].params
         weights = [w.detach().clone() for w in params["weights"]]
         ensembler_params = {"weights": weights}
@@ -547,7 +515,6 @@ class IterationBuilder:
         ensemble_strategies: Sequence[Any],
         adanet_loss_decay: float = 0.9,
         collect_summaries: bool = True,
-        weight_key: Optional[str] = None,
         device=None,
     ):
         if not ensemblers:
@@ -559,7 +526,6 @@ class IterationBuilder:
         self._strategies = list(ensemble_strategies)
         self._adanet_loss_decay = float(adanet_loss_decay)
         self._collect_summaries = bool(collect_summaries)
-        self._weight_key = weight_key
         self._device = resolve_device(device)
 
     def _ensembler_by_name(self, name: str):
@@ -674,6 +640,5 @@ class IterationBuilder:
             adanet_loss_decay=self._adanet_loss_decay,
             previous_ensemble=previous_ensemble,
             collect_summaries=self._collect_summaries,
-            weight_key=self._weight_key,
             device=self._device,
         )

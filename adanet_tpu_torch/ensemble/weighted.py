@@ -78,8 +78,6 @@ class ComplexityRegularizedEnsembler(Ensembler):
         (the mixture weights keep their init, as the reference's no-op
         train op leaves them).
       mixture_weight_type: a `MixtureWeightType`.
-      mixture_weight_initializer: optional `fn(generator, shape, dtype)
-        -> tensor` overriding the default initializer.
       warm_start_mixture_weights: initialize the weights of members kept
         from the previous ensemble from their learned values.
       adanet_lambda, adanet_beta: the complexity penalty's lambda and beta.
@@ -92,7 +90,6 @@ class ComplexityRegularizedEnsembler(Ensembler):
         self,
         optimizer=None,
         mixture_weight_type: MixtureWeightType = MixtureWeightType.SCALAR,
-        mixture_weight_initializer=None,
         warm_start_mixture_weights: bool = False,
         adanet_lambda: float = 0.0,
         adanet_beta: float = 0.0,
@@ -102,7 +99,6 @@ class ComplexityRegularizedEnsembler(Ensembler):
     ):
         self._optimizer = optimizer
         self._mixture_weight_type = MixtureWeightType(mixture_weight_type)
-        self._mixture_weight_initializer = mixture_weight_initializer
         self._warm_start_mixture_weights = warm_start_mixture_weights
         self._adanet_lambda = float(adanet_lambda)
         self._adanet_beta = float(adanet_beta)
@@ -166,9 +162,7 @@ class ComplexityRegularizedEnsembler(Ensembler):
                 weights.append(torch.as_tensor(prev_weights[i]).detach().clone().to(device))
                 continue
             shape = self._weight_shape(subnetwork)
-            if self._mixture_weight_initializer is not None:
-                w = self._mixture_weight_initializer(generator, shape, torch.float32)
-            elif self._mixture_weight_type == MixtureWeightType.MATRIX:
+            if self._mixture_weight_type == MixtureWeightType.MATRIX:
                 w = torch.zeros(shape, dtype=torch.float32)
             else:
                 w = torch.full(shape, 1.0 / n, dtype=torch.float32)

@@ -27,7 +27,9 @@ _NUM_LAYERS_KEY = "num_layers"
 
 
 class _SimpleDNN(nn.Module):
-    """Fully-connected stack producing a `Subnetwork`."""
+    """Fully-connected stack producing a `Subnetwork`. Its parameters are
+    left uninitialised: the engine calls `init_parameters` with the
+    Estimator's generator (or grafts a builder's `initial_variables`)."""
 
     def __init__(self, input_dim: int, logits_dimension, num_layers: int, layer_size: int, dropout: float):
         super().__init__()
@@ -40,8 +42,6 @@ class _SimpleDNN(nn.Module):
             setattr(self, "dense_%d" % i, nn.utils.skip_init(nn.Linear, width, layer_size))
             width = layer_size
         self.logits = nn.utils.skip_init(nn.Linear, width, logits_dimension)
-        # The engine initialises again from the Estimator's seed.
-        self.init_parameters(torch.Generator().manual_seed(0))
 
     def init_parameters(self, generator: torch.Generator) -> None:
         """Flax's default Dense init from `generator`: LeCun-normal

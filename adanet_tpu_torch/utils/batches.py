@@ -1,7 +1,8 @@
 """Batch utilities shared by the training and evaluation paths.
 
-Port of adanet_tpu/utils/batches.py, single process: the multi-host
-weight gather of `batch_metric_weight` waits for distributed placement.
+Port of adanet_tpu/utils/batches.py, single process and without
+example weights: `batch_metric_weight`, with its `weight_key` and its
+multi-host gather, comes with them.
 Batches come from an `input_fn` as numpy arrays (or tensors), nested in
 dicts, lists and tuples, and `to_device` moves them to the device the
 caller names; nothing is moved implicitly.
@@ -56,23 +57,6 @@ def feature_shape(features) -> Tuple[int, ...]:
     return tuple(int(d) for d in np.shape(features)[1:])
 
 
-def batch_metric_weight(batch, weight_key=None) -> float:
-    """Aggregation weight of one batch for cross-batch metric averaging:
-    the example count, or the batch's total example weight under
-    `weight_key` (per-batch means are then weighted means already)."""
-    if weight_key is not None:
-        features = batch[0] if isinstance(batch, tuple) else batch
-        try:
-            weights = features[weight_key]
-        except (TypeError, KeyError, IndexError):
-            weights = None
-        if weights is not None:
-            if torch.is_tensor(weights):
-                return float(weights.sum())
-            return float(np.sum(np.asarray(weights)))
-    return float(batch_example_count(batch))
-
-
 def batch_example_count(batch) -> int:
     """Number of examples in a (features, labels) batch: the leading
     dimension of the first array leaf."""
@@ -99,8 +83,7 @@ class WeightedMeanAccumulator:
         return self._batches
 
     def add(self, metrics: Dict[str, float], example_count: float) -> None:
-        """Accumulates one batch's metric means, weighted by its size (or
-        its total example weight under `weight_key`)."""
+        """Accumulates one batch's metric means, weighted by its size."""
         for key, value in metrics.items():
             self._totals[key] = self._totals.get(key, 0.0) + float(value) * example_count
         self._examples += float(example_count)

@@ -16,11 +16,14 @@ keeps its name. `convert_cell_params` carries the fused cell's parameter
 tree (`adanet_tpu/ops/cell_kernels.py: init_cell_params`) across the
 same way, keeping its structure, and `convert_simple_dnn` a simple_dnn
 subnetwork's variables (a builder's `initial_variables` in the port).
+`WithInitialVariables` starts every simple_dnn candidate of either
+package from the same numbers, drawn in numpy (`simple_dnn_variables`).
 """
 
 from __future__ import annotations
 
 import re
+import zlib
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -137,3 +140,47 @@ def convert_simple_dnn(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     if unknown:
         raise ValueError("not a simple_dnn subnetwork: %s" % unknown)
     return state
+
+
+def simple_dnn_variables(num_layers, layer_size, input_dim, n_classes, seed):
+    """Flax-layout variables (numpy) of a JAX simple_dnn subnetwork,
+    `{"params": {"dense_<i>": {"kernel", "bias"}, ..., "logits": ...}}`,
+    drawn from `seed`: kernels ~ N(0, 1/fan_in), biases ~ N(0, 0.1^2)."""
+    rng = np.random.RandomState(seed)
+    params = {}
+    width = input_dim
+    for name, out in [("dense_%d" % i, layer_size) for i in range(num_layers)] + [("logits", n_classes)]:
+        params[name] = {
+            "kernel": (rng.randn(width, out) / np.sqrt(width)).astype(np.float32),
+            "bias": (0.1 * rng.randn(out)).astype(np.float32),
+        }
+        width = out
+    return {"params": params}
+
+
+class WithInitialVariables:
+    """Wraps a simple_dnn `Generator` of either package: each builder it
+    returns carries `initial_variables`, drawn per (iteration, builder
+    name, `seed`) by `simple_dnn_variables` and passed through `convert`
+    (`convert_simple_dnn` for the port's builders, the identity for the
+    JAX package's), so both packages, or the card and the CPU, start
+    every candidate from the same numbers."""
+
+    def __init__(self, generator, input_dim, n_classes, convert=convert_simple_dnn, seed=0):
+        self._generator = generator
+        self._convert = convert
+        self._input_dim = input_dim
+        self._n_classes = n_classes
+        self._seed = seed
+
+    def generate_candidates(self, previous_ensemble, iteration_number, previous_ensemble_reports,
+                            all_reports, config=None):
+        builders = self._generator.generate_candidates(
+            previous_ensemble, iteration_number, previous_ensemble_reports, all_reports, config
+        )
+        for builder in builders:
+            seed = zlib.crc32(("%d/%s/%d" % (iteration_number, builder.name, self._seed)).encode())
+            builder.initial_variables = self._convert(simple_dnn_variables(
+                builder._num_layers, builder._layer_size, self._input_dim, self._n_classes, seed
+            ))
+        return builders

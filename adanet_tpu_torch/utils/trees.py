@@ -1,7 +1,9 @@
 """Small tree utilities over dicts, lists and tuples of tensors.
 
-Port of adanet_tpu/utils/trees.py. A tree is a tensor, or a dict, list
-or tuple of trees; other leaves (numbers, None) pass through unchanged.
+Port of `tree_finite` from adanet_tpu/utils/trees.py (the step skips a
+non-finite update on the host, so `tree_where` has no use yet). A tree
+is a tensor, or a dict, list or tuple of trees; other leaves (numbers,
+None) are ignored.
 """
 
 from __future__ import annotations
@@ -35,18 +37,3 @@ def tree_finite(tree) -> torch.Tensor:
         return torch.ones((), dtype=torch.bool)
     return torch.stack(flags).all()
 
-
-def tree_where(pred, on_true, on_false):
-    """Elementwise `torch.where(pred, a, b)` over matching trees (e.g. to
-    keep a candidate's state when its step went non-finite)."""
-    if isinstance(on_true, dict):
-        if sorted(on_true) != sorted(on_false):
-            raise ValueError("tree_where: trees differ in keys")
-        return {key: tree_where(pred, on_true[key], on_false[key]) for key in on_true}
-    if isinstance(on_true, (list, tuple)):
-        if len(on_true) != len(on_false):
-            raise ValueError("tree_where: trees differ in length")
-        return type(on_true)(tree_where(pred, a, b) for a, b in zip(on_true, on_false))
-    if torch.is_tensor(on_true):
-        return torch.where(pred, on_true, on_false)
-    return on_true if bool(pred) else on_false

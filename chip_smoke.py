@@ -14,7 +14,11 @@
    8 for each bucket and at the byte-bound [4, 4096, 1001] f32 and
    [4, 8192, 1001] bf16: f32 and bf16 logits, scalar and vector weights,
    with and without bias, through both entry points (stacked, and the
-   members as separate tensors); then a misaligned member and N = 500.
+   members as separate tensors); then a misaligned member and N = 500;
+   and at the search's own [1, 128, 10] and [2, 128, 10] f32 with and
+   without bias, through one 0-d weight a member and a stacked [N]
+   weight tensor, and under autograd (`_CombineMembers`) with its
+   gradients against autograd through `combine_reference`.
 4. Main path at full width: a two-member NASNet-A (6@768) CIFAR ensemble
    (18 cells, 32 filters, bf16, fused sep-conv, SCALAR fused combine),
    weights from a seeded `torch.Generator`, batch-norm statistics random
@@ -73,9 +77,10 @@
    400 steps), through `Estimator.train` and `Estimator.evaluate` with
    `use_fused_combine=True`, launch counts zeroed just before and read
    just after: accuracy >= 0.88, both architectures written, and one K1
-   launch per ensemble candidate a step plus one per eval batch. Then a
-   window of iteration 1's steps is timed (host clock and CUDA events)
-   and traced (device busy, idle share, kernels and K1 launches a step).
+   launch per ensemble candidate a step plus one per eval batch. A
+   window of the search's own iteration 1 is timed (host clock and CUDA
+   events at the batch pulls of its input_fn), and five later steps of it
+   traced (device busy, idle share, kernels and K1 launches a step).
 12. `train_vs_cpu`: the same converted init (`initial_variables`) and
    batches through 2 iterations x 50 steps on the card (K1) and on the
    CPU (plain version), TF32 off: per-step losses and mixture weights
@@ -145,6 +150,9 @@ GATE_ACCURACY, LINEAR_BASELINE_ACCURACY = 0.88, 0.76
 STEP_WINDOW, TRACED_STEPS = 100, 5
 # train_vs_cpu: steps per iteration.
 PARITY_STEPS = 50
+# Member counts of the search's combines: the carried-over winner of a
+# one-member iteration 0 (no grad) and a grown candidate (under autograd).
+SEARCH_COMBINE_MEMBERS = (1, 2)
 
 
 def card_line():
@@ -415,10 +423,59 @@ def check_combine(gen):
             worst[str(dtype).replace("torch.", "")] = max(
                 worst[str(dtype).replace("torch.", "")], check_close(name, got, want, combine_tolerance(want)))
             cases += 1
+    grads = 0.0
+    for n in SEARCH_COMBINE_MEMBERS:
+        for use_bias in (False, True):
+            err, grad_err = check_search_combine(n, use_bias, gen)
+            worst["float32"] = max(worst["float32"], err)
+            grads = max(grads, grad_err)
+            cases += 3
     torch.cuda.synchronize()
-    print("K1 checked at %d cases (buckets x N %s, %s, a misaligned member, N = 500); "
-          "worst abs err: %s" % (cases, COMBINE_MEMBERS, COMBINE_BYTE_BOUND, dict(worst)))
+    print("K1 checked at %d cases (buckets x N %s, %s, a misaligned member, N = 500, the search's "
+          "[N %s, %d, 10] forward and backward); worst abs err: %s, gradients %g"
+          % (cases, COMBINE_MEMBERS, COMBINE_BYTE_BOUND, SEARCH_COMBINE_MEMBERS, TRAIN_BATCH, dict(worst), grads))
     return dict(worst), cases
+
+
+def check_search_combine(n, use_bias, gen):
+    """K1 as the search's ensemble update calls it, at [N, TRAIN_BATCH,
+    10] f32 with scalar weights: through the members form with one 0-d
+    weight per member and with the stacked [N] weights that
+    `_CombineMembers` hands on, then under autograd (weights, bias and
+    members requiring grad, as `_CombineMembers.apply`) with its
+    gradients held against autograd through `combine_reference`, each
+    within `combine_tolerance` of its reference. Returns the worst
+    forward and gradient errors."""
+    import torch
+
+    from adanet_tpu_torch.ops import ensemble_kernels as ek
+
+    members, weights, bias = combine_inputs(n, TRAIN_BATCH, 10, torch.float32, False, use_bias, gen)
+    stacked_w = torch.stack(weights)
+    want = ek.combine_reference(torch.stack(members), stacked_w, bias)
+    tol = combine_tolerance(want)
+    name = "K1 search [%d, %d, 10] bias=%s" % (n, TRAIN_BATCH, use_bias)
+    err = 0.0
+    for form, w in (("one weight a member", weights), ("stacked [N]", stacked_w)):
+        got = ek.fused_weighted_combine_members(members, w, bias)
+        err = max(err, check_close("%s, %s" % (name, form), got, want, tol))
+    inputs = {}
+    for side in ("kernel", "reference"):
+        inputs[side] = [t.clone().requires_grad_(True) for t in members + weights + ([bias] if use_bias else [])]
+    x = inputs["kernel"]
+    before = ek.fused_weighted_combine.launches
+    got = ek.fused_weighted_combine_members(x[:n], x[n:2 * n], x[2 * n] if use_bias else None)
+    if ek.fused_weighted_combine.launches != before + 1 or type(got.grad_fn).__name__ != "_CombineMembersBackward":
+        raise AssertionError("%s: no K1 launch through _CombineMembers (%s)" % (name, got.grad_fn))
+    r = inputs["reference"]
+    ref = ek.combine_reference(torch.stack(r[:n]), torch.stack(r[n:2 * n]), r[2 * n] if use_bias else None)
+    err = max(err, check_close("%s under autograd" % name, got, ref, tol))
+    cot = torch.randn(got.shape, generator=gen).cuda()
+    grad_err = 0.0
+    labels = ["d member %d" % i for i in range(n)] + ["d weight %d" % i for i in range(n)] + ["d bias"]
+    for label, g, w in zip(labels, torch.autograd.grad(got, x, cot), torch.autograd.grad(ref, r, cot)):
+        grad_err = max(grad_err, check_close("%s %s" % (name, label), g, w, combine_tolerance(w)))
+    return err, grad_err
 
 
 def combine_work(n, b, c, elem, vector, use_bias):
@@ -1309,23 +1366,6 @@ def check_sepconv_grads(sep_shapes, gen, batch=2):
     return worst
 
 
-def simple_dnn_variables(num_layers, layer_size, input_dim, n_classes, seed):
-    """Flax-layout variables of a simple_dnn subnetwork (numpy, kernels
-    [in, out]), drawn from `seed`: what a JAX checkpoint holds."""
-    import numpy as np
-
-    rng = np.random.RandomState(seed)
-    params = {}
-    width = input_dim
-    for name, out in [("dense_%d" % i, layer_size) for i in range(num_layers)] + [("logits", n_classes)]:
-        params[name] = {
-            "kernel": (rng.randn(width, out) / np.sqrt(width)).astype(np.float32),
-            "bias": (0.1 * rng.randn(out)).astype(np.float32),
-        }
-        width = out
-    return {"params": params}
-
-
 def search_parts():
     """(head, simple_dnn generator, ensembler) of the gate's
     configuration, the combine fused."""
@@ -1343,11 +1383,49 @@ def search_parts():
     return MultiClassHead(10), generator, ensembler
 
 
+class _StepClock:
+    """Wraps the search's `input_fn`. The Estimator pulls one batch a
+    global step, just before the step (an iteration's first batch before
+    the iteration is built), so pull p + 1 closes step p. Steps
+    [first, first + STEP_WINDOW) are timed at their pulls by the host
+    clock and CUDA events, and steps [traced, traced + TRACED_STEPS) run
+    under torch.profiler, started and stopped at their pulls."""
+
+    def __init__(self, input_fn, first, traced):
+        self._input_fn = input_fn
+        self._first, self._traced = first, traced
+        self.pulls = 0
+        self.marks = []
+        self.profile = None
+
+    def __call__(self):
+        for batch in self._input_fn():
+            self.pulls += 1
+            self._mark(self.pulls)
+            yield batch
+
+    def _mark(self, pull):
+        import torch
+
+        if pull in (self._first, self._first + STEP_WINDOW):
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            self.marks.append((time.perf_counter(), event))
+        if pull == self._traced:
+            activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            self.profile = torch.profiler.profile(activities=activities)
+            self.profile.start()
+        elif pull == self._traced + TRACED_STEPS:
+            torch.cuda.synchronize()
+            self.profile.stop()
+
+
 def train_search(model_dir):
     """The search path: `Estimator.train` and `Estimator.evaluate` at the
     gate's configuration on the card, launch counts zeroed just before
-    and read just after; then iteration 1's step timed and traced.
-    Returns (launch counts, the `train:` numbers)."""
+    and read just after. A window of the search's own iteration 1 is
+    timed, and a few later steps traced, through its input_fn
+    (`_StepClock`). Returns (launch counts, the `train:` numbers)."""
     import torch
 
     from adanet_tpu_torch import ops
@@ -1355,6 +1433,15 @@ def train_search(model_dir):
     from adanet_tpu_torch.examples.synthetic_digits import input_fn, make_dataset
 
     head, generator, ensembler = search_parts()
+    builders = {}
+    generate = generator.generate_candidates
+
+    def recorded(previous_ensemble, iteration_number, *args, **kwargs):
+        out = generate(previous_ensemble, iteration_number, *args, **kwargs)
+        builders[iteration_number] = [b.name for b in out]
+        return out
+
+    generator.generate_candidates = recorded
     xtr, ytr = make_dataset(TRAIN_EXAMPLES, seed=7)
     xte, yte = make_dataset(EVAL_EXAMPLES, seed=8)
     search_dir = os.path.join(model_dir, "search")
@@ -1362,9 +1449,12 @@ def train_search(model_dir):
         head, generator, max_iteration_steps=TRAIN_STEPS, max_iterations=TRAIN_ITERATIONS,
         ensemblers=[ensembler], model_dir=search_dir, log_every_steps=0, device="cuda",
     )
+    # Iteration 1 runs global steps TRAIN_STEPS + 1 ... 2 x TRAIN_STEPS.
+    clock = _StepClock(input_fn(xtr, ytr, TRAIN_BATCH), first=TRAIN_STEPS + 11,
+                       traced=TRAIN_STEPS + 21 + STEP_WINDOW)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    estimator.train(input_fn(xtr, ytr, TRAIN_BATCH), max_steps=10**6)
+    estimator.train(clock, max_steps=10**6)
     torch.cuda.synchronize()
     train_secs = time.perf_counter() - t0
     metrics = estimator.evaluate(input_fn(xte, yte, TRAIN_BATCH))
@@ -1378,15 +1468,19 @@ def train_search(model_dir):
     candidates = (2, 3)
     eval_batches = -(-EVAL_EXAMPLES // TRAIN_BATCH)
     expected = dict(copy=0, sepconv=0, cell=0, combine=TRAIN_STEPS * sum(candidates) + eval_batches)
-    if steps != TRAIN_STEPS * TRAIN_ITERATIONS or counts != expected:
-        raise AssertionError("search: %d steps, launches %s, expected %s" % (steps, counts, expected))
+    if steps != TRAIN_STEPS * TRAIN_ITERATIONS or counts != expected or clock.pulls != steps:
+        raise AssertionError("search: %d steps, %d pulls, launches %s, expected %s"
+                             % (steps, clock.pulls, counts, expected))
     if not (metrics["accuracy"] >= GATE_ACCURACY and metrics["accuracy"] > LINEAR_BASELINE_ACCURACY):
         raise AssertionError("search accuracy %s below the gate %s" % (metrics, GATE_ACCURACY))
     for t in range(TRAIN_ITERATIONS):
         if not os.path.exists(os.path.join(search_dir, "architecture-%d.json" % t)):
             raise AssertionError("architecture-%d.json was not written" % t)
+    (host0, event0), (host1, event1) = clock.marks
+    host_ms = (host1 - host0) / STEP_WINDOW * 1e3
     stats = dict(
         steps=steps,
+        builders=builders,
         search_ms_per_step=train_secs / steps * 1e3,
         search_secs=search_secs,
         k1_launches=counts["combine"],
@@ -1395,56 +1489,23 @@ def train_search(model_dir):
         top_5_accuracy=metrics["top_5_accuracy"],
         loss=metrics["loss"],
         best_ensemble=metrics["best_ensemble"],
+        window_steps=[clock._first, clock._first + STEP_WINDOW - 1],
+        window_candidates=len(builders[1]) + 1,
+        window_host_ms_per_step=host_ms,
+        window_event_ms_per_step=event0.elapsed_time(event1) / STEP_WINDOW,
     )
-    stats.update(time_train_step(head, generator, ensembler, xtr, ytr))
+    stats.update(traced_step(clock.profile, host_ms))
     stats["card"] = card_line()
     print("train: " + json.dumps(stats))
     return counts, stats
 
 
-def time_train_step(head, generator, ensembler, xtr, ytr):
-    """Iteration 1 of the search (two new subnetworks, three candidates,
-    one frozen member), built on the card from a short iteration 0:
-    ms a step by the host clock and by CUDA events over STEP_WINDOW
-    steps, then TRACED_STEPS steps under torch.profiler: device busy ms,
-    idle share against the untraced host time, kernels and K1 launches
-    a step."""
+def traced_step(prof, host_ms):
+    """From TRACED_STEPS traced search steps: device busy ms a step, the
+    idle share against the untraced host time a step, kernels and K1
+    launches a step, the top kernels and the host's self time by op."""
     import torch
 
-    from adanet_tpu_torch.core.iteration import IterationBuilder
-    from adanet_tpu_torch.ensemble.strategy import GrowStrategy
-    from adanet_tpu_torch.examples.synthetic_digits import input_fn
-
-    batches = list(input_fn(xtr, ytr, TRAIN_BATCH)())
-    factory = IterationBuilder(head, [ensembler], [GrowStrategy()], device="cuda")
-    it0 = factory.build_iteration(0, generator.generate_candidates(None, 0, [], []), input_shape=(xtr[0].size,))
-    s0 = it0.init_state(torch.Generator().manual_seed(0), batches[0])
-    for batch in batches[:20]:
-        s0, _ = it0.train_step(s0, batch)
-    frozen = it0.freeze_candidate(s0, it0.ensemble_specs[it0.best_candidate_index(s0)].name, batches[0])
-    it1 = factory.build_iteration(1, generator.generate_candidates(frozen, 1, [], []), frozen,
-                                  input_shape=(xtr[0].size,))
-    state = it1.init_state(torch.Generator().manual_seed(1), batches[0])
-
-    def steps(n, offset=0):
-        nonlocal state
-        for i in range(n):
-            state, _ = it1.train_step(state, batches[(offset + i) % len(batches)])
-
-    steps(10)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    steps(STEP_WINDOW, 10)
-    end.record()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) / STEP_WINDOW * 1e3
-    event_ms = start.elapsed_time(end) / STEP_WINDOW
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        steps(TRACED_STEPS)
-        torch.cuda.synchronize()
     kernels = collections.Counter()
     launches = collections.Counter()
     for event in prof.events():
@@ -1457,47 +1518,21 @@ def time_train_step(head, generator, ensembler, xtr, ytr):
             kernels[event.name] += event.cuda_time_total if total is None else total
             launches[event.name] += 1
     busy_ms = sum(kernels.values()) / 1e3 / TRACED_STEPS
+    k1 = sum(n for k, n in launches.items() if "combine_kernel" in k)
     host_ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
     return dict(
-        window_steps=STEP_WINDOW,
-        window_candidates=len(it1.ensemble_specs),
-        window_host_ms_per_step=host_ms,
-        window_event_ms_per_step=event_ms,
+        traced_steps=TRACED_STEPS,
         device_busy_ms_per_step=busy_ms,
         device_idle_share=1.0 - busy_ms / host_ms,
         device_kernels_per_step=sum(launches.values()) / TRACED_STEPS,
-        k1_launches_per_traced_step=sum(n for k, n in launches.items() if "combine_kernel" in k) / TRACED_STEPS,
-        k1_device_us=sum(us for k, us in kernels.items() if "combine_kernel" in k)
-        / max(1, sum(n for k, n in launches.items() if "combine_kernel" in k)),
+        k1_launches_per_traced_step=k1 / TRACED_STEPS,
+        k1_device_us=sum(us for k, us in kernels.items() if "combine_kernel" in k) / max(1, k1),
         top_kernels_ms_per_step=[[name[:60], us / 1e3 / TRACED_STEPS] for name, us in kernels.most_common(6)],
         top_kernels_by_launches=[[name[:60], n / TRACED_STEPS] for name, n in launches.most_common(8)],
         # Host time by operation (self time, traced, so inflated).
         top_host_ms_per_step=[[e.key[:50], e.self_cpu_time_total / 1e3 / TRACED_STEPS, e.count / TRACED_STEPS]
                               for e in host_ops],
     )
-
-
-class _WithInitialVariables:
-    """A simple_dnn generator whose builders carry `initial_variables`:
-    Flax-layout numpy variables per (iteration, builder) converted by
-    `utils.convert.convert_simple_dnn`, the same on every device."""
-
-    def __init__(self, generator):
-        self._generator = generator
-
-    def generate_candidates(self, previous_ensemble, iteration_number, previous_ensemble_reports, all_reports,
-                            config=None):
-        import zlib
-
-        from adanet_tpu_torch.utils import convert
-
-        builders = self._generator.generate_candidates(previous_ensemble, iteration_number, [], [])
-        for builder in builders:
-            seed = zlib.crc32(("%d/%s" % (iteration_number, builder.name)).encode())
-            builder.initial_variables = convert.convert_simple_dnn(
-                simple_dnn_variables(builder._num_layers, LAYER_SIZE, 256, 10, seed)
-            )
-        return builders
 
 
 def train_vs_cpu():
@@ -1510,13 +1545,14 @@ def train_vs_cpu():
     from adanet_tpu_torch.core.iteration import IterationBuilder
     from adanet_tpu_torch.ensemble.strategy import GrowStrategy
     from adanet_tpu_torch.examples.synthetic_digits import input_fn, make_dataset
+    from adanet_tpu_torch.utils.convert import WithInitialVariables
 
     x, y = make_dataset(TRAIN_BATCH * PARITY_STEPS * TRAIN_ITERATIONS, seed=7)
     batches = list(input_fn(x, y, TRAIN_BATCH)())
     runs = []
     for device in ("cuda", "cpu"):
         head, generator, ensembler = search_parts()
-        generator = _WithInitialVariables(generator)
+        generator = WithInitialVariables(generator, x[0].size, 10)
         factory = IterationBuilder(head, [ensembler], [GrowStrategy()], device=device)
         trace, best, previous = [], [], None
         for t in range(TRAIN_ITERATIONS):

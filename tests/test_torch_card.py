@@ -26,7 +26,7 @@ from adanet_tpu_torch.examples.synthetic_digits import input_fn, make_dataset
 from adanet_tpu_torch.ops import sepconv_kernels as sk
 from adanet_tpu_torch.utils import convert
 
-from torch_port_common import require_cuda, simple_dnn_variables
+from torch_port_common import require_cuda
 
 
 def _adam(params):
@@ -43,7 +43,7 @@ def _steps(device, batches):
     )
     for i, builder in enumerate(builders):
         builder.initial_variables = convert.convert_simple_dnn(
-            simple_dnn_variables(builder._num_layers, 32, 256, 10, seed=i)
+            convert.simple_dnn_variables(builder._num_layers, 32, 256, 10, seed=i)
         )
     iteration = factory.build_iteration(0, builders, input_shape=(256,))
     state = iteration.init_state(torch.Generator().manual_seed(0), batches[0])

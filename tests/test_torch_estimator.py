@@ -10,9 +10,10 @@
   test_search_beats_linear_baseline at the gate's configuration, on the
   CPU: accuracy >= 0.88 and above the linear baseline (0.76), with the
   fused combine off (the gate's) and on.
-- A train() stopped inside an iteration continues where it stopped; the
-  frozen payload holds the winner's numbers; evaluate needs a trained
-  model.
+- train() stops only at the end of an iteration: a max_steps inside one
+  is refused before any step, and a later train() call starts the next
+  iteration; the frozen payload holds the winner's numbers; evaluate
+  needs a trained model and a batch.
 """
 
 import json
@@ -32,9 +33,9 @@ from adanet_tpu_torch.core.heads import MultiClassHead
 from adanet_tpu_torch.ensemble.weighted import ComplexityRegularizedEnsembler
 from adanet_tpu_torch.examples import simple_dnn
 from adanet_tpu_torch.examples.synthetic_digits import input_fn, make_dataset
-from adanet_tpu_torch.utils import convert
+from adanet_tpu_torch.utils.convert import WithInitialVariables
 
-from torch_port_common import WithInitialVariables, one_torch_thread
+from torch_port_common import one_torch_thread
 
 LINEAR_BASELINE_ACCURACY = 0.76  # tests/test_convergence.py
 STEPS = 25
@@ -61,7 +62,7 @@ def _logged_input_fn(x, y, log, batch_size=32):
 def _torch_estimator(model_dir, fused=True, force_grow=False, layer_size=16, steps=STEPS, initial=True, **kwargs):
     generator = simple_dnn.Generator(optimizer_fn=_adam, layer_size=layer_size, initial_num_layers=1, seed=0)
     if initial:
-        generator = WithInitialVariables(generator, convert.convert_simple_dnn, 256, 10)
+        generator = WithInitialVariables(generator, 256, 10)
     return Estimator(
         head=MultiClassHead(10),
         subnetwork_generator=generator,
@@ -94,7 +95,7 @@ def test_search_matches_jax(tmp_path, force_grow):
         subnetwork_generator=WithInitialVariables(
             jax_simple_dnn.Generator(optimizer_fn=lambda: optax.adam(1e-3), layer_size=16, initial_num_layers=1,
                                      seed=0),
-            lambda v: v, 256, 10,
+            256, 10, convert=lambda v: v,
         ),
         max_iteration_steps=STEPS,
         max_iterations=2,
@@ -137,25 +138,33 @@ def test_search_beats_linear_baseline(tmp_path, fused):
     assert os.path.exists(tmp_path / "model" / "architecture-1.json")
 
 
-def test_train_stopped_inside_an_iteration_continues(tmp_path):
+@pytest.mark.parametrize("stop", [1, STEPS - 1, STEPS + 7])
+def test_train_refuses_to_stop_inside_an_iteration(tmp_path, stop):
+    xtr, ytr = make_dataset(8 * 32, seed=7)
+    est = _torch_estimator(tmp_path / "m")
+    with pytest.raises(ValueError, match="inside iteration %d" % (stop // STEPS)):
+        est.train(input_fn(xtr, ytr, 32), max_steps=stop)
+    assert (est.latest_global_step(), est.latest_iteration_number()) == (0, 0)
+    assert not os.path.exists(tmp_path / "m" / "architecture-0.json")
+
+
+def test_train_in_whole_iterations_across_calls(tmp_path):
     xtr, ytr = make_dataset(8 * 32, seed=7)
     xte, yte = make_dataset(128, seed=8)
     whole = _torch_estimator(tmp_path / "whole")
     whole.train(input_fn(xtr, ytr, 32), max_steps=2 * STEPS)
     parts = _torch_estimator(tmp_path / "parts")
-    parts.train(input_fn(xtr, ytr, 32), max_steps=STEPS + 7)
-    assert (parts.latest_global_step(), parts.latest_iteration_number()) == (STEPS + 7, 1)
-    # Inside an iteration, evaluate reads its current best candidate.
-    mid = parts.evaluate(input_fn(xte, yte, 32))
-    iteration, state, _ = parts._pending
-    assert mid["global_step"] == STEPS + 7
-    assert mid["best_ensemble"] == iteration.ensemble_specs[iteration.best_candidate_index(state)].name
-    parts.train(input_fn(xtr, ytr, 32), steps=STEPS - 7)
+    parts.train(input_fn(xtr, ytr, 32), max_steps=STEPS)
+    assert (parts.latest_global_step(), parts.latest_iteration_number()) == (STEPS, 1)
+    first = parts.evaluate(input_fn(xte, yte, 32))
+    assert first["global_step"] == STEPS and first["best_ensemble"].startswith("t0_")
+    with pytest.raises(ValueError, match="inside iteration 1"):
+        parts.train(input_fn(xtr, ytr, 32), steps=STEPS - 7)
+    parts.train(input_fn(xtr, ytr, 32), steps=STEPS)
     assert parts.latest_global_step() == 2 * STEPS and parts.latest_iteration_number() == 2
     assert _architectures(tmp_path / "parts")[0] == _architectures(tmp_path / "whole")[0]
-    assert [a["subnetworks"] for a in _architectures(tmp_path / "parts")] == \
-        [a["subnetworks"] for a in _architectures(tmp_path / "whole")]
-    assert parts.train(input_fn(xtr, ytr, 32), steps=5).latest_global_step() == 2 * STEPS  # max_iterations
+    # Past max_iterations there is nothing left to train, whatever the steps.
+    assert parts.train(input_fn(xtr, ytr, 32), steps=5).latest_global_step() == 2 * STEPS
 
 
 def test_frozen_payload_and_evaluate_guards(tmp_path):
@@ -163,6 +172,8 @@ def test_frozen_payload_and_evaluate_guards(tmp_path):
     est = _torch_estimator(tmp_path / "m", steps=4)
     with pytest.raises(ValueError, match="train"):
         est.evaluate(input_fn(xtr, ytr, 32))
+    with pytest.raises(ValueError, match="no batches"):
+        _torch_estimator(tmp_path / "m", steps=4).train(input_fn(xtr, ytr, 32), max_steps=4).evaluate(lambda: iter(()))
     with pytest.raises(ValueError, match="at most one"):
         est.train(input_fn(xtr, ytr, 32), max_steps=3, steps=3)
     est.train(input_fn(xtr, ytr, 32))

@@ -12,7 +12,9 @@
   architecture JSON.
 - A NaN batch: the candidate it reaches is quarantined as in JAX (dead
   flags, step counts, EMAs, selection).
-- The zero-debiased EMA, tree utilities and batch utilities.
+- The zero-debiased EMA, tree utilities and batch utilities; a
+  non-finite step leaves the parameters and the optimizer state as they
+  were (the JAX step's `tree_where`).
 - K1's prepared-weight memo under `torch.optim.Adam` (foreach and
   for-loop): a step's new weights are prepared afresh.
 """
@@ -51,7 +53,9 @@ from adanet_tpu_torch.ops import sepconv_kernels as sk
 from adanet_tpu_torch.subnetwork.generator import Builder, Subnetwork
 from adanet_tpu_torch.utils import batches, convert, trees
 
-from torch_port_common import WithInitialVariables, one_torch_thread, simple_dnn_variables
+from adanet_tpu_torch.utils.convert import WithInitialVariables, simple_dnn_variables
+
+from torch_port_common import one_torch_thread
 
 STEPS = 25
 FEATURES = 256
@@ -111,16 +115,10 @@ def test_init_ensemble_matches_jax(kind, use_bias, warm):
 
 
 def test_init_ensemble_initializer_and_default_optimizer():
-    calls = []
-
-    def initializer(generator, shape, dtype):
-        calls.append((shape, dtype))
-        return torch.full(shape, 0.25, dtype=dtype)
-
-    ensembler = ComplexityRegularizedEnsembler(mixture_weight_type="vector", mixture_weight_initializer=initializer)
-    members = [Subnetwork(last_layer=None, logits=torch.zeros(2, CLASSES))] * 2
+    ensembler = ComplexityRegularizedEnsembler(mixture_weight_type="vector")
+    members = [Subnetwork(last_layer=None, logits=torch.zeros(2, CLASSES))] * 4
     params = ensembler.init_ensemble(torch.Generator(), members)
-    assert calls == [((CLASSES,), torch.float32)] * 2
+    assert sorted(params) == ["weights"] and len(params["weights"]) == 4
     assert all(torch.equal(w, torch.full((CLASSES,), 0.25)) for w in params["weights"])
     assert ensembler.build_train_optimizer() is None
     assert ensembler.name == "complexity_regularized"
@@ -141,7 +139,6 @@ CONFIGS = {
     "unfused": dict(fused=False),
     "fused": dict(fused=True),
     "fused_lambda_bias_warm_sgd": dict(fused=True, adanet_lambda=0.01, use_bias=True, warm=True, sgd=True),
-    "unfused_example_weights": dict(fused=False, weight_key="w"),
 }
 
 
@@ -157,36 +154,27 @@ def _packages(config):
         jax_opt, opt = optax.sgd(0.05), (lambda params: torch.optim.SGD(params, lr=0.05))
     else:
         jax_opt, opt = _adam_jax(), _adam
-    weight_key = config.get("weight_key")
     jax_side = dict(
-        builder=JaxIterationBuilder(JaxHead(CLASSES), [JaxEnsembler(optimizer=jax_opt, **kwargs)], [JaxGrow()],
-                                    weight_key=weight_key),
+        builder=JaxIterationBuilder(JaxHead(CLASSES), [JaxEnsembler(optimizer=jax_opt, **kwargs)], [JaxGrow()]),
         generator=WithInitialVariables(
             jax_simple_dnn.Generator(optimizer_fn=_adam_jax, layer_size=16, initial_num_layers=1, seed=0),
-            lambda v: v, FEATURES, CLASSES,
+            FEATURES, CLASSES, convert=lambda v: v,
         ),
     )
     torch_side = dict(
         builder=IterationBuilder(MultiClassHead(CLASSES), [ComplexityRegularizedEnsembler(optimizer=opt, **kwargs)],
-                                 [GrowStrategy()], weight_key=weight_key, device="cpu"),
+                                 [GrowStrategy()], device="cpu"),
         generator=WithInitialVariables(
             simple_dnn.Generator(optimizer_fn=_adam, layer_size=16, initial_num_layers=1, seed=0),
-            convert.convert_simple_dnn, FEATURES, CLASSES,
+            FEATURES, CLASSES,
         ),
     )
     return jax_side, torch_side
 
 
-def _batches(n, seed=7, batch_size=32, weight_key=None):
-    """n batches of digits; with `weight_key`, each carries example
-    weights drawn from U(0, 2) under that key."""
+def _batches(n, seed=7, batch_size=32):
     x, y = make_dataset(n * batch_size, seed=seed)
-    batches = list(input_fn(x, y, batch_size)())
-    if weight_key is not None:
-        rng = np.random.RandomState(seed)
-        for features, _ in batches:
-            features[weight_key] = rng.uniform(0.0, 2.0, len(features["x"])).astype(np.float32)
-    return batches
+    return list(input_fn(x, y, batch_size)())
 
 
 def _run(side, batches, is_jax, iterations=2, steps=STEPS):
@@ -224,7 +212,7 @@ def _run(side, batches, is_jax, iterations=2, steps=STEPS):
 @pytest.mark.parametrize("config", sorted(CONFIGS))
 def test_iteration_trajectory_matches_jax(config):
     jax_side, torch_side = _packages(CONFIGS[config])
-    data = _batches(2 * STEPS, weight_key=CONFIGS[config].get("weight_key"))
+    data = _batches(2 * STEPS)
     want_trace, want_best, want_arch, want_frozen = _run(jax_side, data, True)
     got_trace, got_best, got_arch, got_frozen = _run(torch_side, data, False)
     assert len(got_trace) == len(want_trace) == 2 * STEPS
@@ -318,12 +306,19 @@ class _Fragile(Builder):
         return _adam
 
 
-def test_nan_batch_quarantines_one_candidate_as_in_jax():
-    data = _batches(12)
+def _poisoned_batches(n, at):
+    """n batches whose `poison` column is 0, but NaN in one row of batch
+    `at`."""
+    data = _batches(n)
     for i, (features, _) in enumerate(data):
         features["poison"] = np.zeros(len(features["x"]), np.float32)
-        if i == 5:
+        if i == at:
             features["poison"][3] = np.nan
+    return data
+
+
+def test_nan_batch_quarantines_one_candidate_as_in_jax():
+    data = _poisoned_batches(12, 5)
     runs = []
     for is_jax in (True, False):
         if is_jax:
@@ -391,19 +386,40 @@ def test_candidate_ema_matches_jax():
 
 
 def test_tree_finite_and_where():
+    """`tree_finite`, and the step's counterpart of the JAX `tree_where`:
+    a step whose loss went NaN leaves that subnetwork's parameters and
+    Adam state exactly as they were, while the other candidate steps."""
     tree = {"a": [torch.ones(3), torch.zeros(2, 2)], "b": torch.tensor(1), "c": None}
     assert bool(trees.tree_finite(tree))
     assert bool(trees.tree_finite({}))
     bad = {"a": [torch.ones(3), torch.tensor([0.0, float("inf")])]}
     assert not bool(trees.tree_finite(bad))
     assert not bool(trees.tree_finite([torch.tensor(float("nan"))]))
-    on_true = {"w": [torch.ones(2)], "n": 1}
-    on_false = {"w": [torch.zeros(2)], "n": 2}
-    assert torch.equal(trees.tree_where(torch.tensor(True), on_true, on_false)["w"][0], torch.ones(2))
-    picked = trees.tree_where(torch.tensor(False), on_true, on_false)
-    assert torch.equal(picked["w"][0], torch.zeros(2)) and picked["n"] == 2
-    with pytest.raises(ValueError):
-        trees.tree_where(torch.tensor(True), {"a": torch.ones(1)}, {"b": torch.ones(1)})
+
+    data = _poisoned_batches(3, 2)
+    builders = [_Fragile(), simple_dnn._DNNBuilder(_adam, 16, 1, False, 0.0, 0)]
+    factory = IterationBuilder(MultiClassHead(CLASSES), [ComplexityRegularizedEnsembler(optimizer=_adam)],
+                               [GrowStrategy()], device="cpu")
+    iteration = factory.build_iteration(0, builders, input_shape=(FEATURES,))
+    state = iteration.init_state(torch.Generator().manual_seed(0), data[0])
+
+    def snapshot(name):
+        st = state.subnetworks[name]
+        opt = [{k: v.clone() if torch.is_tensor(v) else v for k, v in s.items()}
+               for s in st.optimizer.state.values()]
+        return {k: v.clone() for k, v in st.module.state_dict().items()}, opt
+
+    for batch in data[:2]:
+        state, _ = iteration.train_step(state, batch)
+    before = {name: snapshot(name) for name in ("fragile", "1_layer_dnn")}
+    state, metrics = iteration.train_step(state, data[2])
+    assert not np.isfinite(float(metrics["subnetwork_loss/fragile"]))
+    for name, kept in (("fragile", True), ("1_layer_dnn", False)):
+        (params, opt), (params_after, opt_after) = before[name], snapshot(name)
+        same = all(torch.equal(params[k], params_after[k]) for k in params) and all(
+            torch.equal(torch.as_tensor(a[k]), torch.as_tensor(b[k])) for a, b in zip(opt, opt_after) for k in a)
+        assert same == kept, name
+    assert state.subnetworks["fragile"].dead and state.subnetworks["fragile"].step == 2
 
 
 def test_batch_utilities_match_jax():
@@ -411,9 +427,7 @@ def test_batch_utilities_match_jax():
     batch = ({"x": rng.randn(5, 3).astype(np.float32), "w": rng.rand(5).astype(np.float32)},
              rng.randint(0, 3, 5).astype(np.int32))
     assert batches.batch_example_count(batch) == jax_batches.batch_example_count(batch) == 5
-    for key in (None, "w"):
-        np.testing.assert_allclose(batches.batch_metric_weight(batch, key),
-                                   jax_batches.batch_metric_weight(batch, key), rtol=1e-6)
+    assert batches.batch_example_count(batch) == jax_batches.batch_metric_weight(batch)
     moved = batches.to_device(batch, "cpu")
     assert isinstance(moved, tuple) and moved[0]["x"].dtype == torch.float32 and moved[1].dtype == torch.int32
     assert batches.feature_shape(batch[0]["x"]) == (3,)
@@ -490,6 +504,7 @@ def test_dropout_draws_from_the_iteration_generator():
     assert losses(1) == first
     assert losses(2) != first
     module = simple_dnn._SimpleDNN(FEATURES, CLASSES, 1, 64, 0.5)
+    module.init_parameters(torch.Generator().manual_seed(0))
     x = {"x": torch.ones(8, FEATURES)}
     kept = module(x, training=True, generator=torch.Generator().manual_seed(0)).last_layer
     assert torch.equal(module(x, training=False).last_layer * 2.0 * (kept != 0), kept)

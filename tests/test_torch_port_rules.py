@@ -39,9 +39,7 @@ COPIES = {
     "adanet_tpu_torch/store/fsck.py": "adanet_tpu/store/fsck.py",
     "adanet_tpu_torch/store/keys.py": "adanet_tpu/store/keys.py",
     "adanet_tpu_torch/subnetwork/report.py": "adanet_tpu/subnetwork/report.py",
-    "adanet_tpu_torch/core/timer.py": "adanet_tpu/core/timer.py",
     "adanet_tpu_torch/core/summary.py": "adanet_tpu/core/summary.py",
-    "adanet_tpu_torch/core/report_accessor.py": "adanet_tpu/core/report_accessor.py",
     "adanet_tpu_torch/ensemble/ensembler.py": "adanet_tpu/ensemble/ensembler.py",
     "adanet_tpu_torch/ensemble/strategy.py": "adanet_tpu/ensemble/strategy.py",
     "adanet_tpu_torch/examples/synthetic_digits.py": "adanet_tpu/examples/synthetic_digits.py",
@@ -65,9 +63,7 @@ SLICE_MODULES = (
     "adanet_tpu_torch.core.candidate",
     "adanet_tpu_torch.core.estimator",
     "adanet_tpu_torch.core.iteration",
-    "adanet_tpu_torch.core.report_accessor",
     "adanet_tpu_torch.core.summary",
-    "adanet_tpu_torch.core.timer",
     "adanet_tpu_torch.ensemble.ensembler",
     "adanet_tpu_torch.ensemble.strategy",
     "adanet_tpu_torch.examples.simple_dnn",

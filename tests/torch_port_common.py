@@ -75,52 +75,6 @@ def require_cuda():
         pytest.skip("needs an NVIDIA card: python -m pytest --noconftest -m cuda tests/test_torch_card.py")
 
 
-def simple_dnn_variables(num_layers, layer_size, input_dim, n_classes, seed):
-    """Flax variables (numpy) of a JAX simple_dnn subnetwork
-    (`{"params": {"dense_<i>": ..., "logits": ...}}`), drawn from `seed`
-    as `numpy_variables` draws them."""
-    rng = np.random.RandomState(seed)
-    params = {}
-    width = input_dim
-    for name, out in [("dense_%d" % i, layer_size) for i in range(num_layers)] + [("logits", n_classes)]:
-        params[name] = {
-            "kernel": (rng.randn(width, out) / np.sqrt(width)).astype(np.float32),
-            "bias": (0.1 * rng.randn(out)).astype(np.float32),
-        }
-        width = out
-    return {"params": params}
-
-
-class WithInitialVariables:
-    """Wraps a simple_dnn `Generator` of either package: each builder it
-    returns carries `initial_variables`, drawn per (iteration, builder
-    name) from `seed` (`simple_dnn_variables`) and passed through
-    `convert` (identity for the JAX package, `utils.convert.
-    convert_simple_dnn` for the port), so both packages start every
-    candidate from the same numbers."""
-
-    def __init__(self, generator, convert, input_dim, n_classes, seed=0):
-        self._generator = generator
-        self._convert = convert
-        self._input_dim = input_dim
-        self._n_classes = n_classes
-        self._seed = seed
-
-    def generate_candidates(self, previous_ensemble, iteration_number, previous_ensemble_reports,
-                            all_reports, config=None):
-        import zlib
-
-        builders = self._generator.generate_candidates(
-            previous_ensemble, iteration_number, previous_ensemble_reports, all_reports, config
-        )
-        for builder in builders:
-            seed = zlib.crc32(("%d/%s/%d" % (iteration_number, builder.name, self._seed)).encode())
-            builder.initial_variables = self._convert(simple_dnn_variables(
-                builder._num_layers, builder._layer_size, self._input_dim, self._n_classes, seed
-            ))
-        return builders
-
-
 def one_torch_thread():
     """A fixture body: torch's CPU ops on one thread for the test, the
     previous count restored after. The search tests run many small ops,
