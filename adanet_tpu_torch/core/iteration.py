@@ -5,9 +5,11 @@ candidate's forward, backward and update into one jitted program; here
 `Iteration.train_step` is one Python step over all candidates:
 
 1. the frozen members of the previous ensemble run forward once, without
-   gradients, shared by every candidate;
+   gradients, shared by every candidate; from them the distillation
+   teachers (`TrainLossContext`);
 2. each new subnetwork runs its training forward and its backward on its
-   own loss (the head's, or the builder's `build_subnetwork_loss`);
+   own loss (the head's, or the builder's `build_subnetwork_loss` with
+   the teachers);
 3. each ensemble candidate combines its members' outputs of step 1 and 2,
    detached (so taken before this step's subnetwork updates, as the JAX
    step reads them), and its mixture weights get the gradient of
@@ -17,22 +19,27 @@ candidate's forward, backward and update into one jitted program; here
    synchronisation) decides which optimizers step: a non-finite loss or
    gradient skips both the parameters' and the optimizer state's update,
    as the JAX step's `tree_where` does, and a non-finite subnetwork loss
-   marks it dead;
+   marks it dead. A subnetwork that does not step also gets back the
+   buffers its training forward moved (batch-norm statistics, the
+   drop-path schedule), as the JAX step keeps the mutated collections
+   only when the step is finite;
 5. each ensemble candidate's zero-debiased loss EMA is updated on the
    device (`core/candidate.py`), quarantining non-finite losses.
 
 Training state is the subnetworks' `nn.Module`s with their
 `torch.optim` optimizers, the mixture weights as one `nn.Parameter` per
-member, and the candidates' EMA tensors (`IterationState`). Matrix
-products run with TF32 off. Bagging, distillation contexts, the bf16
-step policy, multi-step windows and RoundRobin placement come with later
-slices.
+member, and the candidates' EMA tensors (`IterationState`). A builder's
+optimizer factory takes the module's `(name, parameter)` pairs, so that
+a rule may go by name (weight decay on kernels only). Matrix products run with
+TF32 off. Bagging, the bf16 step policy, multi-step windows and
+RoundRobin placement come with later slices.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import inspect
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -100,7 +107,7 @@ class SubnetworkSpec:
     name: str
     builder: Any
     module: Any
-    optimizer_fn: Any  # params -> torch.optim.Optimizer
+    optimizer_fn: Any  # [(name, parameter), ...] -> torch.optim.Optimizer
     takes_generator: bool = False
 
 
@@ -177,6 +184,47 @@ def _takes_generator(module) -> bool:
     return "generator" in inspect.signature(module.forward).parameters
 
 
+def _snapshot(tensors) -> List[Tuple[List[torch.Tensor], torch.Tensor]]:
+    """One flat copy of `tensors` per dtype: a few kernels for the
+    hundreds of buffers of a NASNet."""
+    groups: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for t in tensors:
+        groups.setdefault(t.dtype, []).append(t)
+    return [(ts, torch.cat([t.detach().reshape(-1) for t in ts])) for ts in groups.values()]
+
+
+def _restore(snapshot) -> None:
+    """Writes a `_snapshot` back into its tensors."""
+    with torch.no_grad():
+        for ts, flat in snapshot:
+            parts = flat.split([t.numel() for t in ts])
+            torch._foreach_copy_(ts, [p.view_as(t) for p, t in zip(parts, ts)])
+
+
+class TrainLossContext:
+    """Teacher signals for `Builder.build_subnetwork_loss` (JAX:
+    `TrainLossContext`), both detached:
+
+    - `previous_ensemble_logits`: the previous ensemble's logits on this
+      batch (ADAPTIVE distillation; reference:
+      research/improve_nas/trainer/improve_nas.py:166-172), combined on
+      first read, once a step (one K1 launch with the fused combine);
+    - `previous_subnetwork_logits`: the last frozen member's logits
+      (BORN_AGAIN distillation; improve_nas.py:174-180).
+    """
+
+    def __init__(self, ensembler, params, frozen_outs):
+        self._ensembler = ensembler
+        self._params = params
+        self._frozen_outs = frozen_outs
+        self.previous_subnetwork_logits = frozen_outs[-1].logits.detach()
+
+    @functools.cached_property
+    def previous_ensemble_logits(self) -> torch.Tensor:
+        with torch.no_grad():
+            return self._ensembler.build_ensemble(self._params, self._frozen_outs).logits
+
+
 class Iteration:
     """One AdaNet iteration: candidates, steps and state management."""
 
@@ -221,7 +269,7 @@ class Iteration:
             self._graft_initial_variables(spec)
             module.to(self.device)
             sub_states[spec.name] = SubnetworkTrainState(
-                module=module, optimizer=spec.optimizer_fn(list(module.parameters()))
+                module=module, optimizer=spec.optimizer_fn(list(module.named_parameters()))
             )
             with torch.no_grad():
                 sub_outs[spec.name] = module(features, training=False)
@@ -307,6 +355,14 @@ class Iteration:
 
     # ----------------------------------------------------------------- train
 
+    def build_loss_context(self, prev_ensembler_params, frozen_outs) -> Optional[TrainLossContext]:
+        """The distillation teachers from the frozen previous ensemble,
+        through the first ensemble spec's ensembler (the carried-over
+        previous ensemble); None without a previous ensemble."""
+        if not frozen_outs or self.previous_ensemble is None:
+            return None
+        return TrainLossContext(self.ensemble_specs[0].ensembler, prev_ensembler_params, frozen_outs)
+
     def frozen_outputs(self, frozen_modules, features):
         """Forward passes of the frozen members, without gradients."""
         with torch.no_grad():
@@ -339,8 +395,10 @@ class Iteration:
         metrics: Dict[str, Any] = {}
         flags = []
 
-        # 1) The frozen members, once for every candidate.
+        # 1) The frozen members, once for every candidate, and the
+        #    distillation teachers from them.
         frozen_outs = self.frozen_outputs(state.frozen, features)
+        context = self.build_loss_context(state.ensembles[self.ensemble_specs[0].name].params, frozen_outs)
 
         # 2) Every new subnetwork on its own loss.
         sub_outs = {}
@@ -348,14 +406,16 @@ class Iteration:
         for spec in self.subnetwork_specs:
             st = state.subnetworks[spec.name]
             kwargs = {"generator": state.generator} if spec.takes_generator else {}
+            buffers = list(st.module.buffers())
+            before = _snapshot(buffers) if buffers else None
             out = st.module(features, training=True, **kwargs)
-            loss = spec.builder.build_subnetwork_loss(out, labels, self.head, None)
+            loss = spec.builder.build_subnetwork_loss(out, labels, self.head, context)
             if loss is None:
                 loss = self.head.loss(out.logits, labels)
             params = list(st.module.parameters())
             grads = _grads(loss, params)
             flags += [torch.isfinite(loss), tree_finite(grads)]
-            sub_updates.append((st, params, grads))
+            sub_updates.append((st, params, grads, before))
             metrics.update(self.builder_summary_metrics(spec, out, features, labels))
             sub_outs[spec.name] = _detached(out)
             metrics["subnetwork_loss/%s" % spec.name] = loss.detach()
@@ -384,11 +444,13 @@ class Iteration:
 
         # 4) Step only what stayed finite: the step's one host read.
         ok = torch.stack([f.to(self.device) for f in flags]).tolist()
-        for i, (st, params, grads) in enumerate(sub_updates):
+        for i, (st, params, grads, before) in enumerate(sub_updates):
             loss_finite, grads_finite = ok[2 * i], ok[2 * i + 1]
             if loss_finite and grads_finite and not st.dead:
                 _step(st.optimizer, params, grads)
                 st.step += 1
+            elif before is not None:
+                _restore(before)
             st.dead = st.dead or not loss_finite
         for j, (est, params, grads) in enumerate(ens_updates):
             if ok[2 * len(sub_updates) + j]:

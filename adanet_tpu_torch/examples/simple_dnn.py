@@ -109,7 +109,8 @@ class _DNNBuilder(Builder):
         )
 
     def build_train_optimizer(self, previous_ensemble=None):
-        return self._optimizer_fn
+        optimizer_fn = self._optimizer_fn
+        return lambda named_parameters: optimizer_fn([p for _, p in named_parameters])
 
     def build_subnetwork_report(self) -> Report:
         return Report(

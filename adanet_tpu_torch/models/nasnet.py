@@ -1,4 +1,4 @@
-"""NASNet-A in PyTorch, eval mode.
+"""NASNet-A in PyTorch, training and eval.
 
 Port of adanet_tpu/models/nasnet.py (itself after the reference's
 research/improve_nas/trainer/nasnet.py and nasnet_utils.py): the normal
@@ -18,10 +18,28 @@ is once traced. Parameter names follow the Flax tree
 one onto the other by path. Batch norm keeps Flax's names: parameters
 `scale` and `bias`, buffers `mean`, `var` and `count`.
 
-Eval only: drop-path and the auxiliary head run in training, which comes
-with the training slice. The auxiliary head's parameters are built all
-the same, where the Flax version creates them, so that converted
-checkpoints load strictly. Only the CIFAR stem is ported so far.
+Training (`forward(images, training=True, generator=...)`) follows the
+Flax module's training branch:
+
+- batch norm normalises with the batch's mean and biased variance (f32)
+  and moves its statistics with the warmup-scheduled momentum
+  `min(0.9997, count / (count + 10))`, `count` then growing by one. The
+  layers hand their batch statistics to the forward, which updates every
+  layer's statistics at its end in a few batched operations
+  (`_update_statistics`);
+- drop-path (v3 schedule): each cell's keep probability is scaled by its
+  depth and by the progress `min(step / total_training_steps, 1)`, where
+  `step` (the Flax `schedule/step` variable, a buffer here) grows by one
+  each training forward. The U[0, 1) draws come from `generator`, one
+  [drops, batch] draw a cell before the cell runs (`_uniform`), so a
+  rematerialised cell recomputes with the same masks;
+- the auxiliary head after the cell before the second reduction (when
+  the feature map is at least 5 x 5), and dense dropout before the
+  logits;
+- `remat` recomputes each cell in the backward (`torch.utils.checkpoint`);
+  the recompute neither moves the statistics again nor draws new masks.
+
+Only the CIFAR stem is ported so far.
 """
 
 from __future__ import annotations
@@ -33,6 +51,7 @@ from typing import Any, List, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from adanet_tpu_torch.ops.sepconv_kernels import fused_sep_conv, same_pads
 
@@ -69,6 +88,63 @@ _REDUCTION_USED_HIDDENSTATES = (1, 1, 1, 0, 0, 0, 0)
 
 #: One example's activation shape, NHWC without the batch: (H, W, C).
 Shape = Tuple[int, int, int]
+
+#: Batch-norm statistics' schedule (the Flax `_DebiasedBatchNorm`'s
+#: slim defaults): momentum min(BN_MOMENTUM, count / (count + BN_WARMUP)).
+BN_MOMENTUM = 0.9997
+BN_WARMUP = 10.0
+
+
+@dataclasses.dataclass
+class _Train:
+    """What a training forward hands its layers: the drop-path progress
+    (0-d f32), and the list each batch norm appends `(layer, batch mean,
+    batch variance)` to; None while a rematerialised cell is recomputed
+    (its statistics were taken in the forward)."""
+
+    progress: torch.Tensor
+    stats: Optional[list]
+
+
+def _uniform(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """U[0, 1) f32 draws of drop-path and dropout, from `generator` (the
+    default generator of `device` when None)."""
+    if generator is not None:
+        device = generator.device
+    return torch.rand(shape, generator=generator, device=device)
+
+
+def _drop_path(x: torch.Tensor, keep_prob: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Drops whole examples' branch outputs (reference:
+    nasnet_utils.py:137-148): mask `floor(keep_prob + u)` from the
+    per-example draws `u` [B], survivors scaled by 1 / keep_prob."""
+    mask = torch.floor(keep_prob + u.reshape(-1, 1, 1, 1))
+    return x * (1.0 / keep_prob).to(x.dtype) * mask.to(x.dtype)
+
+
+def _dropout(x: torch.Tensor, keep_prob: float, u: torch.Tensor) -> torch.Tensor:
+    """Flax `nn.Dropout`: keeps where `u < keep_prob`, scaled by 1 / keep_prob."""
+    return torch.where(u < keep_prob, x / keep_prob, torch.zeros_like(x))
+
+
+def _update_statistics(stats) -> None:
+    """The statistics update of every batch norm of one training forward
+    (`_Train.stats`), as the Flax layer makes its own: per layer
+    m = min(momentum, count / (count + warmup)), then mean and var <-
+    m * old + (1 - m) * batch, and count + 1; batched over the layers."""
+    if not stats:
+        return
+    with torch.no_grad():
+        layers = [layer for layer, _, _ in stats]
+        sizes = [layer.mean.numel() for layer in layers]
+        counts = torch.stack([layer.count for layer in layers])
+        m = torch.clamp(counts / (counts + BN_WARMUP), max=BN_MOMENTUM)
+        m = torch.cat([mi.expand(n) for mi, n in zip(m.unbind(), sizes)])
+        for index, name in ((1, "mean"), (2, "var")):
+            old = [getattr(layer, name) for layer in layers]
+            new = m * torch.cat(old) + (1.0 - m) * torch.cat([s[index] for s in stats])
+            torch._foreach_copy_(old, new.split(sizes))
+        torch._foreach_add_([layer.count for layer in layers], 1.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,13 +237,14 @@ class _Dense(nn.Module):
 
 
 class _DebiasedBatchNorm(nn.Module):
-    """Eval branch of the Flax `_DebiasedBatchNorm`.
+    """The Flax `_DebiasedBatchNorm`.
 
-    The statistics are used only once trained (`count > 0`); before that
-    the mean is 0 and the variance 1. Normalisation and affine run in
-    f32; the result is cast to `out_dtype` (the compute dtype). Training
-    mode, with its warmup-scheduled momentum, comes with the training
-    slice.
+    Training (`train` given) normalises with the batch's mean and biased
+    variance over every axis but the last, in f32, and appends them to
+    `train.stats` for `_update_statistics`. Eval uses the statistics only
+    once trained (`count > 0`); before that the mean is 0 and the
+    variance 1. Normalisation and affine run in f32; the result is cast
+    to `out_dtype` (the compute dtype).
     """
 
     def __init__(self, features: int, out_dtype=None, epsilon: float = 1e-3):
@@ -180,11 +257,17 @@ class _DebiasedBatchNorm(nn.Module):
         self.register_buffer("var", torch.zeros(features))
         self.register_buffer("count", torch.zeros(()))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        trained = self.count > 0
-        mean = torch.where(trained, self.mean, torch.zeros_like(self.mean))
-        var = torch.where(trained, self.var, torch.ones_like(self.var))
-        y = (x.float() - mean) * torch.rsqrt(var + self.epsilon)
+    def forward(self, x: torch.Tensor, train: Optional[_Train] = None) -> torch.Tensor:
+        xf = x.float()
+        if train is not None:
+            var, mean = torch.var_mean(xf, dim=tuple(range(xf.dim() - 1)), correction=0)
+            if train.stats is not None:
+                train.stats.append((self, mean.detach(), var.detach()))
+        else:
+            trained = self.count > 0
+            mean = torch.where(trained, self.mean, torch.zeros_like(self.mean))
+            var = torch.where(trained, self.var, torch.ones_like(self.var))
+        y = (xf - mean) * torch.rsqrt(var + self.epsilon)
         y = y * self.scale + self.bias
         if self.out_dtype is not None:
             y = y.to(self.out_dtype)
@@ -225,7 +308,7 @@ class _SepConv(nn.Module):
             h, w, c, stride = _ceil_div(h, stride), _ceil_div(w, stride), self.filters, 1
         return out
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: Optional[_Train] = None) -> torch.Tensor:
         dtype = self.compute_dtype
         stride = self.stride
         for layer in range(self.num_layers):
@@ -235,7 +318,7 @@ class _SepConv(nn.Module):
                 x = fused_sep_conv(x.to(dtype), depthwise.weight, pointwise.weight, stride)
             else:
                 x = pointwise(depthwise(torch.relu(x), dtype), dtype)
-            x = getattr(self, "bn_%d" % layer)(x)
+            x = getattr(self, "bn_%d" % layer)(x, train)
             stride = 1
         return x
 
@@ -260,16 +343,16 @@ class _FactorizedReduction(nn.Module):
             self.final_path_bn = _DebiasedBatchNorm(filters, compute_dtype)
             self.out_shape = (_ceil_div(h, stride), _ceil_div(w, stride), filters)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: Optional[_Train] = None) -> torch.Tensor:
         dtype = self.compute_dtype
         if self.stride == 1:
-            return self.path_bn(self.path_conv(x, dtype))
+            return self.path_bn(self.path_conv(x, dtype), train)
         s = self.stride
         # A 1x1 stride-s average pool is a subsample.
         path1 = self.path1_conv(x[:, ::s, ::s, :], dtype)
         path2 = F.pad(x[:, 1:, 1:, :], (0, 0, 0, 1, 0, 1))[:, ::s, ::s, :]
         path2 = self.path2_conv(path2, dtype)
-        return self.final_path_bn(torch.cat([path1, path2], dim=-1))
+        return self.final_path_bn(torch.cat([path1, path2], dim=-1), train)
 
 
 def _pool(x: torch.Tensor, kind: str, window: int, stride: int) -> torch.Tensor:
@@ -288,7 +371,9 @@ def _pool(x: torch.Tensor, kind: str, window: int, stride: int) -> torch.Tensor:
 
 
 class _NasNetCell(nn.Module):
-    """One NASNet-A cell (reference: nasnet_utils.py:250-480), eval mode."""
+    """One NASNet-A cell (reference: nasnet_utils.py:250-480). In
+    training, every branch but a "none" one goes through drop-path at
+    this cell's keep probability (`keep_prob`)."""
 
     def __init__(
         self,
@@ -301,9 +386,17 @@ class _NasNetCell(nn.Module):
         prev_shape: Optional[Shape],
         compute_dtype,
         use_pallas_sep_conv: bool,
+        cell_num: int = 0,
+        total_num_cells: int = 1,
+        drop_path_keep_prob: float = 1.0,
     ):
         super().__init__()
         self.filters = filters
+        # v3 drop-path schedule, the depth part (nasnet_utils.py:436-480).
+        layer_ratio = (cell_num + 1) / float(total_num_cells)
+        self.depth_keep_prob = 1.0 - layer_ratio * (1.0 - drop_path_keep_prob)
+        #: Branches that drop-path applies to, each one draw a forward.
+        self.drop_paths = sum(op != "none" for op in operations)
         self.compute_dtype = compute_dtype
         self.use_pallas_sep_conv = use_pallas_sep_conv
         h, w, c = net_shape
@@ -338,7 +431,7 @@ class _NasNetCell(nn.Module):
                 shape, op = self._make_operation(
                     states[idx], operations[k], stride, idx < 2, "block%d_%s" % (block, side)
                 )
-                pair.append((idx, op))
+                pair.append((idx, op, operations[k] != "none"))
                 shapes.append(shape)
             if shapes[0] != shapes[1]:
                 raise ValueError("block %d branches disagree: %s" % (block, shapes))
@@ -399,47 +492,69 @@ class _NasNetCell(nn.Module):
             return out_hw + (self.filters,), ("pool", (kind, window, stride, conv_name))
         raise ValueError("Unimplemented operation %r" % operation)
 
-    def _apply_operation(self, x: torch.Tensor, op) -> torch.Tensor:
+    def _apply_operation(self, x: torch.Tensor, op, train: Optional[_Train]) -> torch.Tensor:
         kind, arg = op
         dtype = self.compute_dtype
         if kind == "sep":
-            return getattr(self, arg)(x)
+            return getattr(self, arg)(x, train)
         if kind == "relu_conv":
             x = getattr(self, "%s_1x1" % arg)(torch.relu(x), dtype)
-            return getattr(self, "%s_bn1" % arg)(x)
+            return getattr(self, "%s_bn1" % arg)(x, train)
         if kind == "pool":
             pool_kind, window, stride, conv_name = arg
             x = _pool(x, pool_kind, window, stride)
             if conv_name is not None:
                 x = getattr(self, "%s_1x1" % conv_name)(x, dtype)
-                x = getattr(self, "%s_bn1" % conv_name)(x)
+                x = getattr(self, "%s_bn1" % conv_name)(x, train)
             return x
         return x
 
-    def forward(self, net: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:
+    def keep_prob(self, progress: torch.Tensor) -> torch.Tensor:
+        """Drop-path keep probability at training `progress` (0-d f32):
+        the depth-scaled one, scaled again by progress."""
+        return 1.0 - progress * (1.0 - self.depth_keep_prob)
+
+    def forward(
+        self,
+        net: torch.Tensor,
+        prev: Optional[torch.Tensor],
+        train: Optional[_Train] = None,
+        noise: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """`noise` [drop_paths, B]: drop-path's draws, in branch order
+        (training only; None: no drop-path)."""
         dtype = self.compute_dtype
         if self.prev_mode == "current":
             prev = net
         elif self.prev_mode == "factorized":
-            prev = self.reduce_prev(torch.relu(prev))
+            prev = self.reduce_prev(torch.relu(prev), train)
         elif self.prev_mode == "1x1":
-            prev = self.prev_bn(self.prev_1x1(torch.relu(prev), dtype))
-        x = self.beginning_bn(self.beginning_1x1(torch.relu(net), dtype))
+            prev = self.prev_bn(self.prev_1x1(torch.relu(prev), dtype), train)
+        x = self.beginning_bn(self.beginning_1x1(torch.relu(net), dtype), train)
+        draws = keep_prob = None
+        if noise is not None:
+            draws, keep_prob = iter(noise), self.keep_prob(train.progress)
         states = [x, prev]
-        for (left_idx, left_op), (right_idx, right_op) in self._blocks:
-            h1 = self._apply_operation(states[left_idx], left_op)
-            h2 = self._apply_operation(states[right_idx], right_op)
-            states.append(h1 + h2)
+        for pair in self._blocks:
+            hs = []
+            for idx, op, dropped in pair:
+                h = self._apply_operation(states[idx], op, train)
+                if dropped and draws is not None:
+                    h = _drop_path(h, keep_prob, next(draws))
+                hs.append(h)
+            states.append(hs[0] + hs[1])
         parts = [
-            states[idx] if name is None else getattr(self, name)(states[idx])
+            states[idx] if name is None else getattr(self, name)(states[idx], train)
             for idx, name in self._combine
         ]
         return torch.cat(parts, dim=-1)
 
 
 class _AuxHead(nn.Module):
-    """Auxiliary classifier's parameters (reference: nasnet.py:235-258).
-    It runs only in training, which comes with the training slice."""
+    """Auxiliary classifier (reference: nasnet.py:235-258): relu, 5 x 5
+    stride-3 VALID average pool, 1x1 conv to 128 and batch norm, relu, a
+    VALID conv over the whole map to 768 and batch norm, relu, f32 Dense.
+    It runs only in training."""
 
     def __init__(self, in_shape: Shape, num_classes: int, compute_dtype):
         super().__init__()
@@ -450,13 +565,23 @@ class _AuxHead(nn.Module):
         self.full = _Conv(128, 768, pooled, padding="VALID")
         self.aux_bn1 = _DebiasedBatchNorm(768, compute_dtype)
         self.aux_logits = _Dense(768, num_classes)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor, train: _Train) -> torch.Tensor:
+        dtype = self.compute_dtype
+        x = F.avg_pool2d(torch.relu(x).permute(0, 3, 1, 2), 5, 3).permute(0, 2, 3, 1)
+        x = torch.relu(self.aux_bn0(self.proj(x, dtype), train))
+        x = torch.relu(self.aux_bn1(self.full(x, dtype), train))
+        return self.aux_logits(x.reshape(x.shape[0], -1))
 
 
 class NasNetA(nn.Module):
-    """The full NASNet-A network (reference: nasnet.py:460-555), eval mode.
+    """The full NASNet-A network (reference: nasnet.py:460-555).
 
-    `forward(images)` takes NHWC images of `input_shape` and returns
-    `(logits, aux_logits, pooled)`; `aux_logits` is None (eval).
+    `forward(images, training=False, generator=None)` takes NHWC images
+    of `input_shape` and returns `(logits, aux_logits, pooled)`;
+    `aux_logits` is None outside training or without the auxiliary head.
+    The buffer `step` is the Flax `schedule/step`.
     """
 
     def __init__(self, config: NasNetConfig, input_shape: Sequence[int]):
@@ -471,6 +596,9 @@ class NasNetA(nn.Module):
         dtype = cfg.compute_dtype
         reduction_indices = calc_reduction_layers(cfg.num_cells, cfg.num_reduction_layers)
         aux_cell_index = reduction_indices[1] - 1 if len(reduction_indices) >= 2 else -1
+        total_num_cells = cfg.num_cells + cfg.num_reduction_layers
+        self.register_buffer("step", torch.zeros(()))
+        self._aux_after = None
 
         stem_filters = int(cfg.num_conv_filters * cfg.stem_multiplier)
         self.stem_conv = _Conv(c, stem_filters, 3)
@@ -495,6 +623,9 @@ class NasNetA(nn.Module):
                 prev_shape=shapes[-2],
                 compute_dtype=dtype,
                 use_pallas_sep_conv=cfg.use_pallas_sep_conv,
+                cell_num=len(self._cells),
+                total_num_cells=total_num_cells,
+                drop_path_keep_prob=cfg.drop_path_keep_prob,
             )
             self.add_module(name, cell)
             self._cells.append(name)
@@ -520,20 +651,56 @@ class NasNetA(nn.Module):
                 and out[1] >= 5
             ):
                 self.aux_head = _AuxHead(out, cfg.num_classes, dtype)
+                self._aux_after = "cell_%d" % cell_num
         self.logits = _Dense(shapes[-1][2], cfg.num_classes)
 
-    def forward(self, images: torch.Tensor, training: bool = False):
+    def forward(self, images: torch.Tensor, training: bool = False, generator=None):
+        cfg = self.config
+        dtype = cfg.compute_dtype
+        train = None
         if training:
-            raise NotImplementedError("NasNetA training mode comes with the training slice")
-        dtype = self.config.compute_dtype
-        net = self.stem_bn(self.stem_conv(images, dtype))
+            progress = torch.clamp(self.step / float(cfg.total_training_steps), max=1.0)
+            with torch.no_grad():
+                self.step.add_(1.0)
+            train = _Train(progress=progress, stats=[])
+        drop_path = train is not None and cfg.drop_path_keep_prob < 1.0
+        net = self.stem_bn(self.stem_conv(images, dtype), train)
         outputs = [None, net]
+        aux_logits = None
         for name in self._cells:
-            net = getattr(self, name)(net, outputs[-2])
+            cell = getattr(self, name)
+            noise = None
+            if drop_path:
+                noise = _uniform((cell.drop_paths, images.shape[0]), generator, images.device)
+            net = self._run_cell(cell, net, outputs[-2], train, noise)
+            if train is not None and name == self._aux_after:
+                aux_logits = self.aux_head(net, train)
             outputs.append(net)
         net = torch.relu(net)
         pooled = net.mean(dim=(1, 2)).float()
-        return self.logits(pooled), None, pooled
+        out = pooled
+        if train is not None and cfg.dense_dropout_keep_prob < 1.0:
+            # Flax's 1 - rate, rate = 1 - keep, in double as Flax has it.
+            keep_prob = 1.0 - (1.0 - cfg.dense_dropout_keep_prob)
+            out = _dropout(out, keep_prob, _uniform(out.shape, generator, images.device))
+        logits = self.logits(out)
+        if train is not None:
+            _update_statistics(train.stats)
+        return logits, aux_logits, pooled
+
+    def _run_cell(self, cell, net, prev, train, noise):
+        if train is None or not self.config.remat:
+            return cell(net, prev, train, noise)
+        calls = []
+
+        def run(net, prev):
+            # The backward's recompute reuses the forward's draws and
+            # leaves the statistics to the forward.
+            again = dataclasses.replace(train, stats=None) if calls else train
+            calls.append(None)
+            return cell(net, prev, again, noise)
+
+        return checkpoint(run, net, prev, use_reentrant=False, preserve_rng_state=False)
 
     def sepconv_launch_shapes(self) -> List[Tuple[Shape, int, int, int]]:
         """Every K2 launch of one forward, in order (see

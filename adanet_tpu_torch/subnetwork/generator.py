@@ -6,8 +6,8 @@ tensors. A `Builder` returns an `nn.Module` whose
 `forward(features, training=False)` returns a `Subnetwork` (a module that
 draws dropout masks also takes `generator=`, the `torch.Generator` the
 engine passes to a training forward), and a factory
-`params -> torch.optim.Optimizer` where the JAX builder returns an optax
-transform. Torch modules are built with their input shapes known, so
+`[(name, parameter), ...] -> torch.optim.Optimizer` where the JAX
+builder returns an optax transform. Torch modules are built with their input shapes known, so
 `build_subnetwork` takes the feature shape as well. A module with an
 `init_parameters(generator)` method is initialised by the engine from
 the Estimator's seed after it is built.
@@ -66,8 +66,9 @@ class Builder(abc.ABC):
         shape (without the batch dimension)."""
 
     def build_train_optimizer(self, previous_ensemble=None):
-        """Returns a factory `params -> torch.optim.Optimizer` that trains
-        this subnetwork's parameters on its own loss (the JAX builder's
+        """Returns a factory `[(name, parameter), ...] -> torch.optim.
+        Optimizer` that trains this subnetwork's parameters, given as the
+        module's `named_parameters()`, on its own loss (the JAX builder's
         optax transform)."""
         raise NotImplementedError("builder %r cannot be trained" % self.name)
 
@@ -81,7 +82,8 @@ class Builder(abc.ABC):
 
         Returns a scalar loss tensor, or None to use
         `head.loss(logits, labels)`. `context` carries teacher signals
-        for distillation (None in this slice).
+        for distillation (`core.iteration.TrainLossContext`), None
+        without a previous ensemble.
         """
         del subnetwork, labels, head, context
         return None

@@ -9,7 +9,9 @@ module never imports flax. Layout changes happen here and nowhere else:
   -> `[F, C, 1, 1]`);
 - Dense kernels `[in, out]` -> `[out, in]`;
 - batch-norm `scale`/`bias` parameters and `mean`/`var`/`count`
-  statistics keep their names and shapes.
+  statistics keep their names and shapes;
+- the `schedule` collection's drop-path `step` becomes the buffer of the
+  same name (`nasnet.step` in a NASNet subnetwork).
 
 A Flax path `a/b/kernel` becomes the key `a.b.weight`; any other leaf
 keeps its name. `convert_cell_params` carries the fused cell's parameter
@@ -64,12 +66,11 @@ def _leaf(path, value: np.ndarray):
 
 def convert_variables(
     variables: Mapping[str, Any],
-    collections=("params", "batch_stats"),
+    collections=("params", "batch_stats", "schedule"),
 ) -> Dict[str, torch.Tensor]:
-    """Flax variables (e.g. `{"params": ..., "batch_stats": ...}` of a
-    NASNet subnetwork) -> a `state_dict` for the port's module. Other
-    collections (the drop-path `schedule`) are training state and are
-    left out."""
+    """Flax variables (`{"params": ..., "batch_stats": ..., "schedule":
+    ...}` of a NASNet subnetwork) -> a `state_dict` for the port's module,
+    in the same training state. Collections not named are left out."""
     out: Dict[str, torch.Tensor] = {}
     for collection in collections:
         tree = variables.get(collection)

@@ -85,16 +85,48 @@
    batches through 2 iterations x 50 steps on the card (K1) and on the
    CPU (plain version), TF32 off: per-step losses and mixture weights
    within atol 1e-4 x max(1, |value|), the same best candidates.
+13. Fourth main path, NASNet training (`train_nasnet`): NASNet-A (6@768)
+   CIFAR at the improve_nas `Hparams()` defaults (aux head, drop-path
+   0.6, label smoothing, weight decay, clipping, bf16, K2 on), ADAPTIVE
+   distillation, momentum with a cosine schedule (`fn_with_name`), batch
+   32 of fake 32 x 32 x 3 images, 2 iterations x 20 steps through
+   `Estimator.train` with the `Generator`, then `evaluate`; launch counts
+   zeroed just before and read just after must be exact (K2: 200 a
+   member forward; K1: one an ensemble update, the teacher's, one an
+   eval batch), every loss finite, both architectures written. Prints
+   `train_nasnet:` (ms a step by the host clock and CUDA events over
+   steps 24-33, device busy and idle share, kernels, K2 launches and
+   K2's forward and `_FusedSepConv` backward device ms a step over 3
+   traced steps, peak memory, the card line).
+14. `nasnet_gate`: the flagship-family gate (tests/test_convergence.py:
+   119-157, 3 cells, 8 filters, bf16, 300 steps of adam on 8192 digits)
+   with K2 and K1 on: accuracy >= 0.88 and above 0.76, exact counts.
+15. `nasnet_train_vs_cpu`: the gate model in f32 with the
+   `DynamicGenerator` (widths that are not multiples of 8) on the card
+   and on the CPU, 2 iterations x 4 steps with the trainer's momentum
+   and one training step of each architecture. `replayed` (K2 off, the
+   CPU's relu and max-pool switches taken on the card): losses and
+   mixture weights within atol 1e-4 x max(1, |value|), the same
+   selection, each gradient within 1e-5 of its norm. `as_run` (K2 on):
+   within 5e-3 x max(1, |value|) and 5e-3 of the norm, the gap the
+   switches make. Loss and logits of a step within atol 1e-5 x max(1,
+   |value|). Then K2 forward and gradient against the plain version at
+   every (shape, batch, dtype) phases 13-15 launch, and the trainer CLI
+   on the card at a small size.
 
 Prints the per-shape K2 and K3 timings, the served latency and
-throughput, the `train:` line, a `kernels` JSON line (K1's row also with
-its launches on the search path, `train_launches`), and as its last line
-`{"ok": true, "device": {...}}`. Any failure raises and exits non-zero.
+throughput, the `train:`, `train_nasnet:` and `nasnet_gate:` lines, a
+`kernels` JSON line (K1's row also with its launches on the search paths,
+K2's with its launches on the NASNet training paths, `train_launches`),
+and as its last line `{"ok": true, "device": {...}}`. Any failure raises
+and exits non-zero.
 """
 
 import argparse
 import collections
+import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -153,6 +185,22 @@ PARITY_STEPS = 50
 # Member counts of the search's combines: the carried-over winner of a
 # one-member iteration 0 (no grad) and a grown candidate (under autograd).
 SEARCH_COMBINE_MEMBERS = (1, 2)
+# NASNet-A (6@768) training, the flagship: research/improve_nas Hparams()
+# defaults (drop-path over the run's 40 steps, as the trainer sets
+# total_training_steps), ADAPTIVE distillation, momentum with a cosine
+# schedule, batch 32 (trainer.py's --batch_size), fake 32 x 32 x 3 images.
+NASNET_BATCH, NASNET_STEPS, NASNET_ITERATIONS, NASNET_EXAMPLES = 32, 20, 2, 256
+NASNET_WINDOW, NASNET_TRACED = 10, 3
+# The flagship-family gate (tests/test_convergence.py:119-157): 3 cells,
+# 8 filters, on the digits; adam 1e-3.
+GATE_TRAIN, GATE_TEST, GATE_STEPS = 8192, 2048, 300
+# nasnet_train_vs_cpu: the gate model (DynamicGenerator, f32, drop-path
+# off), steps per iteration and batch.
+NASNET_PARITY_STEPS, NASNET_PARITY_BATCH = 4, 32
+# nasnet_train_vs_cpu: one step's gradient, card against CPU, in parts of
+# its norm: as run (K2 on; measured up to 2.3e-3, the relu and max-pool
+# switches), and with the CPU's switches replayed on the card (K2 off).
+NASNET_AS_RUN_GRAD, NASNET_REPLAYED_GRAD = 5e-3, 1e-5
 
 
 def card_line():
@@ -424,22 +472,24 @@ def check_combine(gen):
                 worst[str(dtype).replace("torch.", "")], check_close(name, got, want, combine_tolerance(want)))
             cases += 1
     grads = 0.0
-    for n in SEARCH_COMBINE_MEMBERS:
-        for use_bias in (False, True):
-            err, grad_err = check_search_combine(n, use_bias, gen)
-            worst["float32"] = max(worst["float32"], err)
-            grads = max(grads, grad_err)
-            cases += 3
+    for batch in (TRAIN_BATCH, NASNET_BATCH):
+        for n in SEARCH_COMBINE_MEMBERS:
+            for use_bias in (False, True):
+                err, grad_err = check_search_combine(n, use_bias, gen, batch)
+                worst["float32"] = max(worst["float32"], err)
+                grads = max(grads, grad_err)
+                cases += 3
     torch.cuda.synchronize()
-    print("K1 checked at %d cases (buckets x N %s, %s, a misaligned member, N = 500, the search's "
-          "[N %s, %d, 10] forward and backward); worst abs err: %s, gradients %g"
-          % (cases, COMBINE_MEMBERS, COMBINE_BYTE_BOUND, SEARCH_COMBINE_MEMBERS, TRAIN_BATCH, dict(worst), grads))
+    print("K1 checked at %d cases (buckets x N %s, %s, a misaligned member, N = 500, the searches' "
+          "[N %s, %d | %d, 10] forward and backward); worst abs err: %s, gradients %g"
+          % (cases, COMBINE_MEMBERS, COMBINE_BYTE_BOUND, SEARCH_COMBINE_MEMBERS, TRAIN_BATCH, NASNET_BATCH,
+             dict(worst), grads))
     return dict(worst), cases
 
 
-def check_search_combine(n, use_bias, gen):
-    """K1 as the search's ensemble update calls it, at [N, TRAIN_BATCH,
-    10] f32 with scalar weights: through the members form with one 0-d
+def check_search_combine(n, use_bias, gen, batch=TRAIN_BATCH):
+    """K1 as the search's ensemble update calls it, at [N, batch, 10] f32
+    with scalar weights: through the members form with one 0-d
     weight per member and with the stacked [N] weights that
     `_CombineMembers` hands on, then under autograd (weights, bias and
     members requiring grad, as `_CombineMembers.apply`) with its
@@ -450,11 +500,11 @@ def check_search_combine(n, use_bias, gen):
 
     from adanet_tpu_torch.ops import ensemble_kernels as ek
 
-    members, weights, bias = combine_inputs(n, TRAIN_BATCH, 10, torch.float32, False, use_bias, gen)
+    members, weights, bias = combine_inputs(n, batch, 10, torch.float32, False, use_bias, gen)
     stacked_w = torch.stack(weights)
     want = ek.combine_reference(torch.stack(members), stacked_w, bias)
     tol = combine_tolerance(want)
-    name = "K1 search [%d, %d, 10] bias=%s" % (n, TRAIN_BATCH, use_bias)
+    name = "K1 search [%d, %d, 10] bias=%s" % (n, batch, use_bias)
     err = 0.0
     for form, w in (("one weight a member", weights), ("stacked [N]", stacked_w)):
         got = ek.fused_weighted_combine_members(members, w, bias)
@@ -1280,16 +1330,21 @@ def trace_served_combine(gen_dir, rng):
         outs = frozen.member_outputs(features, training=False)
         ensembler.build_ensemble(params, outs)  # the first call prepares the weights
     torch.cuda.synchronize()
-    launches, made = ek.fused_weighted_combine.launches, sk.prepare.made
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        with torch.inference_mode():
-            ensemble = ensembler.build_ensemble(params, outs)
-        torch.cuda.synchronize()
-    kernels = collections.Counter(
-        event.name for event in prof.events()
-        if getattr(event, "device_type", None) == torch.autograd.DeviceType.CUDA
-    )
+    # A trace that holds no device event at all (the card's tracer
+    # delivered nothing, as `device_ms` allows for) is taken again.
+    for _ in range(3):
+        launches, made = ek.fused_weighted_combine.launches, sk.prepare.made
+        with torch.profiler.profile(activities=activities) as prof:
+            with torch.inference_mode():
+                ensemble = ensembler.build_ensemble(params, outs)
+            torch.cuda.synchronize()
+        kernels = collections.Counter(
+            event.name for event in prof.events()
+            if getattr(event, "device_type", None) == torch.autograd.DeviceType.CUDA
+        )
+        if kernels:
+            break
     k1 = sum(count for name, count in kernels.items() if "combine_kernel" in name)
     fills = sum(count for name, count in kernels.items() if "FillFunctor" in name)
     others = {name: count for name, count in kernels.items()
@@ -1387,13 +1442,14 @@ class _StepClock:
     """Wraps the search's `input_fn`. The Estimator pulls one batch a
     global step, just before the step (an iteration's first batch before
     the iteration is built), so pull p + 1 closes step p. Steps
-    [first, first + STEP_WINDOW) are timed at their pulls by the host
-    clock and CUDA events, and steps [traced, traced + TRACED_STEPS) run
-    under torch.profiler, started and stopped at their pulls."""
+    [first, first + window) are timed at their pulls by the host clock
+    and CUDA events, and steps [traced, traced + traced_steps) run under
+    torch.profiler, started and stopped at their pulls."""
 
-    def __init__(self, input_fn, first, traced):
+    def __init__(self, input_fn, first, traced, window=STEP_WINDOW, traced_steps=TRACED_STEPS):
         self._input_fn = input_fn
         self._first, self._traced = first, traced
+        self.window, self.traced_steps = window, traced_steps
         self.pulls = 0
         self.marks = []
         self.profile = None
@@ -1407,7 +1463,7 @@ class _StepClock:
     def _mark(self, pull):
         import torch
 
-        if pull in (self._first, self._first + STEP_WINDOW):
+        if pull in (self._first, self._first + self.window):
             event = torch.cuda.Event(enable_timing=True)
             event.record()
             self.marks.append((time.perf_counter(), event))
@@ -1415,7 +1471,7 @@ class _StepClock:
             activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
             self.profile = torch.profiler.profile(activities=activities)
             self.profile.start()
-        elif pull == self._traced + TRACED_STEPS:
+        elif pull == self._traced + self.traced_steps:
             torch.cuda.synchronize()
             self.profile.stop()
 
@@ -1500,10 +1556,11 @@ def train_search(model_dir):
     return counts, stats
 
 
-def traced_step(prof, host_ms):
-    """From TRACED_STEPS traced search steps: device busy ms a step, the
-    idle share against the untraced host time a step, kernels and K1
-    launches a step, the top kernels and the host's self time by op."""
+def traced_step(prof, host_ms, steps=TRACED_STEPS):
+    """From `steps` traced search steps: device busy ms a step, the idle
+    share against the untraced host time a step, kernels, K1 and K2
+    launches a step, K2's forward device ms a step, the top kernels and
+    the host's self time by op."""
     import torch
 
     kernels = collections.Counter()
@@ -1517,20 +1574,32 @@ def traced_step(prof, host_ms):
             total = getattr(event, "device_time_total", None)
             kernels[event.name] += event.cuda_time_total if total is None else total
             launches[event.name] += 1
-    busy_ms = sum(kernels.values()) / 1e3 / TRACED_STEPS
+    if not kernels:
+        # The card's tracer delivered no device event: not measured.
+        return dict(traced_steps=steps, trace_delivered=False)
+    busy_ms = sum(kernels.values()) / 1e3 / steps
     k1 = sum(n for k, n in launches.items() if "combine_kernel" in k)
-    host_ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
+    k2 = sum(n for k, n in launches.items() if "sepconv_kernel" in k)
+    averages = prof.key_averages()
+    host_ops = sorted(averages, key=lambda e: -e.self_cpu_time_total)[:8]
+    # K2's backward: the device time under its autograd node (the plain
+    # version's kernels); the node and its engine frame nest, so the max.
+    backward_us = [getattr(e, "device_time_total", None) or e.cuda_time_total
+                   for e in averages if "FusedSepConvBackward" in e.key]
     return dict(
-        traced_steps=TRACED_STEPS,
+        traced_steps=steps,
         device_busy_ms_per_step=busy_ms,
         device_idle_share=1.0 - busy_ms / host_ms,
-        device_kernels_per_step=sum(launches.values()) / TRACED_STEPS,
-        k1_launches_per_traced_step=k1 / TRACED_STEPS,
+        device_kernels_per_step=sum(launches.values()) / steps,
+        k1_launches_per_traced_step=k1 / steps,
         k1_device_us=sum(us for k, us in kernels.items() if "combine_kernel" in k) / max(1, k1),
-        top_kernels_ms_per_step=[[name[:60], us / 1e3 / TRACED_STEPS] for name, us in kernels.most_common(6)],
-        top_kernels_by_launches=[[name[:60], n / TRACED_STEPS] for name, n in launches.most_common(8)],
+        k2_launches_per_traced_step=k2 / steps,
+        k2_device_ms_per_step=sum(us for k, us in kernels.items() if "sepconv_kernel" in k) / 1e3 / steps,
+        k2_backward_device_ms_per_step=max(backward_us) / 1e3 / steps if backward_us else None,
+        top_kernels_ms_per_step=[[name[:60], us / 1e3 / steps] for name, us in kernels.most_common(6)],
+        top_kernels_by_launches=[[name[:60], n / steps] for name, n in launches.most_common(8)],
         # Host time by operation (self time, traced, so inflated).
-        top_host_ms_per_step=[[e.key[:50], e.self_cpu_time_total / 1e3 / TRACED_STEPS, e.count / TRACED_STEPS]
+        top_host_ms_per_step=[[e.key[:50], e.self_cpu_time_total / 1e3 / steps, e.count / steps]
                               for e in host_ops],
     )
 
@@ -1588,6 +1657,475 @@ def train_vs_cpu():
     return out
 
 
+def nasnet_gate_hparams(**overrides):
+    """The gate's improve_nas Hparams (tests/test_convergence.py:119-157),
+    K2 on."""
+    from adanet_tpu_torch.research.improve_nas import improve_nas
+
+    base = dict(num_cells=3, num_conv_filters=8, use_aux_head=False, drop_path_keep_prob=1.0,
+                dense_dropout_keep_prob=1.0, clip_gradients=5.0, weight_decay=1e-4,
+                initial_learning_rate=1e-3, use_pallas_sep_conv=True)
+    base.update(overrides)
+    return improve_nas.Hparams(**base)
+
+
+def _recording(estimator_cls):
+    """An Estimator that keeps every step's metrics (0-d tensors on the
+    card, read once at the end)."""
+
+    class Recording(estimator_cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.metrics = []
+
+        def _build_iteration(self, iteration_number, sample_batch):
+            iteration = super()._build_iteration(iteration_number, sample_batch)
+            step = iteration.train_step
+
+            def recorded(state, batch):
+                state, metrics = step(state, batch)
+                self.metrics.append(metrics)
+                return state, metrics
+
+            iteration.train_step = recorded
+            return iteration
+
+    return Recording
+
+
+def _member_forwards(iterations, steps, eval_batches, eval_members):
+    """Member forwards of a search with one candidate builder per
+    iteration and force_grow (a chain of members): per iteration, the
+    init's eval forward of the new subnetwork and of the frozen members,
+    a training forward of the new one and a forward of each frozen
+    member per step, and the freeze's forward; then each eval batch's
+    forward of every member of the winner."""
+    total = 0
+    for t in range(iterations):
+        total += (1 + t) + steps * (1 + t) + 1
+    return total + eval_batches * eval_members
+
+
+def train_nasnet(model_dir):
+    """The flagship at full width on the card: `Estimator.train` with the
+    improve_nas `Generator` over NASNet-A (6@768), 2 iterations x 20
+    steps, then `evaluate`. Launch counts zeroed just before and read
+    just after; a window of iteration 1 timed at the batch pulls and 3
+    steps traced. Returns (launch counts, the `train_nasnet:` numbers)."""
+    import torch
+
+    from adanet_tpu_torch import ops
+    from adanet_tpu_torch.core.estimator import Estimator
+    from adanet_tpu_torch.core.heads import MultiClassHead
+    from adanet_tpu_torch.ensemble.weighted import ComplexityRegularizedEnsembler
+    from adanet_tpu_torch.research.improve_nas import fake_data, improve_nas, optimizer
+
+    hparams = improve_nas.Hparams(
+        knowledge_distillation=improve_nas.KnowledgeDistillation.ADAPTIVE,
+        use_pallas_sep_conv=True,
+        total_training_steps=NASNET_STEPS * NASNET_ITERATIONS,
+    )
+    generator = improve_nas.Generator(
+        optimizer.fn_with_name("momentum", "cosine", cosine_decay_steps=NASNET_STEPS), hparams, seed=0, num_classes=10
+    )
+    provider = fake_data.FakeImageProvider(
+        num_examples=NASNET_EXAMPLES, image_size=32, num_classes=10, batch_size=NASNET_BATCH, seed=0
+    )
+
+    def sgd(params):
+        return torch.optim.SGD(params, lr=0.01)
+
+    estimator = _recording(Estimator)(
+        MultiClassHead(10), generator, max_iteration_steps=NASNET_STEPS, max_iterations=NASNET_ITERATIONS,
+        ensemblers=[ComplexityRegularizedEnsembler(optimizer=sgd, use_fused_combine=True)], force_grow=True,
+        model_dir=os.path.join(model_dir, "nasnet"), log_every_steps=0, device="cuda",
+    )
+    # Iteration 1 runs global steps NASNET_STEPS + 1 ... 2 x NASNET_STEPS.
+    first = NASNET_STEPS + 4
+    clock = _StepClock(provider.get_input_fn("train"), first=first, traced=first + NASNET_WINDOW + 1,
+                       window=NASNET_WINDOW, traced_steps=NASNET_TRACED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    estimator.train(clock, max_steps=10**6)
+    torch.cuda.synchronize()
+    train_secs = time.perf_counter() - t0
+    metrics = estimator.evaluate(provider.get_input_fn("test"))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = estimator.latest_global_step()
+    losses = torch.stack([v.float() for m in estimator.metrics for k, v in sorted(m.items())
+                          if "loss" in k]).tolist()
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError("train_nasnet: non-finite losses %s" % losses)
+    per_forward = len(improve_nas.Builder(None, hparams).build_subnetwork(
+        10, input_shape=(32, 32, 3)).nasnet.sepconv_launch_shapes())
+    eval_batches = NASNET_EXAMPLES // NASNET_BATCH
+    forwards = _member_forwards(NASNET_ITERATIONS, NASNET_STEPS, eval_batches, NASNET_ITERATIONS)
+    # K1: one ensemble update a candidate a step (1 at t = 0; the
+    # carried-over winner and the grown one at t = 1) plus the ADAPTIVE
+    # teacher at t = 1, and one a eval batch.
+    expected = dict(copy=0, cell=0, sepconv=forwards * per_forward,
+                    combine=NASNET_STEPS * (1 + 3) + eval_batches)
+    if steps != NASNET_STEPS * NASNET_ITERATIONS or counts != expected or clock.pulls != steps:
+        raise AssertionError("train_nasnet: %d steps, %d pulls, launches %s, expected %s"
+                             % (steps, clock.pulls, counts, expected))
+    for t in range(NASNET_ITERATIONS):
+        if not os.path.exists(os.path.join(estimator.model_dir, "architecture-%d.json" % t)):
+            raise AssertionError("train_nasnet: architecture-%d.json was not written" % t)
+    (host0, event0), (host1, event1) = clock.marks
+    host_ms = (host1 - host0) / NASNET_WINDOW * 1e3
+    stats = dict(
+        steps=steps,
+        k2_launches_per_member_forward=per_forward,
+        search_ms_per_step=train_secs / steps * 1e3,
+        train_secs=train_secs,
+        window_steps=[first, first + NASNET_WINDOW - 1],
+        window_host_ms_per_step=host_ms,
+        window_event_ms_per_step=event0.elapsed_time(event1) / NASNET_WINDOW,
+        max_memory_allocated_bytes=peak,
+        first_losses=losses[:4],
+        last_losses=losses[-4:],
+        accuracy=metrics["accuracy"],
+        best_ensemble=metrics["best_ensemble"],
+        launches=counts,
+    )
+    stats.update(traced_step(clock.profile, host_ms, NASNET_TRACED))
+    stats["card"] = card_line()
+    print("train_nasnet: " + json.dumps(stats))
+    return counts, stats
+
+
+def nasnet_gate(model_dir):
+    """The flagship-family gate on the card: the gate's NASNet (3 cells, 8
+    filters, bf16, K2 and K1 on) on 8192 digits for 300 steps, evaluated
+    on 2048: accuracy >= 0.88 and above the linear baseline; the launch
+    counts exact. Returns (counts, numbers, K2's shapes a forward)."""
+    import torch
+
+    from adanet_tpu_torch import ops
+    from adanet_tpu_torch.core.estimator import Estimator
+    from adanet_tpu_torch.core.heads import MultiClassHead
+    from adanet_tpu_torch.ensemble.weighted import ComplexityRegularizedEnsembler
+    from adanet_tpu_torch.examples.synthetic_digits import image_input_fn, make_dataset
+    from adanet_tpu_torch.research.improve_nas import improve_nas, optimizer
+    from adanet_tpu_torch.subnetwork.generator import SimpleGenerator
+
+    def adam(params):
+        return torch.optim.Adam(params, lr=1e-3, eps=1e-8)
+
+    builder = improve_nas.Builder(optimizer.fn_with_name("adam"), nasnet_gate_hparams(), seed=0)
+    xtr, ytr = make_dataset(GATE_TRAIN, seed=7)
+    xte, yte = make_dataset(GATE_TEST, seed=8)
+    estimator = Estimator(
+        MultiClassHead(10), SimpleGenerator([builder]), max_iteration_steps=GATE_STEPS, max_iterations=1,
+        ensemblers=[ComplexityRegularizedEnsembler(optimizer=adam, use_fused_combine=True)],
+        model_dir=os.path.join(model_dir, "gate"), log_every_steps=0, device="cuda",
+    )
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    estimator.train(image_input_fn(xtr, ytr, TRAIN_BATCH), max_steps=10**6)
+    torch.cuda.synchronize()
+    train_secs = time.perf_counter() - t0
+    metrics = estimator.evaluate(image_input_fn(xte, yte, TRAIN_BATCH))
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    shapes = builder.build_subnetwork(10, input_shape=xtr.shape[1:]).nasnet.sepconv_launch_shapes()
+    eval_batches = -(-GATE_TEST // TRAIN_BATCH)
+    expected = dict(copy=0, cell=0, sepconv=_member_forwards(1, GATE_STEPS, eval_batches, 1) * len(shapes),
+                    combine=GATE_STEPS + eval_batches)
+    if counts != expected:
+        raise AssertionError("nasnet_gate: launches %s, expected %s" % (counts, expected))
+    if not (metrics["accuracy"] >= GATE_ACCURACY and metrics["accuracy"] > LINEAR_BASELINE_ACCURACY):
+        raise AssertionError("nasnet_gate: accuracy %s below the gate %s" % (metrics, GATE_ACCURACY))
+    out = dict(accuracy=metrics["accuracy"], top_5_accuracy=metrics["top_5_accuracy"], loss=metrics["loss"],
+               steps=estimator.latest_global_step(), ms_per_step=train_secs / GATE_STEPS * 1e3, seconds=secs,
+               launches=counts, card=card_line())
+    print("nasnet_gate: " + json.dumps(out))
+    return counts, out, shapes
+
+
+def check_train_sepconv(cases, gen):
+    """K2 forward and its gradient through `_FusedSepConv` against the
+    plain version at every (shape, batch, dtype) the training phases
+    launch: the forward within `check_kernels`' tolerances (f32 atol
+    1e-4, TF32 off; bf16 2e-2 x max|ref|), the gradients of x, dw and pw
+    against plain autograd within `check_sepconv_grads`' atol 1e-4 x
+    max(1, max|ref|) in f32, one bf16 ulp of the largest (2^-7 x
+    max|ref|) in bf16. Returns the worst errors."""
+    import torch
+
+    from adanet_tpu_torch.ops import sepconv_kernels as sk
+
+    torch.backends.cudnn.allow_tf32 = False
+    worst = collections.Counter()
+    for ((h, w, c), f, k, s), batch, dtype_name in sorted(cases):
+        dtype = getattr(torch, dtype_name)
+        name = "K2 train %s b=%d %s" % ((h, w, c, f, k, s), batch, dtype_name)
+        x = torch.randn(batch, h, w, c, generator=gen).cuda().to(dtype)
+        dw = (torch.randn(c, 1, k, k, generator=gen) / k).cuda()
+        pw = (torch.randn(f, c, 1, 1, generator=gen) / c ** 0.5).cuda()
+        results = []
+        for fn in (sk.fused_sep_conv, sk.sep_conv_reference):
+            inputs = [t.clone().requires_grad_(True) for t in (x, dw, pw)]
+            before = sk.fused_sep_conv.launches
+            out = fn(*inputs, s)
+            if fn is sk.fused_sep_conv and sk.fused_sep_conv.launches != before + 1:
+                raise AssertionError("%s: not launched" % name)
+            results.append((out, inputs))
+        (got, got_in), (want, want_in) = results
+        scale = float(want.detach().float().abs().max())
+        tol = 1e-4 if dtype is torch.float32 else 2e-2 * scale
+        worst["forward_" + dtype_name] = max(worst["forward_" + dtype_name], check_close(name, got, want, tol))
+        cot = torch.randn(got.shape, generator=gen).cuda().to(dtype)
+        for label, g, r in zip(("x", "dw", "pw"), torch.autograd.grad(got, got_in, cot),
+                               torch.autograd.grad(want, want_in, cot)):
+            scale = float(r.float().abs().max())
+            # bf16: the gradients are rounded to bf16 (the weights' casts),
+            # after sums in an order cuDNN may change from call to call.
+            tol = 1e-4 * max(1.0, scale) if dtype is torch.float32 else 2.0 ** -7 * scale
+            worst["grad_" + dtype_name] = max(worst["grad_" + dtype_name],
+                                              check_close("%s d%s" % (name, label), g, r, tol))
+    torch.cuda.synchronize()
+    print("K2 at the training paths' %d (shape, batch, dtype) cases: forward and gradients match; worst %s"
+          % (len(cases), dict(worst)))
+    return dict(worst)
+
+
+@contextlib.contextmanager
+def relu_and_max_pool_switches(log, replay):
+    """Within the block, each `torch.relu` and `F.max_pool2d` call appends
+    to `log` where its relu passes and which input each max-pool window
+    takes (`replay=False`), or takes them from `log` in call order
+    (`replay=True`). A replayed call whose own switches differ from the
+    record computes with the record's (relu as x * mask, the max pool as
+    a gather at the recorded indices); the others are the plain calls.
+    Yields {"relu": n, "max_pool": n}, the replayed calls that differed.
+    Run on the CPU and then on the card over the same code, it removes
+    the only non-smooth steps of a NASNet forward, so that what is left
+    between the devices is summation order."""
+    import torch
+    import torch.nn.functional as F
+
+    relu, max_pool2d = torch.relu, F.max_pool2d
+    recorded = iter(list(log))
+    switched = {"relu": 0, "max_pool": 0}
+
+    def take(kind, own):
+        got_kind, value = next(recorded)
+        if got_kind != kind or value.shape != own.shape:
+            raise AssertionError("replayed %s %s where the record has %s %s"
+                                 % (kind, tuple(own.shape), got_kind, tuple(value.shape)))
+        value = value.to(own.device)
+        if torch.equal(value, own):
+            return None
+        switched[kind] += 1
+        return value
+
+    def switched_relu(x):
+        mask = x > 0
+        if not replay:
+            log.append(("relu", mask.cpu()))
+        elif (mask := take("relu", mask)) is not None:
+            return x * mask.to(x.dtype)
+        return relu(x)
+
+    def switched_max_pool2d(x, kernel_size, stride):
+        y, index = max_pool2d(x, kernel_size, stride, return_indices=True)
+        if not replay:
+            log.append(("max_pool", index.cpu()))
+        elif (index := take("max_pool", index)) is not None:
+            return torch.empty_like(y).copy_(x.flatten(2).gather(2, index.flatten(2)).view(y.shape))
+        return y
+
+    torch.relu, F.max_pool2d = switched_relu, switched_max_pool2d
+    try:
+        yield switched
+    finally:
+        torch.relu, F.max_pool2d = relu, max_pool2d
+    if replay and next(recorded, None) is not None:
+        raise AssertionError("the replay left recorded switches unused")
+
+
+def _nasnet_step_grads(builder, batch, device):
+    """One training forward of `builder`'s subnetwork (initialised from a
+    fixed CPU generator) on `batch`: (loss, logits, gradients) on the
+    CPU."""
+    import torch
+
+    from adanet_tpu_torch.core.heads import MultiClassHead
+
+    module = builder.build_subnetwork(10, input_shape=batch[0]["image"].shape[1:])
+    module.init_parameters(torch.Generator().manual_seed(3))
+    module.to(device)
+    features, labels = ({"image": torch.from_numpy(batch[0]["image"]).to(device)},
+                        torch.from_numpy(batch[1]).to(device))
+    out = module(features, training=True)
+    loss = builder.build_subnetwork_loss(out, labels, MultiClassHead(10), None)
+    grads = torch.autograd.grad(loss, list(module.parameters()))
+    return float(loss.detach()), out.logits.detach().cpu(), torch.cat([g.reshape(-1).cpu() for g in grads])
+
+
+def _nasnet_parity_run(device, batches, input_shape, use_pallas_sep_conv):
+    """2 iterations x NASNET_PARITY_STEPS `Iteration` steps of the gate
+    model (`DynamicGenerator`, f32, the trainer's momentum and cosine)
+    on `device`: (each step's metrics and mixture weights, the best
+    index of each iteration, iteration 1's builder names, {name: builder},
+    the K2 (shape, batch) pairs)."""
+    import torch
+
+    from adanet_tpu_torch.core.heads import MultiClassHead
+    from adanet_tpu_torch.core.iteration import IterationBuilder
+    from adanet_tpu_torch.ensemble.strategy import GrowStrategy
+    from adanet_tpu_torch.ensemble.weighted import ComplexityRegularizedEnsembler
+    from adanet_tpu_torch.research.improve_nas import improve_nas, optimizer
+
+    def adam(params):
+        return torch.optim.Adam(params, lr=1e-3, eps=1e-8)
+
+    generator = improve_nas.DynamicGenerator(
+        optimizer.fn_with_name("momentum", "cosine", cosine_decay_steps=NASNET_PARITY_STEPS),
+        nasnet_gate_hparams(compute_dtype=torch.float32, initial_learning_rate=0.025,
+                            use_pallas_sep_conv=use_pallas_sep_conv), seed=0)
+    factory = IterationBuilder(MultiClassHead(10), [ComplexityRegularizedEnsembler(
+        optimizer=adam, use_fused_combine=True)], [GrowStrategy()], device=device)
+    trace, best, previous, architectures, shapes = [], [], None, {}, set()
+    for t in range(2):
+        sample = batches[t * NASNET_PARITY_STEPS]
+        builders = generator.generate_candidates(previous, t, [], [])
+        iteration = factory.build_iteration(t, builders, previous, input_shape=input_shape)
+        for builder, spec in zip(builders, iteration.subnetwork_specs):
+            architectures[builder.name] = builder
+            shapes.update((shape, NASNET_PARITY_BATCH) for shape in spec.module.nasnet.sepconv_launch_shapes())
+        state = iteration.init_state(torch.Generator().manual_seed(t), sample)
+        for i in range(NASNET_PARITY_STEPS):
+            state, metrics = iteration.train_step(state, batches[t * NASNET_PARITY_STEPS + i])
+            row = {k: float(v) for k, v in metrics.items()}
+            for name, est in state.ensembles.items():
+                for j, w in enumerate(est.params["weights"]):
+                    row["weight/%s/%d" % (name, j)] = float(w.detach())
+            trace.append(row)
+        best.append(iteration.best_candidate_index(state))
+        previous = iteration.freeze_candidate(state, iteration.ensemble_specs[best[-1]].name, sample)
+    return trace, best, [b.name for b in builders], architectures, shapes
+
+
+def _compare_traces(what, card, cpu, card_best, cpu_best, atol):
+    """Max abs difference of two runs' per-step values; raises past
+    `atol` x max(1, |value|) or on another selection."""
+    worst = 0.0
+    for step, (got, want) in enumerate(zip(card, cpu)):
+        if sorted(got) != sorted(want):
+            raise AssertionError("%s step %d: metrics %s vs %s" % (what, step, sorted(got), sorted(want)))
+        for key, value in want.items():
+            err = abs(got[key] - value)
+            if not err <= atol * max(1.0, abs(value)):
+                raise AssertionError("%s step %d %s: card %r, cpu %r" % (what, step, key, got[key], value))
+            worst = max(worst, err)
+    if card_best != cpu_best:
+        raise AssertionError("%s: best %s on the card, %s on the CPU" % (what, card_best, cpu_best))
+    return worst
+
+
+def _compare_step_grads(what, card, cpu, grad_rel):
+    """One training step's (loss, logits, gradient) on the card against
+    the CPU: loss and logits within atol 1e-5 x max(1, |value|), the
+    gradient within `grad_rel` of its norm."""
+    (loss_c, logits_c, grads_c), (loss_p, logits_p, grads_p) = card, cpu
+    if not abs(loss_c - loss_p) <= 1e-5 * max(1.0, abs(loss_p)):
+        raise AssertionError("%s: loss %r on the card, %r on the CPU" % (what, loss_c, loss_p))
+    check_close(what + " logits", logits_c, logits_p, 1e-5 * max(1.0, float(logits_p.abs().max())))
+    rel = float((grads_c - grads_p).norm() / grads_p.norm())
+    if not rel <= grad_rel:
+        raise AssertionError("%s: gradient off by %g of its norm" % (what, rel))
+    return dict(loss=abs(loss_c - loss_p), logits=float((logits_c - logits_p).abs().max()), grad_rel_norm=rel)
+
+
+def nasnet_train_vs_cpu():
+    """The gate model on the card and on the CPU, f32, drop-path off, TF32
+    off, with the `DynamicGenerator` (iteration 1 at 6 x 8 and 3 x 18
+    from a 3 x 8 winner, or 6 x 18 and 3 x 28 from a 3 x 18 one: widths
+    that are not multiples of 8), from the same init (the iteration's CPU
+    generator) and batches, with the trainer's optimizer (momentum,
+    cosine).
+
+    A NASNet gradient is not smooth at f32 rounding: a relu input within
+    rounding of 0, or a max-pool window whose two largest inputs are
+    within rounding of each other, switches where the gradient goes, and
+    the card and the CPU round differently. So the phase runs twice:
+
+    - `replayed`: K2 off (the plain layers, the same torch calls on both
+      devices), the CPU first, recording each relu's and max pool's
+      switches (`relu_and_max_pool_switches`), then the card taking
+      them. 2 x NASNET_PARITY_STEPS steps: per-step losses and mixture
+      weights within `train_vs_cpu`'s atol 1e-4 x max(1, |value|), the
+      same selection; one step of every architecture: the gradient
+      within NASNET_REPLAYED_GRAD of its norm. Measured 4.8e-7 and
+      6.5e-7 to 1.1e-6, with 46 to 49 of 2447 calls switched (44-45
+      relu, 2-4 max pool; H100 80GB HBM3, 700 W).
+    - `as_run`: K2 on, nothing replayed. The switches part the runs:
+      one step's gradient by 1.0e-6 to 2.3e-3 of its norm by
+      architecture, the losses by up to 1.4e-3 within 3 steps (H100
+      80GB HBM3, 700 W). Checked at NASNET_AS_RUN_GRAD of the
+      gradient's norm and atol 5e-3 x max(1, |value|) over the steps.
+
+    Returns (numbers, the K2 shapes launched with their batch)."""
+    import torch
+
+    from adanet_tpu_torch.examples.synthetic_digits import image_input_fn, make_dataset
+
+    x, y = make_dataset(NASNET_PARITY_BATCH * NASNET_PARITY_STEPS * 2, seed=7)
+    batches = list(image_input_fn(x, y, NASNET_PARITY_BATCH)())
+    previous_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        card, cpu = (_nasnet_parity_run(device, batches, x.shape[1:], True) for device in ("cuda", "cpu"))
+        shapes = card[4]
+        as_run = dict(max_abs_err=_compare_traces("nasnet_train_vs_cpu as_run", card[0], cpu[0], card[1], cpu[1],
+                                                  5e-3), tolerance="5e-3 x max(1, |value|)", one_step={})
+        for name, builder in sorted(card[3].items()):
+            as_run["one_step"][name] = _compare_step_grads(
+                "nasnet_train_vs_cpu as_run %s" % name,
+                *(_nasnet_step_grads(builder, batches[0], device) for device in ("cuda", "cpu")),
+                grad_rel=NASNET_AS_RUN_GRAD)
+        out["as_run"] = as_run
+        switches = []
+        with relu_and_max_pool_switches(switches, replay=False):
+            cpu = _nasnet_parity_run("cpu", batches, x.shape[1:], False)
+            cpu_steps = {name: _nasnet_step_grads(b, batches[0], "cpu") for name, b in sorted(cpu[3].items())}
+        with relu_and_max_pool_switches(switches, replay=True) as switched:
+            card = _nasnet_parity_run("cuda", batches, x.shape[1:], False)
+            card_steps = {name: _nasnet_step_grads(b, batches[0], "cuda") for name, b in sorted(card[3].items())}
+        replayed = dict(max_abs_err=_compare_traces("nasnet_train_vs_cpu replayed", card[0], cpu[0], card[1], cpu[1],
+                                                    1e-4), tolerance="1e-4 x max(1, |value|)",
+                        calls=len(switches), switched=switched, one_step={})
+        for name in sorted(cpu_steps):
+            replayed["one_step"][name] = _compare_step_grads(
+                "nasnet_train_vs_cpu replayed %s" % name, card_steps[name], cpu_steps[name],
+                grad_rel=NASNET_REPLAYED_GRAD)
+        out["replayed"] = replayed
+    finally:
+        torch.backends.cudnn.allow_tf32 = previous_tf32
+    out.update(steps=len(card[0]), values_per_step=len(card[0][-1]), best=card[1], builders_t1=card[2])
+    print("nasnet_train_vs_cpu: " + json.dumps(out))
+    return out, shapes
+
+
+def trainer_on_card():
+    """The trainer CLI on the card, on fake data, at a small size."""
+    from adanet_tpu_torch.research.improve_nas import trainer
+
+    t0 = time.perf_counter()
+    rc = trainer.main(["--dataset=fake", "--num_cells=3", "--num_conv_filters=4", "--boosting_iterations=2",
+                       "--train_steps=8", "--batch_size=16", "--device=cuda"])
+    if rc != 0:
+        raise AssertionError("trainer returned %r" % rc)
+    print("trainer: rc %d in %.1f s" % (rc, time.perf_counter() - t0))
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1630,6 +2168,17 @@ def main(argv=None):
         check_sepconv_grads(sep_shapes, rng)
         train_counts, _ = train_search(model_dir)
         train_vs_cpu()
+        nasnet_counts, _ = train_nasnet(model_dir)
+        gate_counts, _, gate_shapes = nasnet_gate(model_dir)
+        _, parity_cases = nasnet_train_vs_cpu()
+        train_cases = (
+            {(shape, NASNET_BATCH, "bfloat16") for shape in sep_shapes}
+            | {(shape, TRAIN_BATCH, "bfloat16") for shape in gate_shapes}
+            | {(shape, batch, "float32") for shape, batch in parity_cases}
+        )
+        train_errors = check_train_sepconv(train_cases, rng)
+        errors["sepconv"] = max(errors["sepconv"], train_errors["forward_float32"], train_errors["forward_bfloat16"])
+        trainer_on_card()
         profile_batch(gen_dir, rng)
         compare_with_cpu(gen_dir, rng)
     # Each kernel's launches on the main path that runs it: serving for
@@ -1662,6 +2211,13 @@ def main(argv=None):
         )
         if name == "combine":
             kernels[-1]["train_launches"] = train_counts["combine"]
+            kernels[-1]["nasnet_train_launches"] = nasnet_counts["combine"]
+            kernels[-1]["nasnet_gate_launches"] = gate_counts["combine"]
+        if name == "sepconv":
+            kernels[-1]["train_launches"] = nasnet_counts["sepconv"]
+            kernels[-1]["nasnet_gate_launches"] = gate_counts["sepconv"]
+            kernels[-1]["train_grad_max_abs_err"] = {
+                k: v for k, v in train_errors.items() if k.startswith("grad")}
     print("copy_vs_clone: " + json.dumps({key: rows["copy"][key] for key in (
         "ms", "library_ms", "device_us", "library_device_us", "device_sources", "library_device_kernels",
         "host_us", "library_host_us")}))

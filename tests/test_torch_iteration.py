@@ -303,7 +303,7 @@ class _Fragile(Builder):
         return _FragileModule(input_shape[0], logits_dimension)
 
     def build_train_optimizer(self, previous_ensemble=None):
-        return _adam
+        return lambda named_parameters: _adam([p for _, p in named_parameters])
 
 
 def _poisoned_batches(n, at):

@@ -80,7 +80,7 @@ def test_structure_matches_flax_tree(jax_init):
     assert model.reduction_cell_0.out_shape == (8, 8, 64)
     assert model.cell_2.out_shape == (4, 4, 192)
     n_flax = sum(np.asarray(x).size for x in jax.tree_util.tree_leaves(
-        {k: variables[k] for k in ("params", "batch_stats")}))
+        {k: variables[k] for k in ("params", "batch_stats", "schedule")}))
     n_torch = sum(t.numel() for t in model.state_dict().values())
     assert n_flax == n_torch
 

@@ -43,6 +43,7 @@ COPIES = {
     "adanet_tpu_torch/ensemble/ensembler.py": "adanet_tpu/ensemble/ensembler.py",
     "adanet_tpu_torch/ensemble/strategy.py": "adanet_tpu/ensemble/strategy.py",
     "adanet_tpu_torch/examples/synthetic_digits.py": "adanet_tpu/examples/synthetic_digits.py",
+    "adanet_tpu_torch/research/improve_nas/fake_data.py": "research/improve_nas/trainer/fake_data.py",
 }
 
 #: Top-level definitions a copy replaces on purpose ("__doc__": the
@@ -71,6 +72,9 @@ SLICE_MODULES = (
     "adanet_tpu_torch.subnetwork.report",
     "adanet_tpu_torch.utils.batches",
     "adanet_tpu_torch.utils.trees",
+    "adanet_tpu_torch.research.improve_nas.fake_data",
+    "adanet_tpu_torch.research.improve_nas.optimizer",
+    "adanet_tpu_torch.research.improve_nas.trainer",
 )
 
 
@@ -171,6 +175,7 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
     from adanet_tpu_torch.ensemble.strategy import GrowStrategy
     from adanet_tpu_torch.ensemble.weighted import ComplexityRegularizedEnsembler
     from adanet_tpu_torch.examples import simple_dnn
+    from adanet_tpu_torch.research.improve_nas import trainer
     from adanet_tpu_torch.serving import ModelPool
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -183,6 +188,8 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
         lambda: export.load_serving_program(str(tmp_path)),
         lambda: Estimator(head, generator, 10, model_dir=str(tmp_path)),
         lambda: IterationBuilder(head, [ComplexityRegularizedEnsembler()], [GrowStrategy()]),
+        lambda: trainer.main(["--num_cells=3", "--train_steps=2", "--boosting_iterations=1",
+                              "--model_dir", str(tmp_path)]),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

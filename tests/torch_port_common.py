@@ -88,3 +88,76 @@ def one_torch_thread():
         yield
     finally:
         torch.set_num_threads(before)
+
+
+def port_numpy_state(state_dict, seed, trained_stats=False):
+    """numpy values for every entry of a port module's `state_dict`, as
+    `numpy_variables` draws them for the Flax tree (fan-in from the
+    Flax kernel shape), in the port's layouts. `count` is 1 with
+    `trained_stats` (statistics random), else 0; `step` is 0."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for key, tensor in state_dict.items():
+        shape = tuple(tensor.shape)
+        name = key.rsplit(".", 1)[-1]
+        if name == "weight":
+            fan_in = int(np.prod(shape[1:]))
+            value = rng.randn(*shape) / np.sqrt(fan_in)
+        elif name == "scale":
+            value = 1.0 + 0.1 * rng.randn(*shape)
+        elif name == "bias":
+            value = 0.1 * rng.randn(*shape)
+        elif name == "mean" and trained_stats:
+            value = 0.1 * rng.randn(*shape)
+        elif name == "var" and trained_stats:
+            value = rng.uniform(0.5, 1.5, shape)
+        elif name == "count" and trained_stats:
+            value = np.ones(shape)
+        else:
+            value = np.zeros(shape)
+        out[key] = np.asarray(value, np.float32)
+    return out
+
+
+def flax_tree(state):
+    """The Flax variable tree of a port state dict of numpy arrays: the
+    inverse of `utils.convert.convert_variables` (`weight` -> `kernel`,
+    OIHW -> HWIO, [out, in] -> [in, out]; `mean`/`var`/`count` into
+    `batch_stats`, `step` into `schedule`, the rest into `params`)."""
+    tree = {}
+    for key, value in state.items():
+        *path, name = key.split(".")
+        collection = {"mean": "batch_stats", "var": "batch_stats", "count": "batch_stats",
+                      "step": "schedule"}.get(name, "params")
+        if name == "weight":
+            name = "kernel"
+            value = np.transpose(value, (2, 3, 1, 0)) if value.ndim == 4 else value.T
+        node = tree.setdefault(collection, {})
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = np.array(value, order="C")
+    return tree
+
+
+def flatten(tree, prefix=""):
+    """{"a/b/c": leaf} of a nested dict."""
+    out = {}
+    for key, value in tree.items():
+        path = prefix + "/" + str(key) if prefix else str(key)
+        if isinstance(value, dict):
+            out.update(flatten(value, path))
+        else:
+            out[path] = value
+    return out
+
+
+def unflatten(flat):
+    """The nested dict of `flatten`'s output."""
+    tree = {}
+    for path, value in flat.items():
+        *parts, name = path.split("/")
+        node = tree
+        for part in parts:
+            node = node.setdefault(part, {})
+        node[name] = value
+    return tree
