@@ -6,7 +6,10 @@ Flax module plus a parameter tree, and the builder spec that rebuilds it
 (`Builder.to_spec()`), which a serving generation records. The search
 loop freezes an iteration's winner into these records
 (`Iteration.freeze_candidate`): they are the `previous_ensemble` of the
-next iteration and what `Estimator.evaluate` runs.
+next iteration and what `Estimator.evaluate` runs. A fresh process
+rebuilds them instead (`rebuild_subnetwork`): the module from the
+replayed builder, its numbers from the frozen payload
+(`checkpoint.payload_into_frozen`).
 """
 
 from __future__ import annotations
@@ -44,6 +47,26 @@ class FrozenSubnetwork:
         """Runs the frozen subnetwork's forward pass."""
         with torch.inference_mode(not training):
             return self.module(features, training=training)
+
+
+def rebuild_subnetwork(
+    builder, iteration_number: int, logits_dimension, previous_ensemble, input_shape
+) -> FrozenSubnetwork:
+    """A frozen member's record rebuilt from its builder: the module as
+    `build_subnetwork` makes it (no gradients, eval mode), its numbers
+    still the builder's initial ones until a payload is loaded onto it;
+    the builder spec when the builder has one."""
+    module = builder.build_subnetwork(
+        logits_dimension, previous_ensemble=previous_ensemble, input_shape=tuple(input_shape)
+    )
+    module.requires_grad_(False).eval()
+    to_spec = getattr(builder, "to_spec", None)
+    return FrozenSubnetwork(
+        iteration_number=iteration_number,
+        name=builder.name,
+        module=module,
+        builder_spec=to_spec() if to_spec is not None else None,
+    )
 
 
 @dataclasses.dataclass

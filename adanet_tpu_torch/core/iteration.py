@@ -28,7 +28,11 @@ candidate's forward, backward and update into one jitted program; here
 
 Training state is the subnetworks' `nn.Module`s with their
 `torch.optim` optimizers, the mixture weights as one `nn.Parameter` per
-member, and the candidates' EMA tensors (`IterationState`). A builder's
+member, and the candidates' EMA tensors (`IterationState`).
+`state_payload` takes all of it, with the dropout generator's state, as
+checkpoint data, and `restore_state` loads such a payload onto the
+`init_state` of a freshly built `Iteration`, copying into the existing
+tensors so that the optimizers keep their parameters. A builder's
 optimizer factory takes the module's `(name, parameter)` pairs, so that
 a rule may go by name (weight decay on kernels only). Matrix products run with
 TF32 off. Bagging, the bf16 step policy, multi-step windows and
@@ -49,6 +53,7 @@ from torch import nn
 
 from adanet_tpu_torch._device import resolve_device
 from adanet_tpu_torch.core import candidate as candidate_lib
+from adanet_tpu_torch.core import checkpoint as ckpt_lib
 from adanet_tpu_torch.core.architecture import Architecture
 from adanet_tpu_torch.core.frozen import (
     FrozenEnsemble,
@@ -156,6 +161,104 @@ def _as_parameters(params: Dict[str, Any], device) -> Dict[str, Any]:
     if params.get("bias") is not None:
         out["bias"] = param(params["bias"])
     return out
+
+
+def _params_names(params: Dict[str, Any]) -> List[str]:
+    """Names of `_params_list`'s entries, in its order."""
+    names = ["weights/%d" % i for i in range(len(params["weights"]))]
+    return names + (["bias"] if params.get("bias") is not None else [])
+
+
+def state_payload(state: "IterationState") -> Dict[str, Any]:
+    """All of `state` as checkpoint data on the CPU (`checkpoint.plain`):
+    per subnetwork its `state_dict` (buffers included: batch-norm
+    statistics and count, the drop-path schedule's step), its
+    optimizer's `state_dict` (with `Chain`'s count) beside the names of
+    the parameters it holds state for, `step` and `dead`; per ensemble
+    its params and optimizer state; per candidate its EMA tensors; the
+    iteration step; the training generator's device and state."""
+    return ckpt_lib.plain(
+        {
+            "iteration_step": int(state.iteration_step),
+            "subnetworks": {
+                name: {
+                    "module": st.module.state_dict(),
+                    "optimizer": st.optimizer.state_dict(),
+                    "parameter_names": [n for n, _ in st.module.named_parameters()],
+                    "step": int(st.step),
+                    "dead": bool(st.dead),
+                }
+                for name, st in state.subnetworks.items()
+            },
+            "ensembles": {
+                name: {
+                    "params": _params_list(est.params),
+                    "optimizer": None if est.optimizer is None else est.optimizer.state_dict(),
+                    "parameter_names": _params_names(est.params),
+                }
+                for name, est in state.ensembles.items()
+            },
+            "candidates": {
+                name: {f.name: getattr(cs, f.name) for f in dataclasses.fields(cs)}
+                for name, cs in state.candidates.items()
+            },
+            "generator": {"device": state.generator.device.type, "state": state.generator.get_state()},
+        }
+    )
+
+
+def _check_names(what: str, saved, rebuilt) -> None:
+    if list(saved) != list(rebuilt):
+        raise ValueError(
+            "The checkpoint's %s do not match the rebuilt iteration's (the generator must be deterministic):\n"
+            "checkpoint: %s\nrebuilt: %s" % (what, list(saved), list(rebuilt))
+        )
+
+
+def restore_state(state: "IterationState", payload: Dict[str, Any], restore_generator: bool = True):
+    """Loads a `state_payload` onto `state`, the `init_state` of the same
+    iteration rebuilt: module and optimizer `state_dict`s (after the
+    parameter names are checked, since optimizer state is loaded by
+    position), the ensemble params copied in place, the candidates' EMA
+    tensors, the step counters and, when training goes on
+    (`restore_generator`), the generator's state, which must come from
+    the same device type. A mismatch raises `ValueError`."""
+    _check_names("subnetworks", sorted(payload["subnetworks"]), sorted(state.subnetworks))
+    _check_names("ensembles", sorted(payload["ensembles"]), sorted(state.ensembles))
+    _check_names("candidates", sorted(payload["candidates"]), sorted(state.candidates))
+    for name, st in state.subnetworks.items():
+        saved = payload["subnetworks"][name]
+        _check_names("parameters of %r" % name, saved["parameter_names"], [n for n, _ in st.module.named_parameters()])
+        st.module.load_state_dict(saved["module"])
+        st.optimizer.load_state_dict(saved["optimizer"])
+        st.step = int(saved["step"])
+        st.dead = bool(saved["dead"])
+    for name, est in state.ensembles.items():
+        saved = payload["ensembles"][name]
+        _check_names("mixture parameters of %r" % name, saved["parameter_names"], _params_names(est.params))
+        with torch.no_grad():
+            for param, value in zip(_params_list(est.params), saved["params"]):
+                param.copy_(value)
+        if (est.optimizer is None) != (saved["optimizer"] is None):
+            raise ValueError("The checkpoint's ensemble %r differs from the rebuilt one in being trained" % name)
+        if est.optimizer is not None:
+            est.optimizer.load_state_dict(saved["optimizer"])
+    for name, cs in state.candidates.items():
+        device = cs.ema_biased.device
+        state.candidates[name] = candidate_lib.CandidateState(
+            **{key: value.to(device) for key, value in payload["candidates"][name].items()}
+        )
+    state.iteration_step = int(payload["iteration_step"])
+    if restore_generator:
+        saved = payload["generator"]["device"]
+        here = state.generator.device.type
+        if saved != here:
+            raise ValueError(
+                "The checkpoint's training generator is a %s generator; training cannot resume on %s "
+                "(its draws would differ). Resume on %s, or evaluate from this checkpoint." % (saved, here, saved)
+            )
+        state.generator.set_state(payload["generator"]["state"])
+    return state
 
 
 def _detached(out: Subnetwork) -> Subnetwork:
@@ -482,6 +585,17 @@ class Iteration:
                     "loss": self.head.loss(sub_outs[spec.name].logits, labels)
                 }
             return results
+
+    def candidate_forward(self, state: IterationState, name: str, features):
+        """The ensemble candidate `name` on `features`, as the mid-iteration
+        state holds it (no gradients); returns its `Ensemble`."""
+        espec = self._spec_by_name[name]
+        with full_f32_matmul(), torch.no_grad():
+            outs = [
+                (state.subnetworks[ref].module if kind == _NEW else state.frozen[ref])(features, training=False)
+                for kind, ref in espec.members
+            ]
+            return espec.ensembler.build_ensemble(state.ensembles[name].params, outs)
 
     # ------------------------------------------------------- selection/freeze
 

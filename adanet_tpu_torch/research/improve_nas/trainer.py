@@ -7,7 +7,9 @@ lambda/beta, knowledge distillation, learned mixture weights, generator
 choice), trains, evaluates, and prints the final metrics as one JSON
 line. Only `--dataset=fake` runs: the CIFAR providers wait until their
 files are in the repository. `--model_dir` defaults to a new temporary
-directory.
+directory. Run again over the same `--model_dir`, it resumes the search
+where the checkpoint stands; on SIGTERM it checkpoints at the next step,
+evaluates the current best ensemble and exits 0, as the Estimator does.
 
 Example (fake data):
     python -m adanet_tpu_torch.research.improve_nas.trainer \\

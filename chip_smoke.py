@@ -113,11 +113,27 @@
    |value|). Then K2 forward and gradient against the plain version at
    every (shape, batch, dtype) phases 13-15 launch, and the trainer CLI
    on the card at a small size.
+16. `resume_nasnet`, after phase 13 (its configuration, 2 iterations x
+   10 steps, a checkpoint every 5, one fixed batch): a search stopped by
+   max_steps at global step 13 is rebuilt and restored by a fresh
+   Estimator, every tensor of the state bitwise equal to the live one
+   (the CUDA generator's state included); two uninterrupted runs and
+   the stopped one resumed: the same architecture files byte for byte,
+   `frozen-1.pt` bitwise equal if the two uninterrupted runs are, else
+   within twice their spread, the resumed run's K1 and K2 counts exact
+   (zeroed just before its train(), read after its evaluate()); the
+   trainer CLI in a subprocess, SIGTERMed inside iteration 1, exits 0
+   with a mid-iteration checkpoint and a second run resumes it to the
+   end. Prints `resume_nasnet:` (bytes of `ckpt-13.pt` and `frozen-0.pt`,
+   ms a save split into device-to-host, serialise, digest and write
+   with fsync, ms a restore, a save's share of a step, the deviations,
+   the phase's seconds, the card line).
 
 Prints the per-shape K2 and K3 timings, the served latency and
-throughput, the `train:`, `train_nasnet:` and `nasnet_gate:` lines, a
-`kernels` JSON line (K1's row also with its launches on the search paths,
-K2's with its launches on the NASNet training paths, `train_launches`),
+throughput, the `train:`, `train_nasnet:`, `resume_nasnet:` and
+`nasnet_gate:` lines, a `kernels` JSON line (K1's row also with its
+launches on the search paths, K2's with its launches on the NASNet
+training paths, `train_launches`; both with `resume_launches`),
 and as its last line `{"ok": true, "device": {...}}`. Any failure raises
 and exits non-zero.
 """
@@ -128,6 +144,7 @@ import contextlib
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -191,6 +208,15 @@ SEARCH_COMBINE_MEMBERS = (1, 2)
 # schedule, batch 32 (trainer.py's --batch_size), fake 32 x 32 x 3 images.
 NASNET_BATCH, NASNET_STEPS, NASNET_ITERATIONS, NASNET_EXAMPLES = 32, 20, 2, 256
 NASNET_WINDOW, NASNET_TRACED = 10, 3
+# resume_nasnet: train_nasnet's configuration, 2 iterations of
+# RESUME_STEPS with a checkpoint every RESUME_SAVE_EVERY steps, stopped at
+# global step RESUME_STOP (inside iteration 1); saves and restores timed
+# RESUME_SAVES times (medians), steps over a window of RESUME_WINDOW.
+RESUME_STEPS, RESUME_SAVE_EVERY, RESUME_STOP, RESUME_SAVES, RESUME_WINDOW = 10, 5, 13, 3, 3
+# The trainer CLI's small size (trainer_on_card), and the steps of its
+# SIGTERM run (two iterations of half as many).
+TRAINER_SMALL = ["--dataset=fake", "--num_cells=3", "--num_conv_filters=4", "--batch_size=16"]
+TRAINER_SIGTERM_STEPS = 200
 # The flagship-family gate (tests/test_convergence.py:119-157): 3 cells,
 # 8 filters, on the digits; adam 1e-3.
 GATE_TRAIN, GATE_TEST, GATE_STEPS = 8192, 2048, 300
@@ -1798,6 +1824,296 @@ def train_nasnet(model_dir):
     return counts, stats
 
 
+def _tree_deviation(got, want, path=""):
+    """Max |got - want| over the tensors and floats of two payload trees
+    (0.0 when bitwise equal); a difference of structure, dtype, or of
+    any other value raises."""
+    import torch
+
+    if isinstance(want, dict):
+        if sorted(got) != sorted(want):
+            raise AssertionError("%s: keys %s != %s" % (path, sorted(got), sorted(want)))
+        return max([_tree_deviation(got[k], want[k], "%s/%s" % (path, k)) for k in want] or [0.0])
+    if isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError("%s: %d items != %d" % (path, len(got), len(want)))
+        return max([_tree_deviation(g, w, "%s/%d" % (path, i)) for i, (g, w) in enumerate(zip(got, want))] or [0.0])
+    if torch.is_tensor(want):
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError("%s: %s %s != %s %s" % (path, got.dtype, got.shape, want.dtype, want.shape))
+        if torch.equal(got, want):
+            return 0.0
+        if not want.is_floating_point():
+            raise AssertionError("%s: integer tensors differ" % path)
+        return float((got.double() - want.double()).abs().max())
+    if isinstance(want, float) and isinstance(got, float):
+        return abs(got - want)
+    if got != want:
+        raise AssertionError("%s: %r != %r" % (path, got, want))
+    return 0.0
+
+
+def resume_nasnet(model_dir):
+    """Checkpoint and resume of the flagship at full width on the card
+    (`train_nasnet`'s configuration, 2 iterations x RESUME_STEPS, a
+    checkpoint every RESUME_SAVE_EVERY steps, one fixed batch forever):
+
+    1. a search stopped by max_steps inside iteration 1 keeps its live
+       `IterationState`; a fresh Estimator over its dir rebuilds the
+       iteration and restores it, and every tensor of the restored state
+       (parameters, buffers, optimizer slots and counts, mixture weights,
+       EMAs, step counters, the CUDA generator's state) must equal the
+       live one bitwise; saves and restores are timed;
+    2. two uninterrupted runs U1, U2 and the stopped one resumed (R):
+       R's architecture files equal U1's byte for byte; R's `frozen-1.pt`
+       equals U1's bitwise if U2's does, else deviates from it by at most
+       twice U2's deviation; R's launch counts, zeroed just before its
+       train() and read after its evaluate(), are exact;
+    3. the trainer CLI in a subprocess, SIGTERMed inside iteration 1, exits
+       0 with a mid-iteration state in the manifest, and a second run over
+       its --model_dir resumes from that step and finishes.
+    Returns (R's launch counts, the `resume_nasnet:` numbers)."""
+    import torch
+
+    from adanet_tpu_torch import ops
+    from adanet_tpu_torch.core import checkpoint as ckpt
+    from adanet_tpu_torch.core import iteration as iteration_lib
+    from adanet_tpu_torch.core.estimator import Estimator
+    from adanet_tpu_torch.core.heads import MultiClassHead
+    from adanet_tpu_torch.ensemble.weighted import ComplexityRegularizedEnsembler
+    from adanet_tpu_torch.research.improve_nas import fake_data, improve_nas, optimizer
+
+    t_phase = time.perf_counter()
+    hparams = improve_nas.Hparams(
+        knowledge_distillation=improve_nas.KnowledgeDistillation.ADAPTIVE,
+        use_pallas_sep_conv=True,
+        total_training_steps=2 * RESUME_STEPS,
+    )
+    provider = fake_data.FakeImageProvider(
+        num_examples=NASNET_BATCH, image_size=32, num_classes=10, batch_size=NASNET_BATCH, seed=0
+    )
+    batch = next(iter(provider.get_input_fn("train")()))
+
+    def fixed():
+        while True:
+            yield batch
+
+    def sgd(params):
+        return torch.optim.SGD(params, lr=0.01)
+
+    class Keeping(Estimator):
+        """Keeps the live state of its last checkpoint."""
+
+        def _save_iteration_state(self, info, iteration_number, state):
+            super()._save_iteration_state(info, iteration_number, state)
+            self.live = state
+
+    def estimator(name, cls=Estimator):
+        generator = improve_nas.Generator(
+            optimizer.fn_with_name("momentum", "cosine", cosine_decay_steps=RESUME_STEPS), hparams, seed=0,
+            num_classes=10,
+        )
+        return cls(
+            MultiClassHead(10), generator, max_iteration_steps=RESUME_STEPS, max_iterations=2,
+            ensemblers=[ComplexityRegularizedEnsembler(optimizer=sgd, use_fused_combine=True)], force_grow=True,
+            model_dir=os.path.join(model_dir, "resume", name), log_every_steps=0,
+            save_checkpoint_steps=RESUME_SAVE_EVERY, device="cuda",
+        )
+
+    # 1. Exact restore.
+    stopped = estimator("stopped", Keeping)
+    stopped.train(fixed, max_steps=RESUME_STOP)
+    live = iteration_lib.state_payload(stopped.live)
+    info = ckpt.read_manifest(stopped.model_dir)
+    if (info.iteration_number, info.global_step, info.iteration_state_file) != (
+            1, RESUME_STOP, "ckpt-%d.pt" % RESUME_STOP):
+        raise AssertionError("resume_nasnet: stopped at %s" % info)
+    fresh = estimator("stopped")
+    iteration = fresh._build_iteration(1, batch)
+    restored = fresh._init_or_restore_state(iteration, batch, info)
+    deviation = _tree_deviation(iteration_lib.state_payload(restored), live)
+    tensors = sum(1 for _ in _payload_tensors(live))
+    if deviation != 0.0 or restored.iteration_step != RESUME_STOP - RESUME_STEPS:
+        raise AssertionError("resume_nasnet: restore deviates by %g" % deviation)
+
+    scratch = os.path.join(model_dir, "resume", "saves")
+    parts = collections.defaultdict(list)
+    for _ in range(RESUME_SAVES):
+        t0 = time.perf_counter()
+        payload = iteration_lib.state_payload(stopped.live)
+        t1 = time.perf_counter()
+        data = ckpt.to_bytes(payload)
+        t2 = time.perf_counter()
+        ckpt.sha256_hex(data)
+        t3 = time.perf_counter()
+        ckpt.write_payload_bytes(scratch, "ckpt-%d.pt" % RESUME_STOP, data)
+        t4 = time.perf_counter()
+        # write_payload_bytes digests again for the sidecar.
+        parts["device_to_host"].append((t1 - t0) * 1e3)
+        parts["serialise"].append((t2 - t1) * 1e3)
+        parts["digest"].append((t3 - t2) * 1e3)
+        parts["write_fsync"].append((t4 - t3 - (t3 - t2)) * 1e3)
+        t0 = time.perf_counter()
+        stopped._save_iteration_state(ckpt.read_manifest(stopped.model_dir), 1, stopped.live)
+        parts["save"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        payload = ckpt.restore_payload(stopped.model_dir, info.iteration_state_file)
+        t1 = time.perf_counter()
+        iteration_lib.restore_state(restored, payload)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        parts["restore_read_verify_decode"].append((t1 - t0) * 1e3)
+        parts["restore_load"].append((t2 - t1) * 1e3)
+        parts["restore"].append((t2 - t0) * 1e3)
+    if _tree_deviation(iteration_lib.state_payload(restored), live) != 0.0:
+        raise AssertionError("resume_nasnet: a repeated restore deviates")
+    ms = {key: sorted(values)[len(values) // 2] for key, values in parts.items()}
+    sizes = {name: os.path.getsize(os.path.join(stopped.model_dir, name))
+             for name in ("ckpt-%d.pt" % RESUME_STOP, "frozen-0.pt")}
+    del stopped, fresh, iteration, restored, payload, data
+    torch.cuda.empty_cache()
+
+    # 2. Resume against two uninterrupted runs.
+    first = RESUME_STEPS + 2
+    clock = _StepClock(fixed, first=first, traced=10**9, window=RESUME_WINDOW)
+    u1, u2 = estimator("u1"), estimator("u2")
+    u1.train(fixed, max_steps=10**6)
+    u2.train(clock, max_steps=10**6)
+    (host0, event0), (host1, event1) = clock.marks
+    step_ms = (host1 - host0) / RESUME_WINDOW * 1e3
+    resumed = estimator("stopped")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    resumed.train(fixed, max_steps=10**6)
+    metrics = resumed.evaluate(lambda: iter([batch]))
+    torch.cuda.synchronize()
+    resume_secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    per_forward = len(improve_nas.Builder(None, hparams).build_subnetwork(
+        10, input_shape=(32, 32, 3)).nasnet.sepconv_launch_shapes())
+    remaining = 2 * RESUME_STEPS - RESUME_STOP
+    # Iteration 1 from its checkpoint: the init's forward of the new
+    # member and of the frozen one, two member forwards a step, the
+    # freeze's forward; the eval batch through both members. K1: three a
+    # step (the carried-over ensemble, the grown one, the teacher), one
+    # the eval batch.
+    expected = dict(copy=0, cell=0, sepconv=per_forward * (2 + 2 * remaining + 1 + 2), combine=3 * remaining + 1)
+    if counts != expected or resumed.latest_global_step() != 2 * RESUME_STEPS:
+        raise AssertionError("resume_nasnet: launches %s, expected %s, step %d"
+                             % (counts, expected, resumed.latest_global_step()))
+    if not math.isfinite(metrics["loss"]):
+        raise AssertionError("resume_nasnet: evaluate %s" % metrics)
+    runs = {name: est.model_dir for name, est in (("u1", u1), ("u2", u2), ("r", resumed))}
+    for t in range(2):
+        name = "architecture-%d.json" % t
+        texts = {key: open(os.path.join(d, name), "rb").read() for key, d in runs.items()}
+        if texts["r"] != texts["u1"]:
+            raise AssertionError("resume_nasnet: %s differs from the uninterrupted run's" % name)
+    frozen = {key: ckpt.restore_payload(d, "frozen-1.pt") for key, d in runs.items()}
+    spread = _tree_deviation(frozen["u2"], frozen["u1"])
+    resume_dev = _tree_deviation(frozen["r"], frozen["u1"])
+    if resume_dev > 2 * spread:
+        raise AssertionError("resume_nasnet: frozen-1 deviates by %g from U1, U2 by %g" % (resume_dev, spread))
+
+    # 3. SIGTERM through the trainer CLI.
+    trainer = _trainer_sigterm(os.path.join(model_dir, "resume", "trainer"))
+
+    out = dict(
+        steps=[RESUME_STEPS, RESUME_STEPS],
+        stop=RESUME_STOP,
+        save_checkpoint_steps=RESUME_SAVE_EVERY,
+        restore_bitwise_tensors=tensors,
+        bytes=sizes,
+        ms=ms,
+        ms_samples=parts,
+        step_ms=step_ms,
+        step_event_ms=event0.elapsed_time(event1) / RESUME_WINDOW,
+        window_steps=[first, first + RESUME_WINDOW - 1],
+        save_share_of_a_step=ms["save"] / step_ms,
+        save_share_amortised=ms["save"] / (step_ms * RESUME_SAVE_EVERY),
+        frozen_1_u2_vs_u1=spread,
+        frozen_1_r_vs_u1=resume_dev,
+        resume_secs=resume_secs,
+        launches=counts,
+        best_ensemble=metrics["best_ensemble"],
+        trainer=trainer,
+        seconds=time.perf_counter() - t_phase,
+        card=card_line(),
+    )
+    print("resume_nasnet: " + json.dumps(out))
+    return counts, out
+
+
+def _payload_tensors(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        for value in tree.values():
+            yield from _payload_tensors(value)
+    elif isinstance(tree, (list, tuple)):
+        for value in tree:
+            yield from _payload_tensors(value)
+    elif torch.is_tensor(tree):
+        yield tree
+
+
+def _trainer_sigterm(model_dir):
+    """The trainer CLI on the card at the `trainer_on_card` size, in a
+    subprocess: SIGTERM once iteration 0 is complete on disk (its
+    architecture file and the manifest of iteration 1) and iteration 1
+    has had a second to start; it must exit 0 with a mid-iteration state
+    in the manifest. A second run over the same --model_dir must restore
+    that state and finish. Returns its numbers."""
+    from adanet_tpu_torch.core import checkpoint as ckpt
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]))
+    argv = [sys.executable, "-m", "adanet_tpu_torch.research.improve_nas.trainer", *TRAINER_SMALL,
+            "--boosting_iterations=2", "--train_steps=%d" % TRAINER_SIGTERM_STEPS, "--model_dir=" + model_dir]
+    os.makedirs(model_dir, exist_ok=True)
+
+    def run(name, signal_at_iteration_1):
+        with open(os.path.join(model_dir, name + ".out"), "w") as out, \
+                open(os.path.join(model_dir, name + ".err"), "w") as err:
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(argv, cwd=root, env=env, stdout=out, stderr=err)
+            try:
+                deadline = time.time() + 600
+                while signal_at_iteration_1 and proc.poll() is None and time.time() < deadline:
+                    # The manifest is written atomically, after the
+                    # iteration's architecture and frozen payload.
+                    manifest = os.path.join(model_dir, ckpt.MANIFEST)
+                    if os.path.exists(manifest) and json.load(open(manifest))["iteration_number"] >= 1:
+                        time.sleep(1.0)
+                        proc.send_signal(signal.SIGTERM)
+                        break
+                    time.sleep(0.05)
+                rc = proc.wait(timeout=max(1.0, deadline - time.time()))
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        text = {key: open(os.path.join(model_dir, "%s.%s" % (name, key))).read() for key in ("out", "err")}
+        if rc != 0:
+            raise AssertionError("trainer %s: rc %r\n%s" % (name, rc, text["err"][-3000:]))
+        return time.perf_counter() - t0, text
+
+    first_secs, _ = run("sigterm", True)
+    info = ckpt.read_manifest(model_dir)
+    if info.iteration_number != 1 or info.iteration_state_file != "ckpt-%d.pt" % info.global_step:
+        raise AssertionError("trainer: SIGTERM left %s" % info)
+    stopped_at = info.global_step
+    second_secs, text = run("resume", False)
+    info = ckpt.read_manifest(model_dir)
+    if "Restored mid-iteration state from ckpt-%d.pt" % stopped_at not in text["err"]:
+        raise AssertionError("trainer: the second run did not restore ckpt-%d.pt" % stopped_at)
+    if (info.iteration_number, info.global_step, info.iteration_state_file) != (2, TRAINER_SIGTERM_STEPS, None):
+        raise AssertionError("trainer: the second run ended at %s" % info)
+    return dict(stopped_at=stopped_at, steps=TRAINER_SIGTERM_STEPS, first_secs=first_secs,
+                second_secs=second_secs, metrics=json.loads(text["out"].strip().splitlines()[-1]))
+
+
 def nasnet_gate(model_dir):
     """The flagship-family gate on the card: the gate's NASNet (3 cells, 8
     filters, bf16, K2 and K1 on) on 8192 digits for 300 steps, evaluated
@@ -2119,8 +2435,7 @@ def trainer_on_card():
     from adanet_tpu_torch.research.improve_nas import trainer
 
     t0 = time.perf_counter()
-    rc = trainer.main(["--dataset=fake", "--num_cells=3", "--num_conv_filters=4", "--boosting_iterations=2",
-                       "--train_steps=8", "--batch_size=16", "--device=cuda"])
+    rc = trainer.main([*TRAINER_SMALL, "--boosting_iterations=2", "--train_steps=8", "--device=cuda"])
     if rc != 0:
         raise AssertionError("trainer returned %r" % rc)
     print("trainer: rc %d in %.1f s" % (rc, time.perf_counter() - t0))
@@ -2169,6 +2484,7 @@ def main(argv=None):
         train_counts, _ = train_search(model_dir)
         train_vs_cpu()
         nasnet_counts, _ = train_nasnet(model_dir)
+        resume_counts, _ = resume_nasnet(model_dir)
         gate_counts, _, gate_shapes = nasnet_gate(model_dir)
         _, parity_cases = nasnet_train_vs_cpu()
         train_cases = (
@@ -2213,9 +2529,11 @@ def main(argv=None):
             kernels[-1]["train_launches"] = train_counts["combine"]
             kernels[-1]["nasnet_train_launches"] = nasnet_counts["combine"]
             kernels[-1]["nasnet_gate_launches"] = gate_counts["combine"]
+            kernels[-1]["resume_launches"] = resume_counts["combine"]
         if name == "sepconv":
             kernels[-1]["train_launches"] = nasnet_counts["sepconv"]
             kernels[-1]["nasnet_gate_launches"] = gate_counts["sepconv"]
+            kernels[-1]["resume_launches"] = resume_counts["sepconv"]
             kernels[-1]["train_grad_max_abs_err"] = {
                 k: v for k, v in train_errors.items() if k.startswith("grad")}
     print("copy_vs_clone: " + json.dumps({key: rows["copy"][key] for key in (

@@ -413,16 +413,31 @@ def test_trainer_runs_fake_data_on_the_cpu(tmp_path, capsys):
 
 
 def test_trainer_flags_are_the_jax_trainers():
+    import sys
+
     from absl import flags as absl_flags
 
-    from research.improve_nas.trainer import trainer as jax_trainer  # noqa: F401  (defines the flags)
+    # The JAX trainer defines its flags in absl's global registry when
+    # imported, where they would collide with the same names defined by
+    # other trainers that later tests in this process import; they are
+    # read, then taken out again with the module.
+    module = "research.improve_nas.trainer.trainer"
+    try:
+        from research.improve_nas.trainer import trainer as jax_trainer  # noqa: F401  (defines the flags)
+
+        own = [flag.name for flag in absl_flags.FLAGS.flags_by_module_dict()[module]]
+        defaults = {name: absl_flags.FLAGS[name].default for name in own}
+    finally:
+        for name in [flag.name for flag in absl_flags.FLAGS.flags_by_module_dict().get(module, [])]:
+            delattr(absl_flags.FLAGS, name)
+        sys.modules.pop(module, None)
 
     ours = vars(trainer.parse_args([]))
     assert ours.pop("device") == "cuda"
     # A temporary directory instead of a fixed one under /tmp.
-    assert ours.pop("model_dir") == "" and absl_flags.FLAGS["model_dir"].default == "/tmp/improve_nas"
+    assert ours.pop("model_dir") == "" and defaults["model_dir"] == "/tmp/improve_nas"
     for name, value in ours.items():
-        assert absl_flags.FLAGS[name].default == value, name
+        assert defaults[name] == value, name
     parsed = trainer.parse_args(["--noforce_grow", "--learn_mixture_weights", "--knowledge_distillation=adaptive"])
     assert parsed.force_grow is False and parsed.learn_mixture_weights is True
     assert trainer.parse_args(["--force_grow=false"]).force_grow is False

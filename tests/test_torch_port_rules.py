@@ -62,6 +62,7 @@ SLICE_MODULES = (
     "adanet_tpu_torch.store.blobstore",
     "adanet_tpu_torch.tools.autotune",
     "adanet_tpu_torch.core.candidate",
+    "adanet_tpu_torch.core.checkpoint",
     "adanet_tpu_torch.core.estimator",
     "adanet_tpu_torch.core.iteration",
     "adanet_tpu_torch.core.summary",
@@ -75,6 +76,9 @@ SLICE_MODULES = (
     "adanet_tpu_torch.research.improve_nas.fake_data",
     "adanet_tpu_torch.research.improve_nas.optimizer",
     "adanet_tpu_torch.research.improve_nas.trainer",
+    "adanet_tpu_torch.robustness.integrity",
+    "adanet_tpu_torch.tools.ckpt_fsck",
+    "adanet_tpu_torch.tools.payload_versions",
 )
 
 
