@@ -9,9 +9,11 @@ Port of adanet_tpu/core/estimator.py, single process:
         disk on a fresh start                _rebuild_previous_ensemble
         init, or restore the mid-iteration
         state                                _init_or_restore_state
-        train all candidates, step by step   Iteration.train_step
-        checkpoint every save_checkpoint_steps, and on a stop inside the
-        iteration (max_steps, SIGTERM)       _save_iteration_state
+        train all candidates, a window of
+        iterations_per_loop steps at a time  Iteration.train_steps
+        checkpoint when a window crosses save_checkpoint_steps, and on a
+        stop inside the iteration (max_steps,
+        SIGTERM)                             _save_iteration_state
         select the best (EMA, force_grow)    _get_best_ensemble_index
         write architecture-<t>.json, the
         frozen payload and the manifest      _complete_iteration
@@ -27,6 +29,26 @@ JAX package does. Initialisation and dropout draw from a
 the checkpoint. The search runs on `device` (the card unless the caller
 passes "cpu"), with TF32 off.
 
+The JAX package's training-throughput configuration: a window of
+`iterations_per_loop` steps runs back to back (`Iteration.train_steps`;
+a step reads nothing on the host) and the host reads the subnetworks'
+counters once a window, to log a quarantine; the window is clipped by
+the iteration's end and by `max_steps` (a ragged window, batches of
+different shapes, needs nothing more: its steps run one after another,
+as every window's do), logs and checkpoints fire when a
+window crosses their interval, and the stop checks (SIGTERM,
+`max_steps`) run once a window. `step_compute_dtype` casts the float
+features at each step's boundary (`utils/precision.py`);
+`prefetch_buffer` pulls batches on a worker thread and
+`prefetch_to_device` also copies them to the device there
+(`utils/prefetch.py`); the prefetchers are closed when their stream ends
+and when `train` returns, at a stop, on SIGTERM or on an error.
+`profile_dir` traces each iteration's first `profile_steps` steps with
+`torch.profiler` (`<profile_dir>/iteration_<t>/trace.json`), `debug`
+checks every batch for non-finite floats on the host, `metric_fn` adds
+metrics to `evaluate`, and `predict(on_cpu=True)` predicts on the CPU
+when the caller asks for it.
+
 `model_dir` holds the JAX package's checkpoint layout
 (`core/checkpoint.py`): `architecture-<t>.json` (the JAX package's file,
 byte for byte), `frozen-<t>.pt`, `ckpt-<step>.pt` and the manifest
@@ -40,6 +62,7 @@ with later slices.
 
 from __future__ import annotations
 
+import copy
 import itertools
 import logging
 import os
@@ -63,6 +86,8 @@ from adanet_tpu_torch.ensemble.weighted import ComplexityRegularizedEnsembler, f
 from adanet_tpu_torch.robustness import faults as faults_lib
 from adanet_tpu_torch.robustness import integrity
 from adanet_tpu_torch.robustness import retry as retry_lib
+from adanet_tpu_torch.utils import precision
+from adanet_tpu_torch.utils.trees import tree_leaves
 from adanet_tpu_torch.utils.batches import (
     EVAL_FETCH_WINDOW,
     WeightedMeanAccumulator,
@@ -72,6 +97,30 @@ from adanet_tpu_torch.utils.batches import (
 )
 
 _LOG = logging.getLogger("adanet_tpu_torch")
+
+
+def _crossed(prev_step: int, step: int, interval: int) -> bool:
+    """True when (prev_step, step] holds a multiple of `interval` (a
+    window advances the step by more than 1)."""
+    return step // interval > prev_step // interval
+
+
+def _check_batch_finite(batch) -> None:
+    """Raises `FloatingPointError` when a float leaf of the host batch is
+    not finite (`debug=True`)."""
+    for leaf in tree_leaves(batch):
+        if torch.is_tensor(leaf):
+            leaf = leaf.detach().float().cpu().numpy() if leaf.is_floating_point() else None
+        if leaf is None or not np.issubdtype(np.asarray(leaf).dtype, np.floating):
+            continue
+        if not np.all(np.isfinite(leaf)):
+            raise FloatingPointError("Non-finite values in an input batch (debug=True).")
+
+
+def _checked(source):
+    for batch in source:
+        _check_batch_finite(batch)
+        yield batch
 
 
 class Estimator:
@@ -104,6 +153,22 @@ class Estimator:
         the mid-iteration state and return from `train`; a second SIGTERM
         goes to the previous handler. Installed on the main thread only.
       device: where the search runs; the card by default.
+      iterations_per_loop: steps a window (see the module's docstring).
+      step_compute_dtype: e.g. "bfloat16": every train step casts its
+        float features to it; parameters, optimizer state, statistics,
+        labels, logits and losses stay f32. None trains in the input
+        dtype.
+      prefetch_buffer: batches pulled ahead on a worker thread (0: none);
+        order and results are unchanged.
+      prefetch_to_device: with `prefetch_buffer`, the worker also copies
+        each batch to `device` (pinned memory and a side stream on the
+        card).
+      debug: check every training and evaluation batch for non-finite
+        floats before it is used.
+      metric_fn: `metric_fn(logits, labels) -> {name: 0-d tensor}`, extra
+        metrics of `evaluate`, averaged by example count.
+      profile_dir: trace each iteration's first `profile_steps` steps
+        with torch.profiler into `<profile_dir>/iteration_<t>/`.
     """
 
     def __init__(
@@ -122,12 +187,32 @@ class Estimator:
         log_every_steps: int = 100,
         checkpoint_on_sigterm: bool = True,
         device=None,
+        iterations_per_loop: int = 1,
+        step_compute_dtype=None,
+        prefetch_buffer: int = 0,
+        prefetch_to_device: bool = False,
+        debug: bool = False,
+        metric_fn: Optional[Callable] = None,
+        profile_dir: Optional[str] = None,
+        profile_steps: int = 5,
     ):
         if max_iteration_steps is None or max_iteration_steps <= 0:
             raise ValueError(
                 "max_iteration_steps must be a positive integer, got %r" % (max_iteration_steps,)
             )
+        if iterations_per_loop < 1:
+            raise ValueError("iterations_per_loop must be >= 1.")
+        if prefetch_buffer < 0:
+            raise ValueError("prefetch_buffer must be >= 0.")
         self._device = resolve_device(device)
+        self._iterations_per_loop = int(iterations_per_loop)
+        self._prefetch_buffer = int(prefetch_buffer)
+        self._prefetch_to_device = bool(prefetch_to_device)
+        self._open_prefetchers: list = []
+        self._debug = bool(debug)
+        self._metric_fn = metric_fn
+        self._profile_dir = profile_dir
+        self._profile_steps = int(profile_steps)
         self._head = head
         self._generator = subnetwork_generator
         self._max_iteration_steps = int(max_iteration_steps)
@@ -144,17 +229,22 @@ class Estimator:
         self._checkpoint_on_sigterm = bool(checkpoint_on_sigterm)
         self._stop_requested = False
         self._summary: Optional[ScopedSummary] = None
-        self._iteration_builder = IterationBuilder(
-            head=head,
+        self._step_compute_dtype = precision.resolve_dtype(step_compute_dtype)
+        self._iteration_builder = self._make_iteration_builder(self._device)
+        # The winner of the last iteration this train() call completed;
+        # the first iteration of a call rebuilds its previous from disk.
+        self._previous: Optional[FrozenEnsemble] = None
+
+    def _make_iteration_builder(self, device) -> IterationBuilder:
+        return IterationBuilder(
+            head=self._head,
             ensemblers=self._ensemblers,
             ensemble_strategies=self._strategies,
             adanet_loss_decay=self._adanet_loss_decay,
             collect_summaries=self._log_every_steps > 0,
-            device=self._device,
+            device=device,
+            step_compute_dtype=self._step_compute_dtype,
         )
-        # The winner of the last iteration this train() call completed;
-        # the first iteration of a call rebuilds its previous from disk.
-        self._previous: Optional[FrozenEnsemble] = None
 
     # ------------------------------------------------------------ properties
 
@@ -231,6 +321,9 @@ class Estimator:
         finally:
             if handler_installed:
                 signal.signal(signal.SIGTERM, previous_handler if previous_handler is not None else signal.SIG_DFL)
+            # A worker abandoned mid-stream would park on its queue, with
+            # its batches, until the process exits.
+            self._close_prefetchers()
             self._previous = None
             if self._summary is not None:
                 self._summary.close()
@@ -264,16 +357,34 @@ class Estimator:
                 "Starting iteration %d at iteration_step %d (global step %d): candidates=%s",
                 t, steps_done, info.global_step, iteration.candidate_names(),
             )
+            profile = None
+            profile_stop_at = None
+            dead: set = set()
             while (
                 steps_done < self._max_iteration_steps
                 and not self._stop_requested
                 and (max_steps is None or info.global_step < max_steps)
             ):
-                batch, data_iter = self._next_batch(input_fn, data_iter)
-                state, metrics = iteration.train_step(state, batch)
-                steps_done += 1
-                info.global_step += 1
-                if self._log_every_steps and steps_done % self._log_every_steps == 0:
+                if self._profile_dir and profile_stop_at is None:
+                    profile = self._start_profile()
+                    profile_stop_at = steps_done + self._profile_steps
+                budget = self._max_iteration_steps - steps_done
+                if max_steps is not None:
+                    budget = min(budget, max_steps - info.global_step)
+                loop_size = min(self._iterations_per_loop, budget)
+                batches = []
+                for _ in range(loop_size):
+                    batch, data_iter = self._next_batch(input_fn, data_iter)
+                    batches.append(batch)
+                state, metrics = iteration.train_steps(state, batches)
+                prev_steps_done = steps_done
+                steps_done += loop_size
+                info.global_step += loop_size
+                self._log_quarantines(iteration, state, dead)
+                if profile is not None and steps_done >= profile_stop_at:
+                    self._stop_profile(profile, t)
+                    profile = None
+                if self._log_every_steps and _crossed(prev_steps_done, steps_done, self._log_every_steps):
                     emas = iteration.ema_losses(state)
                     _LOG.info(
                         "iteration %d step %d/%d adanet_loss EMAs: %s",
@@ -281,8 +392,12 @@ class Estimator:
                         {k: round(v, 6) for k, v in emas.items()},
                     )
                     self._write_train_summaries(iteration, metrics, emas, state, info.global_step)
-                if self._save_checkpoint_steps and steps_done % self._save_checkpoint_steps == 0:
+                if self._save_checkpoint_steps and _crossed(
+                    prev_steps_done, steps_done, self._save_checkpoint_steps
+                ):
                     self._save_iteration_state(info, t, state)
+            if profile is not None:
+                self._stop_profile(profile, t)
             if steps_done < self._max_iteration_steps:
                 # Stopped inside the iteration (max_steps or SIGTERM):
                 # persist the state; a fresh process resumes from here.
@@ -295,18 +410,67 @@ class Estimator:
                 break
             self._previous = self._complete_iteration(iteration, state, sample_batch, info)
 
+    @staticmethod
+    def _log_quarantines(iteration, state, dead: set) -> None:
+        """The window's one host read: the subnetworks' counters; a
+        subnetwork that went non-finite in the window is logged once."""
+        for name, (_, is_dead) in iteration.host_counters(state).items():
+            if is_dead and name not in dead:
+                dead.add(name)
+                _LOG.warning("Subnetwork %s had a non-finite loss: quarantined, its updates skipped.", name)
+
+    def _start_profile(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self._device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profile = torch.profiler.profile(activities=activities)
+        profile.start()
+        return profile
+
+    def _stop_profile(self, profile, iteration_number: int) -> None:
+        if self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+        profile.stop()
+        out = os.path.join(self._profile_dir, "iteration_%d" % iteration_number)
+        os.makedirs(out, exist_ok=True)
+        profile.export_chrome_trace(os.path.join(out, "trace.json"))
+
+    def _make_train_iter(self, input_fn):
+        """A fresh iterator over input_fn(), checked (`debug`) and
+        prefetched when configured."""
+        data_iter = iter(input_fn())
+        if self._debug:
+            data_iter = _checked(data_iter)
+        if self._prefetch_buffer > 0:
+            from adanet_tpu_torch.utils.prefetch import DevicePrefetchIterator, PrefetchIterator
+
+            if self._prefetch_to_device:
+                data_iter = DevicePrefetchIterator(data_iter, buffer_size=self._prefetch_buffer, device=self._device)
+            else:
+                data_iter = PrefetchIterator(data_iter, buffer_size=self._prefetch_buffer)
+            self._open_prefetchers.append(data_iter)
+        return data_iter
+
+    def _close_prefetchers(self) -> None:
+        for prefetcher in self._open_prefetchers:
+            prefetcher.close()
+        self._open_prefetchers.clear()
+
     def _next_batch(self, input_fn, data_iter, attempts: int = 3):
         """The next batch, calling `input_fn` again at the end of its
         iterator; a transient data-source failure re-opens the pipeline
         (at most `attempts` pulls)."""
         for attempt in range(attempts):
             if data_iter is None:
-                data_iter = iter(input_fn())
+                data_iter = self._make_train_iter(input_fn)
             try:
                 faults_lib.trip("data.pull")
                 return next(data_iter), data_iter
             except StopIteration:
-                data_iter = iter(input_fn())
+                # The stream ended: its prefetcher (the only open one)
+                # goes before the next epoch's opens.
+                self._close_prefetchers()
+                data_iter = self._make_train_iter(input_fn)
                 try:
                     return next(data_iter), data_iter
                 except StopIteration:
@@ -318,6 +482,7 @@ class Estimator:
                     "Transient data-source failure (pull attempt %d/%d): %s; re-opening the "
                     "input pipeline.", attempt + 1, attempts, exc,
                 )
+                self._close_prefetchers()
                 data_iter = None
         raise AssertionError("unreachable")  # pragma: no cover
 
@@ -512,6 +677,14 @@ class Estimator:
 
     # ------------------------------------------------------ evaluate/predict
 
+    def _on_device(self, device) -> "Estimator":
+        """This estimator over the same `model_dir`, rebuilding on
+        `device`."""
+        twin = copy.copy(self)
+        twin._device = device
+        twin._iteration_builder = self._make_iteration_builder(device)
+        return twin
+
     def _final_forward_fn(self, sample_batch):
         """(forward, name) of the best model: `forward(features)` returns
         its `Ensemble` (callers disable gradients and TF32). With a mid-iteration state the current best
@@ -538,9 +711,9 @@ class Estimator:
 
     def evaluate(self, input_fn: Callable[[], Iterator], steps: Optional[int] = None) -> Dict[str, Any]:
         """Evaluates the best model (`_final_forward_fn`) on up to `steps`
-        batches of `input_fn`; returns the head's metrics and `loss`
-        averaged by example count, with `best_ensemble` and
-        `global_step`."""
+        batches of `input_fn`; returns the head's metrics, `loss` and the
+        `metric_fn`'s averaged by example count, with `best_ensemble`
+        and `global_step`."""
         data = iter(input_fn())
         try:
             first = next(data)
@@ -562,11 +735,15 @@ class Estimator:
             for index, batch in enumerate(itertools.chain([first], data)):
                 if steps is not None and index >= steps:
                     break
+                if self._debug:
+                    _check_batch_finite(batch)
                 n = batch_example_count(batch)
                 features, labels = to_device(batch, self._device)
                 logits = forward(features).logits
                 metrics = dict(self._head.eval_metrics(logits, labels))
                 metrics["loss"] = self._head.loss(logits, labels)
+                if self._metric_fn is not None:
+                    metrics.update(self._metric_fn(logits, labels))
                 staged.append((metrics, n))
                 if len(staged) >= EVAL_FETCH_WINDOW:
                     drain()
@@ -577,19 +754,24 @@ class Estimator:
         result["global_step"] = self.latest_global_step()
         return result
 
-    def predict(self, input_fn: Callable[[], Iterator]):
+    def predict(self, input_fn: Callable[[], Iterator], on_cpu: bool = False):
         """Yields the head's predictions of the best model
         (`_final_forward_fn`) for each batch of `input_fn` (features, or
-        (features, labels)), as CPU tensors."""
+        (features, labels)), as CPU tensors. `on_cpu=True` rebuilds the
+        model on the CPU and predicts there, when the caller wants it
+        (a model too large for the card's memory; the reference's
+        inference fallback for embedding tables on the host); nothing
+        moves to the CPU otherwise."""
         data = iter(input_fn())
         try:
             first = next(data)
         except StopIteration:
             return
+        owner = self._on_device(torch.device("cpu")) if on_cpu else self
         features0 = first[0] if isinstance(first, tuple) else first
-        forward, _ = self._final_forward_fn((features0, None))
+        forward, _ = owner._final_forward_fn((features0, None))
         for batch in itertools.chain([first], data):
-            features = to_device(batch[0] if isinstance(batch, tuple) else batch, self._device)
+            features = to_device(batch[0] if isinstance(batch, tuple) else batch, owner._device)
             with full_f32_matmul(), torch.no_grad():
                 predictions = self._head.predictions(forward(features).logits)
             yield {key: value.cpu() for key, value in predictions.items()}

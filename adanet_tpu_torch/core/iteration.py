@@ -15,14 +15,16 @@ candidate's forward, backward and update into one jitted program; here
    step reads them), and its mixture weights get the gradient of
    loss + complexity regularization; with `use_fused_combine` this is K1
    forward and K1's plain backward;
-4. one host read of every candidate's finite flags (the step's only
-   synchronisation) decides which optimizers step: a non-finite loss or
-   gradient skips both the parameters' and the optimizer state's update,
-   as the JAX step's `tree_where` does, and a non-finite subnetwork loss
-   marks it dead. A subnetwork that does not step also gets back the
+4. every optimizer steps, and a `tree_where` on the device keeps or
+   drops the step: a non-finite loss or gradient (or a dead subnetwork)
+   leaves the parameters, the optimizer's slots and counts and the
    buffers its training forward moved (batch-norm statistics, the
-   drop-path schedule), as the JAX step keeps the mutated collections
-   only when the step is finite;
+   drop-path schedule) as they were, as the JAX step's `tree_where`
+   does, and a non-finite subnetwork loss marks it dead. The flags, the
+   subnetworks' `step` and `dead`, stay on the device: a step reads
+   nothing on the host, so `train_steps` runs a window of K steps back
+   to back and the caller reads the counters once a window
+   (`host_counters`);
 5. each ensemble candidate's zero-debiased loss EMA is updated on the
    device (`core/candidate.py`), quarantining non-finite losses.
 
@@ -32,11 +34,17 @@ member, and the candidates' EMA tensors (`IterationState`).
 `state_payload` takes all of it, with the dropout generator's state, as
 checkpoint data, and `restore_state` loads such a payload onto the
 `init_state` of a freshly built `Iteration`, copying into the existing
-tensors so that the optimizers keep their parameters. A builder's
-optimizer factory takes the module's `(name, parameter)` pairs, so that
-a rule may go by name (weight decay on kernels only). Matrix products run with
-TF32 off. Bagging, the bf16 step policy, multi-step windows and
-RoundRobin placement come with later slices.
+tensors so that the optimizers keep their parameters; it reads the
+device counters, which happens where checkpoints are taken, at a
+window's end. A builder's optimizer factory takes the module's
+`(name, parameter)` pairs, so that a rule may go by name (weight decay
+on kernels only); an optimizer that keeps its step count on the host
+unless `capturable` (Adam and its kin) is made capturable on the card,
+so that the count stays on the device too. Matrix products run with
+TF32 off. With `step_compute_dtype` (`utils/precision.py`) the float
+features are cast to it at the step's boundary. Bagging (and with it the
+teachers' extra batches) and RoundRobin placement come with later
+slices.
 """
 
 from __future__ import annotations
@@ -62,8 +70,9 @@ from adanet_tpu_torch.core.frozen import (
 )
 from adanet_tpu_torch.ensemble.weighted import full_f32_matmul
 from adanet_tpu_torch.subnetwork.generator import Subnetwork
+from adanet_tpu_torch.utils import precision
 from adanet_tpu_torch.utils.batches import to_device
-from adanet_tpu_torch.utils.trees import tree_finite
+from adanet_tpu_torch.utils.trees import tree_finite, tree_where
 
 # Member references inside an ensemble spec: ("new", builder_name) for a
 # subnetwork trained this iteration, ("frozen", index) for a previous member.
@@ -73,12 +82,14 @@ _FROZEN = "frozen"
 
 @dataclasses.dataclass
 class SubnetworkTrainState:
-    """Train state for one candidate subnetwork."""
+    """Train state for one candidate subnetwork: `step` (int32) counts
+    the updates kept and `dead` (bool) marks a non-finite loss, both 0-d
+    tensors on the training device."""
 
     module: nn.Module
     optimizer: torch.optim.Optimizer
-    step: int = 0
-    dead: bool = False
+    step: torch.Tensor
+    dead: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -231,8 +242,8 @@ def restore_state(state: "IterationState", payload: Dict[str, Any], restore_gene
         _check_names("parameters of %r" % name, saved["parameter_names"], [n for n, _ in st.module.named_parameters()])
         st.module.load_state_dict(saved["module"])
         st.optimizer.load_state_dict(saved["optimizer"])
-        st.step = int(saved["step"])
-        st.dead = bool(saved["dead"])
+        st.step = torch.tensor(int(saved["step"]), dtype=torch.int32, device=st.step.device)
+        st.dead = torch.tensor(bool(saved["dead"]), device=st.dead.device)
     for name, est in state.ensembles.items():
         saved = payload["ensembles"][name]
         _check_names("mixture parameters of %r" % name, saved["parameter_names"], _params_names(est.params))
@@ -287,21 +298,79 @@ def _takes_generator(module) -> bool:
     return "generator" in inspect.signature(module.forward).parameters
 
 
-def _snapshot(tensors) -> List[Tuple[List[torch.Tensor], torch.Tensor]]:
-    """One flat copy of `tensors` per dtype: a few kernels for the
-    hundreds of buffers of a NASNet."""
-    groups: Dict[torch.dtype, List[torch.Tensor]] = {}
-    for t in tensors:
-        groups.setdefault(t.dtype, []).append(t)
-    return [(ts, torch.cat([t.detach().reshape(-1) for t in ts])) for ts in groups.values()]
+def _guarded(module: Optional[nn.Module], optimizer) -> List[Tuple[tuple, torch.Tensor]]:
+    """Every tensor an update may change, keyed, in a fixed order: the
+    optimizer's parameters, their slots and its groups' tensors (a
+    count), and the module's buffers (moved by the training forward)."""
+    out: List[Tuple[tuple, torch.Tensor]] = []
+    for g, group in enumerate(optimizer.param_groups):
+        for i, p in enumerate(group["params"]):
+            out.append((("param", g, i), p))
+            for key, value in sorted(optimizer.state.get(p, {}).items()):
+                if torch.is_tensor(value):
+                    out.append((("slot", g, i, key), value))
+        for key, value in sorted(group.items()):
+            if key != "params" and torch.is_tensor(value):
+                out.append((("group", g, key), value))
+    if module is not None:
+        out += [(("buffer", name), b) for name, b in module.named_buffers()]
+    return out
 
 
-def _restore(snapshot) -> None:
-    """Writes a `_snapshot` back into its tensors."""
-    with torch.no_grad():
-        for ts, flat in snapshot:
-            parts = flat.split([t.numel() for t in ts])
-            torch._foreach_copy_(ts, [p.view_as(t) for p, t in zip(parts, ts)])
+def _by_dtype(named) -> Dict[Tuple[Any, torch.dtype], List[Tuple[tuple, torch.Tensor]]]:
+    groups: Dict[Tuple[Any, torch.dtype], List[Tuple[tuple, torch.Tensor]]] = {}
+    for key, t in named:
+        groups.setdefault((t.device, t.dtype), []).append((key, t))
+    return groups
+
+
+def _flat(tensors) -> torch.Tensor:
+    return torch.cat([t.detach().reshape(-1) for t in tensors])
+
+
+class _Guard:
+    """Keeps or drops one update on the device: `_Guard(module,
+    optimizer)` takes one flat copy per (device, dtype) of what the
+    update may change (`_guarded`), a few kernels for the thousands of
+    tensors of a NASNet; after the update `keep(ok)` writes
+    `tree_where(ok, now, before)` back into the live tensors. A slot the
+    optimizer creates in its first step was zeros before it."""
+
+    def __init__(self, module: Optional[nn.Module], optimizer):
+        self._module, self._optimizer = module, optimizer
+        with torch.no_grad():
+            self._before = {
+                group: ([key for key, _ in items], [t.numel() for _, t in items], _flat([t for _, t in items]))
+                for group, items in _by_dtype(_guarded(module, optimizer)).items()
+            }
+
+    def _old(self, group, items) -> torch.Tensor:
+        """The flat copy of `items` from before the update."""
+        keys, sizes, flat = self._before.get(group, ([], [], None))
+        if keys == [key for key, _ in items]:
+            return flat
+        parts = dict(zip(keys, flat.split(sizes))) if flat is not None else {}
+        return torch.cat([parts.get(key, torch.zeros_like(t).reshape(-1)) for key, t in items])
+
+    def keep(self, ok: torch.Tensor) -> None:
+        """Leaves the update where `ok` (a 0-d bool tensor) holds, else
+        puts everything back as it was."""
+        with torch.no_grad():
+            for group, items in _by_dtype(_guarded(self._module, self._optimizer)).items():
+                now = [t for _, t in items]
+                (flat,) = tree_where(ok, [_flat(now)], [self._old(group, items)])
+                torch._foreach_copy_(now, [v.view_as(t) for v, t in zip(flat.split([t.numel() for t in now]), now)])
+
+
+def _counts_on_device(optimizer) -> None:
+    """Adam and its kin keep their step count on the host unless
+    `capturable`; on the card they are made capturable, so that the
+    count is a device tensor that `_Guard` keeps or drops with the rest
+    (the update is the same computation, with the bias corrections in
+    f32 on the device)."""
+    for group in optimizer.param_groups:
+        if "capturable" in group and any(p.is_cuda for p in group["params"]):
+            group["capturable"] = True
 
 
 class TrainLossContext:
@@ -342,6 +411,7 @@ class Iteration:
         previous_ensemble: Optional[FrozenEnsemble] = None,
         collect_summaries: bool = True,
         device=None,
+        step_compute_dtype=None,
     ):
         if not ensemble_specs:
             raise ValueError("An iteration needs at least one ensemble spec.")
@@ -354,6 +424,9 @@ class Iteration:
         self.collect_summaries = bool(collect_summaries)
         self.previous_ensemble = previous_ensemble
         self.device = resolve_device(device)
+        # The bf16 step policy (utils/precision.py): float features are
+        # cast to this dtype once, at the train step's boundary.
+        self.step_compute_dtype = precision.resolve_dtype(step_compute_dtype)
         self._spec_by_name = {s.name: s for s in self.ensemble_specs}
 
     # ------------------------------------------------------------------ init
@@ -371,8 +444,13 @@ class Iteration:
                 init(generator)
             self._graft_initial_variables(spec)
             module.to(self.device)
+            optimizer = spec.optimizer_fn(list(module.named_parameters()))
+            _counts_on_device(optimizer)
             sub_states[spec.name] = SubnetworkTrainState(
-                module=module, optimizer=spec.optimizer_fn(list(module.named_parameters()))
+                module=module,
+                optimizer=optimizer,
+                step=torch.zeros((), dtype=torch.int32, device=self.device),
+                dead=torch.zeros((), dtype=torch.bool, device=self.device),
             )
             with torch.no_grad():
                 sub_outs[spec.name] = module(features, training=False)
@@ -392,6 +470,8 @@ class Iteration:
                 )
             params = _as_parameters(params, self.device)
             optimizer = espec.optimizer_fn(_params_list(params)) if espec.optimizer_fn is not None else None
+            if optimizer is not None:
+                _counts_on_device(optimizer)
             ens_states[espec.name] = EnsembleTrainState(params=params, optimizer=optimizer)
             initial_ema = espec.initial_ema
             if initial_ema is not None and not math.isfinite(initial_ema):
@@ -489,14 +569,34 @@ class Iteration:
 
     def train_step(self, state: IterationState, batch):
         """One step over every candidate on a (features, labels) batch.
-        Returns (state, metrics), metrics as 0-d tensors."""
+        Returns (state, metrics), metrics as 0-d tensors. Nothing is read
+        on the host."""
         with full_f32_matmul():
             return self._train_step(state, batch)
 
+    def train_steps(self, state: IterationState, batches):
+        """K steps back to back, one a batch of `batches` (the JAX
+        `train_steps`, whose K steps are one `lax.scan`): no host read
+        between them, since a step reads none. Returns (state, the last
+        step's metrics); K single `train_step`s give the same state."""
+        metrics = None
+        for batch in batches:
+            state, metrics = self.train_step(state, batch)
+        return state, metrics
+
+    def host_counters(self, state: IterationState) -> Dict[str, Tuple[int, bool]]:
+        """Each subnetwork's (updates kept, dead), in one host read."""
+        names = list(state.subnetworks)
+        values = torch.stack(
+            [t for n in names for t in (state.subnetworks[n].step, state.subnetworks[n].dead.to(torch.int32))]
+        ).tolist() if names else []
+        return {n: (values[2 * i], bool(values[2 * i + 1])) for i, n in enumerate(names)}
+
     def _train_step(self, state: IterationState, batch):
         features, labels = to_device(batch, self.device)
+        if self.step_compute_dtype is not None:
+            features = precision.cast_floats(features, self.step_compute_dtype)
         metrics: Dict[str, Any] = {}
-        flags = []
 
         # 1) The frozen members, once for every candidate, and the
         #    distillation teachers from them.
@@ -509,16 +609,15 @@ class Iteration:
         for spec in self.subnetwork_specs:
             st = state.subnetworks[spec.name]
             kwargs = {"generator": state.generator} if spec.takes_generator else {}
-            buffers = list(st.module.buffers())
-            before = _snapshot(buffers) if buffers else None
+            guard = _Guard(st.module, st.optimizer)
             out = st.module(features, training=True, **kwargs)
             loss = spec.builder.build_subnetwork_loss(out, labels, self.head, context)
             if loss is None:
                 loss = self.head.loss(out.logits, labels)
             params = list(st.module.parameters())
             grads = _grads(loss, params)
-            flags += [torch.isfinite(loss), tree_finite(grads)]
-            sub_updates.append((st, params, grads, before))
+            finite = torch.isfinite(loss)
+            sub_updates.append((st, params, grads, guard, finite & tree_finite(grads) & ~st.dead, finite))
             metrics.update(self.builder_summary_metrics(spec, out, features, labels))
             sub_outs[spec.name] = _detached(out)
             metrics["subnetwork_loss/%s" % spec.name] = loss.detach()
@@ -536,8 +635,7 @@ class Iteration:
             if est.optimizer is not None:
                 params = _params_list(est.params)
                 grads = _grads(adanet_loss, params)
-                flags += [torch.isfinite(adanet_loss) & tree_finite(grads)]
-                ens_updates.append((est, params, grads))
+                ens_updates.append((est, params, grads, torch.isfinite(adanet_loss) & tree_finite(grads)))
             if espec.track_ema:
                 state.candidates[espec.name] = candidate_lib.update_candidate_state(
                     state.candidates[espec.name], adanet_loss, self.adanet_loss_decay
@@ -545,19 +643,17 @@ class Iteration:
             metrics["adanet_loss/%s" % espec.name] = adanet_loss.detach()
             metrics["ensemble_loss/%s" % espec.name] = loss.detach()
 
-        # 4) Step only what stayed finite: the step's one host read.
-        ok = torch.stack([f.to(self.device) for f in flags]).tolist()
-        for i, (st, params, grads, before) in enumerate(sub_updates):
-            loss_finite, grads_finite = ok[2 * i], ok[2 * i + 1]
-            if loss_finite and grads_finite and not st.dead:
-                _step(st.optimizer, params, grads)
-                st.step += 1
-            elif before is not None:
-                _restore(before)
-            st.dead = st.dead or not loss_finite
-        for j, (est, params, grads) in enumerate(ens_updates):
-            if ok[2 * len(sub_updates) + j]:
-                _step(est.optimizer, params, grads)
+        # 4) Every optimizer steps; what was not finite is put back on
+        #    the device.
+        for st, params, grads, guard, ok, finite in sub_updates:
+            _step(st.optimizer, params, grads)
+            guard.keep(ok)
+            st.step = st.step + ok.to(torch.int32)
+            st.dead = st.dead | ~finite
+        for est, params, grads, ok in ens_updates:
+            guard = _Guard(None, est.optimizer)
+            _step(est.optimizer, params, grads)
+            guard.keep(ok)
         state.iteration_step += 1
         return state, metrics
 
@@ -692,6 +788,7 @@ class IterationBuilder:
         adanet_loss_decay: float = 0.9,
         collect_summaries: bool = True,
         device=None,
+        step_compute_dtype=None,
     ):
         if not ensemblers:
             raise ValueError("At least one ensembler is required.")
@@ -703,6 +800,7 @@ class IterationBuilder:
         self._adanet_loss_decay = float(adanet_loss_decay)
         self._collect_summaries = bool(collect_summaries)
         self._device = resolve_device(device)
+        self._step_compute_dtype = precision.resolve_dtype(step_compute_dtype)
 
     def _ensembler_by_name(self, name: str):
         for ensembler in self._ensemblers:
@@ -817,4 +915,5 @@ class IterationBuilder:
             previous_ensemble=previous_ensemble,
             collect_summaries=self._collect_summaries,
             device=self._device,
+            step_compute_dtype=self._step_compute_dtype,
         )

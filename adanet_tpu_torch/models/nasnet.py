@@ -39,7 +39,13 @@ Flax module's training branch:
 - `remat` recomputes each cell in the backward (`torch.utils.checkpoint`);
   the recompute neither moves the statistics again nor draws new masks.
 
-Only the CIFAR stem is ported so far.
+The ImageNet stem (`stem_type="imagenet"`, NASNet-A Mobile and Large)
+is a 3 x 3 stride-2 VALID `conv0` and its batch norm, then two stride-2
+reduction cells `cell_stem_0` and `cell_stem_1` at 1/4 and 1/2 of the
+filters (at least 1), an 8x reduction before the main cells; the stem
+cells count in the drop-path depth schedule, as in the Flax module.
+`cifar_config`, `mobile_imagenet_config` and `large_imagenet_config` are
+the JAX package's presets.
 """
 
 from __future__ import annotations
@@ -162,7 +168,7 @@ class NasNetConfig:
     use_aux_head: bool = True
     aux_head_weight: float = 0.4
     total_training_steps: int = 937500
-    stem_type: str = "cifar"
+    stem_type: str = "cifar"  # or "imagenet"
     compute_dtype: Any = torch.bfloat16
     remat: bool = False
     # Route every separable conv through the fused kernel (K2,
@@ -175,6 +181,38 @@ class NasNetConfig:
 def cifar_config(**overrides) -> NasNetConfig:
     """NASNet-A (6@768) CIFAR preset: `NasNetConfig`'s defaults."""
     return dataclasses.replace(NasNetConfig(), **overrides)
+
+
+def mobile_imagenet_config(**overrides) -> NasNetConfig:
+    """NASNet-A Mobile ImageNet preset (reference: nasnet.py
+    mobile_imagenet_config via build_nasnet_mobile)."""
+    base = NasNetConfig(
+        num_classes=1001,
+        num_cells=12,
+        num_conv_filters=44,
+        stem_multiplier=1.0,
+        drop_path_keep_prob=1.0,
+        dense_dropout_keep_prob=0.5,
+        total_training_steps=250000,
+        stem_type="imagenet",
+    )
+    return dataclasses.replace(base, **overrides)
+
+
+def large_imagenet_config(**overrides) -> NasNetConfig:
+    """NASNet-A Large ImageNet preset (reference: nasnet.py
+    large_imagenet_config via build_nasnet_large)."""
+    base = NasNetConfig(
+        num_classes=1001,
+        num_cells=18,
+        num_conv_filters=168,
+        stem_multiplier=3.0,
+        drop_path_keep_prob=0.7,
+        dense_dropout_keep_prob=0.5,
+        total_training_steps=250000,
+        stem_type="imagenet",
+    )
+    return dataclasses.replace(base, **overrides)
 
 
 def calc_reduction_layers(num_cells: int, num_reduction_layers: int) -> List[int]:
@@ -588,21 +626,30 @@ class NasNetA(nn.Module):
         super().__init__()
         cfg = config
         self.config = cfg
-        if cfg.stem_type != "cifar":
-            raise NotImplementedError(
-                "stem_type %r: only the CIFAR stem is ported" % (cfg.stem_type,)
-            )
+        if cfg.stem_type not in ("cifar", "imagenet"):
+            raise ValueError("stem_type must be 'cifar' or 'imagenet', got %r" % (cfg.stem_type,))
+        num_stem_cells = 2 if cfg.stem_type == "imagenet" else 0
         h, w, c = (int(d) for d in input_shape)
         dtype = cfg.compute_dtype
         reduction_indices = calc_reduction_layers(cfg.num_cells, cfg.num_reduction_layers)
         aux_cell_index = reduction_indices[1] - 1 if len(reduction_indices) >= 2 else -1
-        total_num_cells = cfg.num_cells + cfg.num_reduction_layers
+        total_num_cells = cfg.num_cells + cfg.num_reduction_layers + num_stem_cells
         self.register_buffer("step", torch.zeros(()))
         self._aux_after = None
 
-        stem_filters = int(cfg.num_conv_filters * cfg.stem_multiplier)
-        self.stem_conv = _Conv(c, stem_filters, 3)
-        self.stem_bn = _DebiasedBatchNorm(stem_filters, dtype)
+        if num_stem_cells:
+            # ImageNet stem (reference: nasnet.py:260-286): a stride-2
+            # VALID conv halves the input; the stem cells follow below.
+            stem_filters = int(32 * cfg.stem_multiplier)
+            self.conv0 = _Conv(c, stem_filters, 3, 2, padding="VALID")
+            self.conv0_bn = _DebiasedBatchNorm(stem_filters, dtype)
+            self._stem = ("conv0", "conv0_bn")
+            h, w = (h - 3) // 2 + 1, (w - 3) // 2 + 1
+        else:
+            stem_filters = int(cfg.num_conv_filters * cfg.stem_multiplier)
+            self.stem_conv = _Conv(c, stem_filters, 3)
+            self.stem_bn = _DebiasedBatchNorm(stem_filters, dtype)
+            self._stem = ("stem_conv", "stem_bn")
         shapes: List[Optional[Shape]] = [None, (h, w, stem_filters)]
         self._cells: List[str] = []
 
@@ -631,6 +678,15 @@ class NasNetA(nn.Module):
             self._cells.append(name)
             shapes.append(cell.out_shape)
 
+        stem_scaling = 1.0 / cfg.filter_scaling_rate**num_stem_cells
+        for stem_num in range(num_stem_cells):
+            add_cell(
+                "reduction",
+                max(1, int(cfg.num_conv_filters * stem_scaling)),
+                2,
+                "cell_stem_%d" % stem_num,
+            )
+            stem_scaling *= cfg.filter_scaling_rate
         filter_scaling = 1.0
         for cell_num in range(cfg.num_cells):
             if cell_num in reduction_indices:
@@ -664,7 +720,8 @@ class NasNetA(nn.Module):
                 self.step.add_(1.0)
             train = _Train(progress=progress, stats=[])
         drop_path = train is not None and cfg.drop_path_keep_prob < 1.0
-        net = self.stem_bn(self.stem_conv(images, dtype), train)
+        conv, bn = (getattr(self, name) for name in self._stem)
+        net = bn(conv(images, dtype), train)
         outputs = [None, net]
         aux_logits = None
         for name in self._cells:

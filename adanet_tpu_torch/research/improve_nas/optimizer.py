@@ -14,12 +14,17 @@ optax's gradient transforms, in optax's order:
    the mask selects (coupled L2, after clipping; not AdamW);
 3. the rule, whose learning rate is the schedule at the rule's own
    update count; an update that is not applied (a skipped step) does
-   not advance it.
+   not advance it. The count is an int32 tensor on the parameters'
+   device and the schedule is computed from it there in f32, as optax
+   computes it, so that an update reads nothing on the host and the
+   train step's guard (`core/iteration.py`) keeps or drops the count
+   with the rest; `state_dict` holds it as an int.
 
 The rules follow optax, not torch's defaults: adagrad starts its sum of
 squares at 0.1 and adds eps 1e-7 under the root; rmsprop decays by 0.9
 and takes rsqrt(nu + 1e-8); adam adds eps 1e-8 outside the root;
-momentum is `optax.sgd(momentum=0.9)` (no nesterov, no dampening). Every
+momentum is `optax.sgd(momentum=0.9)` (no nesterov, no dampening). The
+slots are made at their initial values when the optimizer is. Every
 update is a few multi-tensor (`torch._foreach_*`) operations over all
 parameters, computed on the device without a host read.
 """
@@ -27,9 +32,9 @@ parameters, computed on the device without a host read.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Iterable, Optional, Sequence
 
-import numpy as np
 import torch
 
 #: optax's defaults.
@@ -43,27 +48,27 @@ RULES = ("adagrad", "adam", "momentum", "rmsprop", "sgd")
 @dataclasses.dataclass(frozen=True)
 class Rule:
     """One of optax's optimizers (`name` in `RULES`) at its defaults, with
-    its learning rate as a function of its update count."""
+    its learning rate as a function of its update count (a 0-d tensor)
+    returning a 0-d f32 tensor on the count's device."""
 
     name: str
-    learning_rate: Callable[[int], float]
+    learning_rate: Callable[[torch.Tensor], torch.Tensor]
 
 
-def constant_schedule(value: float) -> Callable[[int], float]:
-    return lambda count: float(value)
+def constant_schedule(value: float) -> Callable[[torch.Tensor], torch.Tensor]:
+    return lambda count: torch.full((), value, dtype=torch.float32, device=torch.as_tensor(count).device)
 
 
-def cosine_decay_schedule(init_value: float, decay_steps: int) -> Callable[[int], float]:
-    """`optax.cosine_decay_schedule` at alpha=0, in float32 as optax
-    computes it."""
+def cosine_decay_schedule(init_value: float, decay_steps: int) -> Callable[[torch.Tensor], torch.Tensor]:
+    """`optax.cosine_decay_schedule` at alpha=0, in float32 on the
+    count's device, in optax's order of operations."""
     if not decay_steps > 0:
         raise ValueError("The cosine_decay_schedule requires positive decay_steps, got %r." % (decay_steps,))
-    f32 = np.float32
 
-    def schedule(count: int) -> float:
-        count = f32(min(count, decay_steps))
-        cosine = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * count / f32(decay_steps)))
-        return float(f32(init_value) * cosine)
+    def schedule(count) -> torch.Tensor:
+        count = torch.clamp(torch.as_tensor(count), max=decay_steps).to(torch.float32)
+        cosine = 0.5 * (1.0 + torch.cos(math.pi * count / float(decay_steps)))
+        return init_value * cosine
 
     return schedule
 
@@ -93,12 +98,21 @@ def fn_with_name(
     return optimizer_fn
 
 
+#: Each rule's slots and their initial values.
+_SLOTS = {
+    "momentum": (("trace", 0.0),),
+    "adam": (("mu", 0.0), ("nu", 0.0)),
+    "adagrad": (("sum_of_squares", ADAGRAD_INITIAL),),
+    "rmsprop": (("nu", 0.0),),
+}
+
+
 class Chain(torch.optim.Optimizer):
     """optax.chain(clip_by_global_norm(clip_norm), add_decayed_weights(
     weight_decay, mask), rule) on `params`; `decay_mask[i]` says whether
     parameter i is decayed. A non-positive `clip_norm` or
     `weight_decay` leaves that transform out, as the JAX builder does.
-    The update count is `param_groups[0]["count"]`."""
+    The update count is `param_groups[0]["count"]`, an int32 tensor."""
 
     def __init__(
         self,
@@ -112,12 +126,31 @@ class Chain(torch.optim.Optimizer):
         if rule.name not in RULES:
             raise ValueError("Invalid optimizer '{}'".format(rule.name))
         super().__init__(params, dict(count=0))
+        self.param_groups[0]["count"] = self._count(0)
         self.rule = rule
         self.clip_norm = float(clip_norm)
         self.weight_decay = float(weight_decay)
         if len(decay_mask) != len(params):
             raise ValueError("decay_mask has %d entries for %d parameters" % (len(decay_mask), len(params)))
         self._decayed = [i for i, keep in enumerate(decay_mask) if keep]
+        for key, init in _SLOTS.get(rule.name, ()):
+            self._slots(key, params, init)
+
+    def _count(self, value: int) -> torch.Tensor:
+        params = self.param_groups[0]["params"]
+        return torch.tensor(int(value), dtype=torch.int32, device=params[0].device if params else None)
+
+    def state_dict(self):
+        """torch's `state_dict`, the count as an int."""
+        out = super().state_dict()
+        for group in out["param_groups"]:
+            group["count"] = int(group["count"])
+        return out
+
+    def load_state_dict(self, state_dict) -> None:
+        """torch's `load_state_dict`, the count back on the device."""
+        super().load_state_dict(state_dict)
+        self.param_groups[0]["count"] = self._count(self.param_groups[0]["count"])
 
     def _slots(self, key: str, params, init: float):
         out = []
@@ -161,9 +194,10 @@ class Chain(torch.optim.Optimizer):
             torch._foreach_add_(mu, grads, alpha=1.0 - ADAM_B1)
             torch._foreach_mul_(nu, ADAM_B2)
             torch._foreach_addcmul_(nu, grads, grads, value=1.0 - ADAM_B2)
-            f32 = np.float32
-            bc1 = float(f32(1) - f32(ADAM_B1) ** f32(count + 1))
-            bc2 = float(f32(1) - f32(ADAM_B2) ** f32(count + 1))
+            # optax's bias corrections, 1 - b ** (count + 1), in f32.
+            t = (count + 1).to(torch.float32)
+            bc1 = 1.0 - torch.pow(torch.full_like(t, ADAM_B1), t)
+            bc2 = 1.0 - torch.pow(torch.full_like(t, ADAM_B2), t)
             denom = torch._foreach_div(nu, bc2)
             torch._foreach_sqrt_(denom)
             torch._foreach_add_(denom, ADAM_EPS)
@@ -183,5 +217,6 @@ class Chain(torch.optim.Optimizer):
             torch._foreach_sqrt_(scale)
             torch._foreach_reciprocal_(scale)
             updates = torch._foreach_mul(scale, grads)
-        torch._foreach_add_(params, updates, alpha=-self.rule.learning_rate(count))
+        # optax's scale_by_learning_rate, then apply_updates.
+        torch._foreach_add_(params, torch._foreach_mul(updates, -self.rule.learning_rate(count)))
         group["count"] = count + 1

@@ -14,7 +14,9 @@ module never imports flax. Layout changes happen here and nowhere else:
   same name (`nasnet.step` in a NASNet subnetwork).
 
 A Flax path `a/b/kernel` becomes the key `a.b.weight`; any other leaf
-keeps its name. `convert_cell_params` carries the fused cell's parameter
+keeps its name. The port's modules carry the Flax names, so NASNet's
+ImageNet stem (`conv0`, `conv0_bn`, `cell_stem_<i>` with its
+`reduce_prev`) maps by path like every other layer. `convert_cell_params` carries the fused cell's parameter
 tree (`adanet_tpu/ops/cell_kernels.py: init_cell_params`) across the
 same way, keeping its structure, and `convert_simple_dnn` a simple_dnn
 subnetwork's variables (a builder's `initial_variables` in the port).

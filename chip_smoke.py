@@ -128,12 +128,37 @@
    ms a save split into device-to-host, serialise, digest and write
    with fsync, ms a restore, a save's share of a step, the deviations,
    the phase's seconds, the card line).
+17. `windows_vs_steps`: the gate model (3 cells, 8 filters, bf16, K2
+   on) over 2 iterations x 16 steps in windows of 8 with device prefetch
+   (W), against two runs of single steps without prefetch (A, B): W's
+   `frozen-1.pt` bitwise equal to A's if B's is, else within twice B's
+   deviation; equal launch counts; ms a step of each. This phase and
+   phase 16 run with cuDNN held to its deterministic algorithms
+   (`deterministic_cudnn`), under which their runs are bitwise equal.
+18. `nasnet_gate_bf16`: `nasnet_gate` under the bf16 step policy and
+   device prefetch (tests/test_convergence.py::
+   test_nasnet_family_converges_bf16_steps): accuracy >= 0.88, exact
+   counts, no prefetcher left open.
+19. Fifth main path, NASNet-A Mobile (`train_nasnet_mobile`): the
+   ImageNet stem, 12 cells, 44 filters, 1001 classes, 224 x 224 x 3
+   images from --seed, batch 32, through `TPUEstimator` (windows of 8,
+   bf16 steps, device prefetch, a checkpoint every 8 steps), 2 x 16
+   steps, then `evaluate` and `predict` of 32 + 32 + 7 rows padded to 32
+   (against unpadded); exact K1 and K2 counts (160 K2 a member
+   forward); `train_nasnet_mobile:` prints ms a step by the host clock
+   and CUDA events over iteration 1's first window, device busy ms, the
+   idle share and kernels a step over its second (`utils.device_timing`),
+   the peak memory and a 224 x 224 batch's copy to the card, pinned and
+   pageable. K1 is then held at [1|2, 32, 1001] forward and backward,
+   and K2 forward and gradient at every (shape, batch) this path
+   launches (batches 32 and 7, C = 11 to 176).
 
 Prints the per-shape K2 and K3 timings, the served latency and
 throughput, the `train:`, `train_nasnet:`, `resume_nasnet:` and
 `nasnet_gate:` lines, a `kernels` JSON line (K1's row also with its
 launches on the search paths, K2's with its launches on the NASNet
-training paths, `train_launches`; both with `resume_launches`),
+training paths, `train_launches`; both with `resume_launches`,
+`nasnet_gate_bf16_launches` and `nasnet_mobile_launches`),
 and as its last line `{"ok": true, "device": {...}}`. Any failure raises
 and exits non-zero.
 """
@@ -223,6 +248,20 @@ GATE_TRAIN, GATE_TEST, GATE_STEPS = 8192, 2048, 300
 # nasnet_train_vs_cpu: the gate model (DynamicGenerator, f32, drop-path
 # off), steps per iteration and batch.
 NASNET_PARITY_STEPS, NASNET_PARITY_BATCH = 4, 32
+# train_nasnet_mobile: NASNet-A Mobile (12 cells, 44 filters, the ImageNet
+# stem, 1001 classes; the improve_nas defaults otherwise, ADAPTIVE) on
+# 224 x 224 x 3 images drawn from --seed, batch 32, 2 iterations x 16
+# steps through TPUEstimator in windows of 8, a checkpoint every 8, bf16
+# steps and device prefetch; then predict over a ragged stream of
+# 32 + 32 + 7 rows padded to 32. Iteration 1's first window is timed,
+# its second traced (windows 2 and 3 of the run).
+MOBILE_SIZE, MOBILE_CLASSES, MOBILE_BATCH, MOBILE_EXAMPLES = 224, 1001, 32, 128
+MOBILE_STEPS, MOBILE_WINDOW, MOBILE_EVAL_BATCHES = 16, 8, 2
+MOBILE_PREDICT_ROWS = (32, 32, 7)
+MOBILE_TIMED_WINDOW, MOBILE_TRACED_WINDOW = 2, 3
+# windows_vs_steps: the gate model, 2 iterations x WINDOWS_STEPS, windows
+# of 8 with device prefetch against single steps without.
+WINDOWS_STEPS = 16
 # nasnet_train_vs_cpu: one step's gradient, card against CPU, in parts of
 # its norm: as run (K2 on; measured up to 2.3e-3, the relu and max-pool
 # switches), and with the CPU's switches replayed on the card (K2 off).
@@ -513,8 +552,8 @@ def check_combine(gen):
     return dict(worst), cases
 
 
-def check_search_combine(n, use_bias, gen, batch=TRAIN_BATCH):
-    """K1 as the search's ensemble update calls it, at [N, batch, 10] f32
+def check_search_combine(n, use_bias, gen, batch=TRAIN_BATCH, classes=10):
+    """K1 as the search's ensemble update calls it, at [N, batch, classes] f32
     with scalar weights: through the members form with one 0-d
     weight per member and with the stacked [N] weights that
     `_CombineMembers` hands on, then under autograd (weights, bias and
@@ -526,11 +565,11 @@ def check_search_combine(n, use_bias, gen, batch=TRAIN_BATCH):
 
     from adanet_tpu_torch.ops import ensemble_kernels as ek
 
-    members, weights, bias = combine_inputs(n, batch, 10, torch.float32, False, use_bias, gen)
+    members, weights, bias = combine_inputs(n, batch, classes, torch.float32, False, use_bias, gen)
     stacked_w = torch.stack(weights)
     want = ek.combine_reference(torch.stack(members), stacked_w, bias)
     tol = combine_tolerance(want)
-    name = "K1 search [%d, %d, 10] bias=%s" % (n, batch, use_bias)
+    name = "K1 search [%d, %d, %d] bias=%s" % (n, batch, classes, use_bias)
     err = 0.0
     for form, w in (("one weight a member", weights), ("stacked [N]", stacked_w)):
         got = ek.fused_weighted_combine_members(members, w, bias)
@@ -579,7 +618,8 @@ def time_combine(gen):
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [(NUM_MEMBERS, max(BUCKETS), 10, "float32", False, False),
-             (NUM_MEMBERS, 1, 10, "float32", False, False)]
+             (NUM_MEMBERS, 1, 10, "float32", False, False),
+             (NUM_MEMBERS, MOBILE_BATCH, MOBILE_CLASSES, "float32", False, False)]
     for n, b, c, dtype_name in COMBINE_BYTE_BOUND:
         cases += [(n, b, c, dtype_name, False, False), (n, b, c, dtype_name, True, True)]
     rows = []
@@ -1457,7 +1497,11 @@ def search_parts():
     from adanet_tpu_torch.examples import simple_dnn
 
     def adam(params):
-        return torch.optim.Adam(params, lr=1e-3, eps=1e-8)
+        # torch's fused Adam, one arithmetic on the card and the CPU
+        # (`train_vs_cpu`): the Iteration makes Adam capturable on the card,
+        # whose foreach form computes the bias corrections in f32 there
+        # where the CPU's computes them in f64 on the host.
+        return torch.optim.Adam(params, lr=1e-3, eps=1e-8, fused=True)
 
     generator = simple_dnn.Generator(optimizer_fn=adam, layer_size=LAYER_SIZE, initial_num_layers=1, seed=0)
     ensembler = ComplexityRegularizedEnsembler(optimizer=adam, use_fused_combine=True)
@@ -1824,6 +1868,25 @@ def train_nasnet(model_dir):
     return counts, stats
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN restricted to its deterministic algorithms within the block.
+    The phases that hold runs against each other (`resume_nasnet`,
+    `windows_vs_steps`) run under it, and their runs are then bitwise
+    equal: with cuDNN free to pick an algorithm that sums with atomics,
+    two uninterrupted NASNet runs part by 0.086-0.236 in a frozen
+    parameter (H100 80GB HBM3, 700 W), and a third run can land past
+    twice that by chance."""
+    import torch
+
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
 def _tree_deviation(got, want, path=""):
     """Max |got - want| over the tensors and floats of two payload trees
     (0.0 when bitwise equal); a difference of structure, dtype, or of
@@ -2114,11 +2177,14 @@ def _trainer_sigterm(model_dir):
                 second_secs=second_secs, metrics=json.loads(text["out"].strip().splitlines()[-1]))
 
 
-def nasnet_gate(model_dir):
+def nasnet_gate(model_dir, label="nasnet_gate", **estimator_kwargs):
     """The flagship-family gate on the card: the gate's NASNet (3 cells, 8
     filters, bf16, K2 and K1 on) on 8192 digits for 300 steps, evaluated
     on 2048: accuracy >= 0.88 and above the linear baseline; the launch
-    counts exact. Returns (counts, numbers, K2's shapes a forward)."""
+    counts exact. `estimator_kwargs` go to the Estimator (the
+    `nasnet_gate_bf16` phase: the bf16 step policy and device prefetch,
+    tests/test_convergence.py::test_nasnet_family_converges_bf16_steps).
+    Returns (counts, numbers, K2's shapes a forward)."""
     import torch
 
     from adanet_tpu_torch import ops
@@ -2138,7 +2204,7 @@ def nasnet_gate(model_dir):
     estimator = Estimator(
         MultiClassHead(10), SimpleGenerator([builder]), max_iteration_steps=GATE_STEPS, max_iterations=1,
         ensemblers=[ComplexityRegularizedEnsembler(optimizer=adam, use_fused_combine=True)],
-        model_dir=os.path.join(model_dir, "gate"), log_every_steps=0, device="cuda",
+        model_dir=os.path.join(model_dir, label), log_every_steps=0, device="cuda", **estimator_kwargs,
     )
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2153,14 +2219,245 @@ def nasnet_gate(model_dir):
     expected = dict(copy=0, cell=0, sepconv=_member_forwards(1, GATE_STEPS, eval_batches, 1) * len(shapes),
                     combine=GATE_STEPS + eval_batches)
     if counts != expected:
-        raise AssertionError("nasnet_gate: launches %s, expected %s" % (counts, expected))
+        raise AssertionError("%s: launches %s, expected %s" % (label, counts, expected))
     if not (metrics["accuracy"] >= GATE_ACCURACY and metrics["accuracy"] > LINEAR_BASELINE_ACCURACY):
-        raise AssertionError("nasnet_gate: accuracy %s below the gate %s" % (metrics, GATE_ACCURACY))
+        raise AssertionError("%s: accuracy %s below the gate %s" % (label, metrics, GATE_ACCURACY))
+    if estimator._open_prefetchers:
+        raise AssertionError("%s: prefetchers left open" % label)
     out = dict(accuracy=metrics["accuracy"], top_5_accuracy=metrics["top_5_accuracy"], loss=metrics["loss"],
                steps=estimator.latest_global_step(), ms_per_step=train_secs / GATE_STEPS * 1e3, seconds=secs,
-               launches=counts, card=card_line())
-    print("nasnet_gate: " + json.dumps(out))
+               launches=counts, estimator=sorted(estimator_kwargs), card=card_line())
+    print("%s: %s" % (label, json.dumps(out)))
     return counts, out, shapes
+
+
+def train_nasnet_mobile(model_dir, seed):
+    """NASNet-A Mobile at full width on the card under the throughput
+    configuration: `TPUEstimator` (windows of 8, bf16 steps, device
+    prefetch, a checkpoint every 8 steps) over 2 iterations x 16 steps of
+    224 x 224 x 3 images, 1001 classes, then `evaluate` and `predict` of
+    a ragged stream padded to 32 (and unpadded, to compare). Launch
+    counts zeroed just before and read just after must be exact.
+    Iteration 1's first window is timed (host clock and CUDA events) and
+    its second profiled (`utils.device_timing`). Returns (launch counts,
+    the `train_nasnet_mobile:` numbers, K2's (shape, batch) cases)."""
+    import torch
+
+    from adanet_tpu_torch import ops
+    from adanet_tpu_torch.core import TPUEstimator
+    from adanet_tpu_torch.core.heads import MultiClassHead
+    from adanet_tpu_torch.ensemble.weighted import ComplexityRegularizedEnsembler
+    from adanet_tpu_torch.models import mobile_imagenet_config
+    from adanet_tpu_torch.research.improve_nas import fake_data, improve_nas, optimizer
+    from adanet_tpu_torch.utils import device_timing
+
+    # NASNet-A Mobile (checked against `mobile_imagenet_config` below),
+    # ADAPTIVE, K2 on, the improve_nas defaults otherwise.
+    hparams = improve_nas.Hparams(
+        num_cells=12, num_conv_filters=44, stem_multiplier=1.0, drop_path_keep_prob=1.0,
+        dense_dropout_keep_prob=0.5, use_aux_head=True, stem_type="imagenet", use_pallas_sep_conv=True,
+        knowledge_distillation=improve_nas.KnowledgeDistillation.ADAPTIVE,
+        total_training_steps=2 * MOBILE_STEPS,
+    )
+    generator = improve_nas.Generator(
+        optimizer.fn_with_name("momentum", "cosine", cosine_decay_steps=MOBILE_STEPS), hparams, seed=seed,
+        num_classes=MOBILE_CLASSES,
+    )
+    shape = (MOBILE_SIZE, MOBILE_SIZE, 3)
+    module = improve_nas.Builder(None, hparams).build_subnetwork(MOBILE_CLASSES, input_shape=shape)
+    preset = mobile_imagenet_config(total_training_steps=2 * MOBILE_STEPS, use_pallas_sep_conv=True)
+    if module.config != preset:
+        raise AssertionError("train_nasnet_mobile: %s is not the preset %s" % (module.config, preset))
+    sep_shapes = module.nasnet.sepconv_launch_shapes()
+    provider = fake_data.FakeImageProvider(
+        num_examples=MOBILE_EXAMPLES, image_size=MOBILE_SIZE, num_classes=MOBILE_CLASSES, batch_size=MOBILE_BATCH,
+        seed=seed,
+    )
+    windows = []
+
+    class Timed(TPUEstimator):
+        def _build_iteration(self, iteration_number, sample_batch):
+            iteration = super()._build_iteration(iteration_number, sample_batch)
+            run = iteration.train_steps
+
+            def timed(state, batches):
+                record = dict(iteration=iteration_number, steps=len(batches))
+                index = len(windows)
+                windows.append(record)
+                if index == MOBILE_TRACED_WINDOW:
+                    out = {}
+                    secs, kernels = device_timing.time_steps_on_device(
+                        lambda: out.update(result=run(state, batches)))
+                    record.update(device_busy_ms=secs * 1e3, kernels=kernels)
+                    result = out["result"]
+                else:
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    host0 = time.perf_counter()
+                    start.record()
+                    result = run(state, batches)
+                    end.record()
+                    torch.cuda.synchronize()
+                    record.update(host_ms=(time.perf_counter() - host0) * 1e3, event_ms=start.elapsed_time(end))
+                record["losses"] = {k: v for k, v in result[1].items() if "loss" in k}
+                return result
+
+            iteration.train_steps = timed
+            return iteration
+
+    def sgd(params):
+        return torch.optim.SGD(params, lr=0.01)
+
+    estimator = Timed(
+        MultiClassHead(MOBILE_CLASSES), generator, max_iteration_steps=MOBILE_STEPS, max_iterations=2,
+        ensemblers=[ComplexityRegularizedEnsembler(optimizer=sgd, use_fused_combine=True)], force_grow=True,
+        model_dir=os.path.join(model_dir, "mobile"), log_every_steps=0, random_seed=seed, device="cuda",
+        iterations_per_loop=MOBILE_WINDOW, step_compute_dtype="bfloat16", prefetch_buffer=2,
+        prefetch_to_device=True, save_checkpoint_steps=MOBILE_WINDOW, predict_batch_size=MOBILE_BATCH,
+    )
+    images, labels = provider._images, provider._labels
+
+    def ragged():
+        start = 0
+        for rows in MOBILE_PREDICT_ROWS:
+            yield {"image": images[start:start + rows]}, labels[start:start + rows]
+            start += rows
+
+    def test_input_fn():
+        for i in range(MOBILE_EVAL_BATCHES):
+            rows = slice(i * MOBILE_BATCH, (i + 1) * MOBILE_BATCH)
+            yield {"image": images[rows]}, labels[rows]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    estimator.train(provider.get_input_fn("train"), max_steps=10**6)
+    torch.cuda.synchronize()
+    train_secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    metrics = estimator.evaluate(test_input_fn)
+    padded = list(estimator.predict(ragged))
+    plain = list(estimator.predict(ragged, predict_batch_size=0))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if estimator._open_prefetchers:
+        raise AssertionError("train_nasnet_mobile: prefetchers left open")
+    steps = estimator.latest_global_step()
+    losses = torch.stack([v.float() for w in windows for v in w.pop("losses").values()]).tolist()
+    if not all(map(math.isfinite, losses)) or not math.isfinite(metrics["loss"]):
+        raise AssertionError("train_nasnet_mobile: non-finite losses %s, %s" % (losses, metrics))
+    predict_forwards = 2 * len(MOBILE_PREDICT_ROWS) * 2  # padded and plain, two members
+    forwards = _member_forwards(2, MOBILE_STEPS, MOBILE_EVAL_BATCHES, 2) + predict_forwards
+    # K1: one an ensemble update a candidate a step (1 at t = 0; the
+    # carried-over winner and the grown one at t = 1) and the ADAPTIVE
+    # teacher at t = 1; one an eval batch and a predict batch.
+    expected = dict(copy=0, cell=0, sepconv=forwards * len(sep_shapes),
+                    combine=MOBILE_STEPS * (1 + 3) + MOBILE_EVAL_BATCHES + 2 * len(MOBILE_PREDICT_ROWS))
+    if steps != 2 * MOBILE_STEPS or counts != expected or len(windows) != 2 * MOBILE_STEPS // MOBILE_WINDOW:
+        raise AssertionError("train_nasnet_mobile: %d steps, %d windows, launches %s, expected %s"
+                             % (steps, len(windows), counts, expected))
+    predict_err = 0.0
+    for rows, a, b in zip(MOBILE_PREDICT_ROWS, padded, plain):
+        if a["logits"].shape != (rows, MOBILE_CLASSES) or b["logits"].shape != a["logits"].shape:
+            raise AssertionError("train_nasnet_mobile: predict rows %s / %s, expected %d"
+                                 % (a["logits"].shape, b["logits"].shape, rows))
+        # Other batch sizes may take other cuDNN algorithms: bf16 sums in
+        # another order, so at a tolerance of the logits' scale.
+        predict_err = max(predict_err, check_close("padded predict", a["logits"], b["logits"],
+                                                   2e-2 * max(1.0, float(b["logits"].abs().max()))))
+    for t in range(2):
+        if not os.path.exists(os.path.join(estimator.model_dir, "architecture-%d.json" % t)):
+            raise AssertionError("train_nasnet_mobile: architecture-%d.json was not written" % t)
+    timed, traced = windows[MOBILE_TIMED_WINDOW], windows[MOBILE_TRACED_WINDOW]
+    host_ms = timed["host_ms"] / MOBILE_WINDOW
+    busy_ms = traced["device_busy_ms"] / MOBILE_WINDOW
+    batch = torch.from_numpy(images[:MOBILE_BATCH])
+    pinned = batch.pin_memory()
+    stats = dict(
+        steps=steps,
+        k2_launches_per_member_forward=len(sep_shapes),
+        search_ms_per_step=train_secs / steps * 1e3,
+        train_secs=train_secs,
+        window_host_ms_per_step=host_ms,
+        window_event_ms_per_step=timed["event_ms"] / MOBILE_WINDOW,
+        device_busy_ms_per_step=busy_ms,
+        device_idle_share=1.0 - busy_ms / host_ms,
+        kernels_per_step=traced["kernels"] / MOBILE_WINDOW,
+        windows=windows,
+        max_memory_allocated_bytes=peak,
+        h2d_batch_ms_pinned=cuda_time_ms(lambda: pinned.to("cuda", non_blocking=True), iters=10),
+        h2d_batch_ms_pageable=cuda_time_ms(lambda: batch.to("cuda"), iters=10),
+        h2d_batch_mbytes=batch.numel() * 4 / 1e6,
+        first_losses=losses[:4],
+        last_losses=losses[-4:],
+        accuracy=metrics["accuracy"],
+        loss=metrics["loss"],
+        best_ensemble=metrics["best_ensemble"],
+        padded_predict_max_abs_err=predict_err,
+        launches=counts,
+        card=card_line(),
+    )
+    print("train_nasnet_mobile: " + json.dumps(stats))
+    cases = {(s, MOBILE_BATCH) for s in sep_shapes} | {(s, MOBILE_PREDICT_ROWS[-1]) for s in sep_shapes}
+    return counts, stats, cases
+
+
+def windows_vs_steps(model_dir):
+    """Windows leave results as they are, on the card: the gate's NASNet
+    model (3 cells, 8 filters, bf16, K2 on) over 2 iterations x 16 steps
+    with `iterations_per_loop=8` and device prefetch (W), against two runs
+    of single steps without prefetch (A, B). W's `frozen-1.pt` equals
+    A's bitwise if B's does, else deviates from it by at most twice B's
+    deviation (`resume_nasnet`'s reckoning); the launch counts of all
+    three are equal. Prints ms a step of each (a reading, not a claim).
+    Returns the numbers."""
+    import torch
+
+    from adanet_tpu_torch import ops
+    from adanet_tpu_torch.core import checkpoint as ckpt
+    from adanet_tpu_torch.core.estimator import Estimator
+    from adanet_tpu_torch.core.heads import MultiClassHead
+    from adanet_tpu_torch.ensemble.weighted import ComplexityRegularizedEnsembler
+    from adanet_tpu_torch.examples.synthetic_digits import image_input_fn, make_dataset
+    from adanet_tpu_torch.research.improve_nas import improve_nas, optimizer
+
+    xtr, ytr = make_dataset(TRAIN_BATCH * WINDOWS_STEPS, seed=7)
+
+    def adam(params):
+        return torch.optim.Adam(params, lr=1e-3, eps=1e-8)
+
+    def run(name, **kwargs):
+        estimator = Estimator(
+            MultiClassHead(10), improve_nas.Generator(optimizer.fn_with_name("adam"), nasnet_gate_hparams(), seed=0),
+            max_iteration_steps=WINDOWS_STEPS, max_iterations=2,
+            ensemblers=[ComplexityRegularizedEnsembler(optimizer=adam, use_fused_combine=True)], force_grow=True,
+            model_dir=os.path.join(model_dir, "windows", name), log_every_steps=0, device="cuda", **kwargs,
+        )
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        estimator.train(image_input_fn(xtr, ytr, TRAIN_BATCH), max_steps=10**6)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return (ops.launch_counts(), ckpt.restore_payload(estimator.model_dir, "frozen-1.pt"),
+                secs / (2 * WINDOWS_STEPS) * 1e3)
+
+    single_a = run("single_a")
+    windowed = run("windowed", iterations_per_loop=8, prefetch_buffer=2, prefetch_to_device=True)
+    single_b = run("single_b")
+    spread = _tree_deviation(single_b[1], single_a[1])
+    deviation = _tree_deviation(windowed[1], single_a[1])
+    if single_a[0] != windowed[0] or single_b[0] != windowed[0]:
+        raise AssertionError("windows_vs_steps: launches %s, %s, %s" % (single_a[0], windowed[0], single_b[0]))
+    if deviation > 2 * spread:
+        raise AssertionError("windows_vs_steps: windows deviate by %g from single steps, whose spread is %g"
+                             % (deviation, spread))
+    out = dict(steps=2 * WINDOWS_STEPS, launches=windowed[0], single_steps_spread=spread,
+               windows_deviation=deviation, windows_deviation_from_second=_tree_deviation(windowed[1], single_b[1]),
+               bitwise=deviation == 0.0,
+               single_ms_per_step=[single_a[2], single_b[2]], windowed_ms_per_step=windowed[2], card=card_line())
+    print("windows_vs_steps: " + json.dumps(out))
+    return out
 
 
 def check_train_sepconv(cases, gen):
@@ -2299,7 +2596,8 @@ def _nasnet_parity_run(device, batches, input_shape, use_pallas_sep_conv):
     from adanet_tpu_torch.research.improve_nas import improve_nas, optimizer
 
     def adam(params):
-        return torch.optim.Adam(params, lr=1e-3, eps=1e-8)
+        # Fused: one arithmetic on the card and the CPU (see `search_parts`).
+        return torch.optim.Adam(params, lr=1e-3, eps=1e-8, fused=True)
 
     generator = improve_nas.DynamicGenerator(
         optimizer.fn_with_name("momentum", "cosine", cosine_decay_steps=NASNET_PARITY_STEPS),
@@ -2484,13 +2782,22 @@ def main(argv=None):
         train_counts, _ = train_search(model_dir)
         train_vs_cpu()
         nasnet_counts, _ = train_nasnet(model_dir)
-        resume_counts, _ = resume_nasnet(model_dir)
+        with deterministic_cudnn():
+            resume_counts, _ = resume_nasnet(model_dir)
         gate_counts, _, gate_shapes = nasnet_gate(model_dir)
         _, parity_cases = nasnet_train_vs_cpu()
+        with deterministic_cudnn():
+            windows_vs_steps(model_dir)
+        gate_bf16_counts, _, _ = nasnet_gate(model_dir, "nasnet_gate_bf16", step_compute_dtype="bfloat16",
+                                             prefetch_buffer=2, prefetch_to_device=True)
+        mobile_counts, _, mobile_cases = train_nasnet_mobile(model_dir, args.seed)
+        for n in SEARCH_COMBINE_MEMBERS:
+            check_search_combine(n, False, rng, batch=MOBILE_BATCH, classes=MOBILE_CLASSES)
         train_cases = (
             {(shape, NASNET_BATCH, "bfloat16") for shape in sep_shapes}
             | {(shape, TRAIN_BATCH, "bfloat16") for shape in gate_shapes}
             | {(shape, batch, "float32") for shape, batch in parity_cases}
+            | {(shape, batch, "bfloat16") for shape, batch in mobile_cases}
         )
         train_errors = check_train_sepconv(train_cases, rng)
         errors["sepconv"] = max(errors["sepconv"], train_errors["forward_float32"], train_errors["forward_bfloat16"])
@@ -2530,10 +2837,14 @@ def main(argv=None):
             kernels[-1]["nasnet_train_launches"] = nasnet_counts["combine"]
             kernels[-1]["nasnet_gate_launches"] = gate_counts["combine"]
             kernels[-1]["resume_launches"] = resume_counts["combine"]
+            kernels[-1]["nasnet_gate_bf16_launches"] = gate_bf16_counts["combine"]
+            kernels[-1]["nasnet_mobile_launches"] = mobile_counts["combine"]
         if name == "sepconv":
             kernels[-1]["train_launches"] = nasnet_counts["sepconv"]
             kernels[-1]["nasnet_gate_launches"] = gate_counts["sepconv"]
             kernels[-1]["resume_launches"] = resume_counts["sepconv"]
+            kernels[-1]["nasnet_gate_bf16_launches"] = gate_bf16_counts["sepconv"]
+            kernels[-1]["nasnet_mobile_launches"] = mobile_counts["sepconv"]
             kernels[-1]["train_grad_max_abs_err"] = {
                 k: v for k, v in train_errors.items() if k.startswith("grad")}
     print("copy_vs_clone: " + json.dumps({key: rows["copy"][key] for key in (

@@ -11,6 +11,9 @@ This file imports no jax, which the card's machine does not have, and
   within atol 1e-4 x max(1, |value|), and one K1 launch per candidate a
   step.
 - K2's gradient through `_FusedSepConv` against plain autograd.
+- `DevicePrefetchIterator` on the card: batches copied through pinned
+  memory on its side stream arrive equal to the source, on the card,
+  and a window of steps fed by it equals single steps without it.
 """
 
 import pytest
@@ -30,7 +33,9 @@ from torch_port_common import require_cuda
 
 
 def _adam(params):
-    return torch.optim.Adam(params, lr=1e-3, eps=1e-8)
+    # Fused: one arithmetic on the card (where the Iteration makes Adam
+    # capturable) and the CPU.
+    return torch.optim.Adam(params, lr=1e-3, eps=1e-8, fused=True)
 
 
 def _steps(device, batches):
@@ -84,3 +89,37 @@ def test_sepconv_gradient_on_the_card():
         grads.append(torch.autograd.grad(out.square().sum(), inputs))
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * max(1.0, float(want.abs().max())))
+
+
+@pytest.mark.cuda
+def test_device_prefetch_on_the_card():
+    require_cuda()
+    import numpy as np
+
+    from adanet_tpu_torch.utils.prefetch import DevicePrefetchIterator
+
+    x, y = make_dataset(64, seed=3)
+    batches = list(input_fn(x, y, 16)())
+    got = list(DevicePrefetchIterator(iter(batches), buffer_size=2, device="cuda"))
+    assert len(got) == len(batches)
+    for (features, labels), (want_features, want_labels) in zip(got, batches):
+        assert features["x"].is_cuda and labels.is_cuda
+        np.testing.assert_array_equal(features["x"].cpu().numpy(), want_features["x"])
+        np.testing.assert_array_equal(labels.cpu().numpy(), want_labels)
+    factory = IterationBuilder(
+        MultiClassHead(10), [ComplexityRegularizedEnsembler(optimizer=_adam, use_fused_combine=True)],
+        [GrowStrategy()], device="cuda",
+    )
+    states = []
+    for prefetch in (False, True):
+        generator = convert.WithInitialVariables(simple_dnn.Generator(optimizer_fn=_adam, layer_size=16, seed=0),
+                                                 256, 10)
+        iteration = factory.build_iteration(0, generator.generate_candidates(None, 0, [], []), input_shape=(256,))
+        state = iteration.init_state(torch.Generator().manual_seed(0), batches[0])
+        if prefetch:
+            state, _ = iteration.train_steps(state, DevicePrefetchIterator(iter(batches), device="cuda"))
+        else:
+            for batch in batches:
+                state, _ = iteration.train_step(state, batch)
+        states.append([p.detach().clone() for st in state.subnetworks.values() for p in st.module.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*states))

@@ -79,6 +79,10 @@ SLICE_MODULES = (
     "adanet_tpu_torch.robustness.integrity",
     "adanet_tpu_torch.tools.ckpt_fsck",
     "adanet_tpu_torch.tools.payload_versions",
+    "adanet_tpu_torch.core.tpu_estimator",
+    "adanet_tpu_torch.utils.device_timing",
+    "adanet_tpu_torch.utils.precision",
+    "adanet_tpu_torch.utils.prefetch",
 )
 
 
@@ -172,7 +176,7 @@ def test_copied_modules_stay_in_sync(copy, original):
 
 def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
     from adanet_tpu_torch import resolve_device
-    from adanet_tpu_torch.core import export
+    from adanet_tpu_torch.core import TPUEstimator, export
     from adanet_tpu_torch.core.estimator import Estimator
     from adanet_tpu_torch.core.heads import MultiClassHead
     from adanet_tpu_torch.core.iteration import IterationBuilder
@@ -181,6 +185,7 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
     from adanet_tpu_torch.examples import simple_dnn
     from adanet_tpu_torch.research.improve_nas import trainer
     from adanet_tpu_torch.serving import ModelPool
+    from adanet_tpu_torch.utils.prefetch import DevicePrefetchIterator
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert resolve_device("cpu") == torch.device("cpu")
@@ -191,6 +196,9 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
         lambda: ModelPool(str(tmp_path)),
         lambda: export.load_serving_program(str(tmp_path)),
         lambda: Estimator(head, generator, 10, model_dir=str(tmp_path)),
+        lambda: TPUEstimator(head, generator, 10, model_dir=str(tmp_path), prefetch_buffer=2,
+                             prefetch_to_device=True),
+        lambda: DevicePrefetchIterator(iter([])),
         lambda: IterationBuilder(head, [ComplexityRegularizedEnsembler()], [GrowStrategy()]),
         lambda: trainer.main(["--num_cells=3", "--train_steps=2", "--boosting_iterations=1",
                               "--model_dir", str(tmp_path)]),
