@@ -11,6 +11,11 @@ plus a JSON manifest, in the JAX package's layout:
 - `ckpt-<step>.pt`: the whole mid-iteration `IterationState`
   (`core/iteration.py: state_payload`), so that a fresh process resumes
   from that step.
+- `iteration-final-<t>.pt`: the same payload of every candidate at the
+  end of iteration t, kept with `keep_candidate_states` for
+  `evaluate_all_candidates`.
+- `candidate-metrics-<t>.json`: every candidate's selection metrics at
+  the end of iteration t, always written.
 - `checkpoint.json`: the manifest (iteration number, global step, the
   current state file, digests, the generation chain), the JAX package's
   file byte for byte for the same `CheckpointInfo`.
@@ -490,6 +495,34 @@ def frozen_filename(iteration_number: int) -> str:
 
 def iteration_state_filename(global_step: int) -> str:
     return "ckpt-%d.pt" % global_step
+
+
+def final_state_filename(iteration_number: int) -> str:
+    """The retained end-of-iteration state of every candidate (not just
+    the frozen winner), for per-candidate evaluation after the iteration
+    completed. The JAX package's name ends in `.msgpack`; this payload
+    is a torch one, so it ends in `.pt`, as `frozen-<t>.pt` does."""
+    return "iteration-final-%d.pt" % iteration_number
+
+
+def candidate_metrics_filename(iteration_number: int) -> str:
+    """Every candidate's selection metrics of iteration t, written at
+    every iteration's end (a few hundred bytes, no parameters)."""
+    return "candidate-metrics-%d.json" % iteration_number
+
+
+def write_json(model_dir: str, filename: str, obj) -> None:
+    """Atomic (fsync'd) JSON artifact write under `model_dir`."""
+    _atomic_write_json(os.path.join(model_dir, filename), obj)
+
+
+def read_json(model_dir: str, filename: str):
+    """A JSON artifact under `model_dir`, or None when it is absent."""
+    path = os.path.join(model_dir, filename)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
 
 
 def architecture_filename(iteration_number: int) -> str:

@@ -14,9 +14,13 @@ Port of adanet_tpu/core/estimator.py, single process:
         checkpoint when a window crosses save_checkpoint_steps, and on a
         stop inside the iteration (max_steps,
         SIGTERM)                             _save_iteration_state
-        select the best (EMA, force_grow)    _get_best_ensemble_index
-        write architecture-<t>.json, the
-        frozen payload and the manifest      _complete_iteration
+        select the best (EMA or Evaluator,
+        force_grow)                          _get_best_ensemble_index
+        write candidate-metrics-<t>.json,
+        iteration-final-<t>.pt (kept states),
+        architecture-<t>.json, the frozen
+        payload, the reports and the
+        manifest                             _complete_iteration
 
 Batches come from `input_fn`, a zero-argument callable returning an
 iterator of (features, labels) numpy batches; it is called again when its
@@ -54,17 +58,30 @@ when the caller asks for it.
 byte for byte), `frozen-<t>.pt`, `ckpt-<step>.pt` and the manifest
 `checkpoint.json`, every payload written atomically beside its digest.
 A search stopped anywhere (`max_steps`, SIGTERM, a crash) resumes from
-`model_dir` in a fresh process. The generator's reports
-(`report_materializer`), the candidate-metrics file, the artifact store,
-serving export, multi-host placement, input prefetch and profiling come
-with later slices.
+`model_dir` in a fresh process.
+
+Selection and feedback, single process: an `evaluator` chooses each
+iteration's winner on held-out data (`force_grow` excludes the
+carried-over ensemble); `candidate-metrics-<t>.json` records every
+candidate's losses, quarantine flag, Evaluator value and the winner
+after every iteration (`candidate_metrics`), also as `ensemble/<name>/
+eval` summaries; a `report_materializer` writes the subnetworks'
+reports to `<report_dir>/iteration_reports.json`, which the generator
+reads at later iterations; `keep_candidate_states` retains every
+candidate's final state (`iteration-final-<t>.pt`) for
+`evaluate_all_candidates`; a `weight_key` names the features' example
+weight column, which every loss and metric is weighted by. Replay, the
+artifact store, serving export and multi-host placement come with later
+slices.
 """
 
 from __future__ import annotations
 
 import copy
+import inspect
 import itertools
 import logging
+import math
 import os
 import signal
 import tempfile
@@ -75,11 +92,15 @@ import numpy as np
 import torch
 
 from adanet_tpu_torch._device import resolve_device
+from adanet_tpu_torch.core import candidate as candidate_lib
 from adanet_tpu_torch.core import checkpoint as ckpt_lib
 from adanet_tpu_torch.core import iteration as iteration_lib
 from adanet_tpu_torch.core.architecture import Architecture
+from adanet_tpu_torch.core.evaluator import Evaluator
 from adanet_tpu_torch.core.frozen import FrozenEnsemble, FrozenWeightedSubnetwork, rebuild_subnetwork
-from adanet_tpu_torch.core.iteration import Iteration, IterationBuilder
+from adanet_tpu_torch.core.iteration import Iteration, IterationBuilder, split_example_weights
+from adanet_tpu_torch.core.report_accessor import ReportAccessor
+from adanet_tpu_torch.core.report_materializer import ReportMaterializer
 from adanet_tpu_torch.core.summary import ScopedSummary
 from adanet_tpu_torch.ensemble.strategy import GrowStrategy
 from adanet_tpu_torch.ensemble.weighted import ComplexityRegularizedEnsembler, full_f32_matmul
@@ -92,7 +113,9 @@ from adanet_tpu_torch.utils.batches import (
     EVAL_FETCH_WINDOW,
     WeightedMeanAccumulator,
     batch_example_count,
+    batch_metric_weight,
     feature_shape,
+    read_scalars,
     to_device,
 )
 
@@ -136,12 +159,19 @@ class Estimator:
       ensemblers: `Ensembler`s; defaults to an untrained
         `ComplexityRegularizedEnsembler` (uniform average).
       ensemble_strategies: `Strategy`s; defaults to `[GrowStrategy()]`.
+      evaluator: an `Evaluator` scoring the candidates on held-out data
+        at each iteration's end; without one the training-loss EMAs
+        decide.
+      report_materializer: a `ReportMaterializer` whose reports the
+        generator gets at later iterations.
       adanet_loss_decay: EMA decay of candidate tracking.
       force_grow: at t>0 never re-select the carried-over previous ensemble.
       max_iterations: stop after this many iterations (None = until
         max_steps).
       model_dir: where the checkpoints are written and read; a temp dir
         when None.
+      report_dir: where the reports are kept; `<model_dir>/report` by
+        default.
       random_seed: base seed; iteration t draws from a generator seeded
         from (random_seed, t).
       save_checkpoint_steps: save the mid-iteration state every this many
@@ -166,9 +196,17 @@ class Estimator:
       debug: check every training and evaluation batch for non-finite
         floats before it is used.
       metric_fn: `metric_fn(logits, labels) -> {name: 0-d tensor}`, extra
-        metrics of `evaluate`, averaged by example count.
+        metrics of `evaluate`, averaged by example count; with a
+        `weight_key`, the form `metric_fn(logits, labels, weights)` gets
+        the weights and is averaged by total example weight.
       profile_dir: trace each iteration's first `profile_steps` steps
         with torch.profiler into `<profile_dir>/iteration_<t>/`.
+      weight_key: the key of the per-example weight column in the
+        features mapping; the models never see it, and it weights every
+        head loss and metric (training, Evaluator, reports, `evaluate`).
+      keep_candidate_states: keep every candidate's final state when an
+        iteration completes (`iteration-final-<t>.pt`), so that
+        `evaluate_all_candidates` works after the winner is frozen.
     """
 
     def __init__(
@@ -178,10 +216,13 @@ class Estimator:
         max_iteration_steps: int,
         ensemblers: Optional[Sequence[Any]] = None,
         ensemble_strategies: Optional[Sequence[Any]] = None,
+        evaluator: Optional[Evaluator] = None,
+        report_materializer: Optional[ReportMaterializer] = None,
         adanet_loss_decay: float = 0.9,
         force_grow: bool = False,
         max_iterations: Optional[int] = None,
         model_dir: Optional[str] = None,
+        report_dir: Optional[str] = None,
         random_seed: int = 42,
         save_checkpoint_steps: Optional[int] = None,
         log_every_steps: int = 100,
@@ -195,6 +236,8 @@ class Estimator:
         metric_fn: Optional[Callable] = None,
         profile_dir: Optional[str] = None,
         profile_steps: int = 5,
+        weight_key: Optional[str] = None,
+        keep_candidate_states: bool = False,
     ):
         if max_iteration_steps is None or max_iteration_steps <= 0:
             raise ValueError(
@@ -218,11 +261,19 @@ class Estimator:
         self._max_iteration_steps = int(max_iteration_steps)
         self._ensemblers = list(ensemblers or [ComplexityRegularizedEnsembler()])
         self._strategies = list(ensemble_strategies or [GrowStrategy()])
+        self._evaluator = evaluator
+        self._report_materializer = report_materializer
+        self._weight_key = weight_key
+        self._keep_candidate_states = bool(keep_candidate_states)
+        # The Evaluator's values of the last selection, for the
+        # candidate-metrics record (None without an Evaluator).
+        self._last_selection_values: Optional[list] = None
         self._adanet_loss_decay = float(adanet_loss_decay)
         self._force_grow = bool(force_grow)
         self._max_iterations = max_iterations
         self._model_dir = model_dir or tempfile.mkdtemp(prefix="adanet_tpu_torch_")
         os.makedirs(self._model_dir, exist_ok=True)
+        self._report_accessor = ReportAccessor(report_dir or os.path.join(self._model_dir, "report"))
         self._random_seed = int(random_seed)
         self._save_checkpoint_steps = save_checkpoint_steps
         self._log_every_steps = int(log_every_steps)
@@ -244,7 +295,12 @@ class Estimator:
             collect_summaries=self._log_every_steps > 0,
             device=device,
             step_compute_dtype=self._step_compute_dtype,
+            weight_key=self._weight_key,
         )
+
+    def _model_features(self, features):
+        """`features` without the weight column, if any."""
+        return split_example_weights(features, self._weight_key, require=False)[0]
 
     # ------------------------------------------------------------ properties
 
@@ -502,10 +558,10 @@ class Estimator:
             self._summary.scalars(
                 "ensemble", spec.name, {k: float(v) for k, v in values.items() if v is not None}, step
             )
-            params = state.ensembles[spec.name].params
-            flat = torch.cat([p.detach().reshape(-1) for p in params["weights"] + [params.get("bias")]
-                              if p is not None]).cpu().numpy()
-            self._summary.histogram("ensemble", spec.name, "mixture_weights", flat, step)
+            params = iteration_lib._params_list(state.ensembles[spec.name].params)
+            if params:
+                flat = torch.cat([p.detach().reshape(-1) for p in params]).cpu().numpy()
+                self._summary.histogram("ensemble", spec.name, "mixture_weights", flat, step)
         for spec in iteration.subnetwork_specs:
             scope = "t%d_%s" % (iteration.iteration_number, spec.name)
             scalars = {}
@@ -526,13 +582,22 @@ class Estimator:
 
     # ----------------------------------------------------- build and select
 
+    def _reports_for_iteration(self, iteration_number: int):
+        """(previous_ensemble_reports, all_reports) for the generator:
+        the reports of iteration t-1 marked `included_in_final_ensemble`,
+        and every report of iterations before t."""
+        per_iteration = self._report_accessor.read_iteration_reports()[:iteration_number]
+        all_reports = [r for reports in per_iteration for r in reports]
+        previous = [r for r in per_iteration[-1] if r.included_in_final_ensemble] if per_iteration else []
+        return previous, all_reports
+
     def _generate_builders(self, iteration_number, previous_ensemble):
-        # No reports yet: they come with `report_materializer`.
+        previous_reports, all_reports = self._reports_for_iteration(iteration_number)
         builders = self._generator.generate_candidates(
             previous_ensemble=previous_ensemble,
             iteration_number=iteration_number,
-            previous_ensemble_reports=[],
-            all_reports=[],
+            previous_ensemble_reports=previous_reports,
+            all_reports=all_reports,
         )
         if not builders:
             raise ValueError("Generator returned no builders at iteration %d" % iteration_number)
@@ -544,7 +609,7 @@ class Estimator:
             previous = self._rebuild_previous_ensemble(iteration_number, sample_batch)
         builders = self._generate_builders(iteration_number, previous)
         return self._iteration_builder.build_iteration(
-            iteration_number, builders, previous, input_shape=feature_shape(sample_batch[0])
+            iteration_number, builders, previous, input_shape=feature_shape(self._model_features(sample_batch[0]))
         )
 
     def _rebuild_previous_ensemble(self, iteration_number: int, sample_batch) -> Optional[FrozenEnsemble]:
@@ -553,7 +618,7 @@ class Estimator:
         members' modules and loads the frozen payload's numbers onto
         them (reference: estimator.py:1785-1882)."""
         prev: Optional[FrozenEnsemble] = None
-        input_shape = feature_shape(sample_batch[0])
+        input_shape = feature_shape(self._model_features(sample_batch[0]))
         for i in range(iteration_number):
             with open(os.path.join(self._model_dir, ckpt_lib.architecture_filename(i))) as f:
                 arch = Architecture.deserialize(f.read())
@@ -639,17 +704,29 @@ class Estimator:
         ckpt_lib.remove_digest(self._model_dir, filename)
 
     def _get_best_ensemble_index(self, iteration, state) -> int:
-        """The EMA selection, with `force_grow` at t>0."""
+        """The reference's selection: the Evaluator's objective over its
+        values when there is an Evaluator, else the EMA argmin; with
+        `force_grow` at t>0 the carried-over ensemble is left out."""
+        self._last_selection_values = None
         if len(iteration.ensemble_specs) == 1:
             return 0
         exclude_first = self._force_grow and iteration.iteration_number > 0
+        if self._evaluator:
+            values = self._evaluator.evaluate(iteration, state)
+            self._last_selection_values = [float(v) for v in values]
+            objective_fn = self._evaluator.objective_fn
+            if exclude_first:
+                return int(objective_fn(values[1:])) + 1
+            return int(objective_fn(values))
         return iteration.best_candidate_index(state, exclude_first=exclude_first)
 
     def _complete_iteration(self, iteration, state, sample_batch, info) -> FrozenEnsemble:
-        """Selects and freezes the winner; writes `architecture-<t>.json`,
-        the frozen payload and the manifest of iteration t+1 (history,
-        replay indices, the generation bump), then drops the iteration's
-        state file."""
+        """Selects and freezes the winner; writes
+        `candidate-metrics-<t>.json`, every candidate's final state with
+        `keep_candidate_states`, `architecture-<t>.json`, the frozen
+        payload, the subnetworks' reports with a `report_materializer`,
+        and the manifest of iteration t+1 (history, replay indices, the
+        generation bump), then drops the iteration's state file."""
         t = iteration.iteration_number
         best_index = self._get_best_ensemble_index(iteration, state)
         spec = iteration.ensemble_specs[best_index]
@@ -657,11 +734,21 @@ class Estimator:
         frozen = iteration.freeze_candidate(state, spec.name, sample_batch)
         frozen.architecture.add_replay_index(best_index)
         frozen.architecture.set_global_step(info.global_step)
+        self._write_candidate_metrics(iteration, state, best_index, info)
+        if self._keep_candidate_states:
+            final_name = ckpt_lib.final_state_filename(t)
+            info.digests[final_name] = ckpt_lib.save_payload(
+                self._model_dir, final_name, iteration_lib.state_payload(state)
+            )
         ckpt_lib.write_text(self._model_dir, ckpt_lib.architecture_filename(t), frozen.architecture.serialize())
         frozen_name = ckpt_lib.frozen_filename(t)
         info.digests[frozen_name] = ckpt_lib.save_payload(
             self._model_dir, frozen_name, ckpt_lib.frozen_to_payload(frozen)
         )
+        if self._report_materializer:
+            included = [ws.subnetwork.name for ws in frozen.weighted_subnetworks if ws.subnetwork.iteration_number == t]
+            reports = self._report_materializer.materialize_subnetwork_reports(iteration, state, included)
+            self._report_accessor.write_iteration_report(t, reports)
         stale_state = info.iteration_state_file
         info.iteration_number = t + 1
         info.iteration_state_file = None
@@ -674,6 +761,76 @@ class Estimator:
         if self._summary is not None:
             self._summary.close()
         return frozen
+
+    def _write_candidate_metrics(self, iteration, state, best_index, info) -> None:
+        """`candidate-metrics-<t>.json`: each candidate's last adanet
+        loss, loss EMA, quarantine flag, its Evaluator value when an
+        Evaluator chose, whether it won, and the global step; non-finite
+        values as null. The numbers come back in one host read, and are
+        also written as `ensemble/<name>/eval` summaries."""
+        decay = iteration.adanet_loss_decay
+        host = read_scalars({
+            espec.name: {
+                "adanet_loss": state.candidates[espec.name].adanet_loss,
+                "adanet_loss_ema": candidate_lib.debiased_ema(state.candidates[espec.name], decay),
+                "dead": state.candidates[espec.name].dead,
+            }
+            for espec in iteration.ensemble_specs
+        })
+        values = self._last_selection_values
+
+        def finite(value):
+            value = float(value)
+            return value if math.isfinite(value) else None
+
+        record = {}
+        for i, espec in enumerate(iteration.ensemble_specs):
+            entry = {
+                "adanet_loss": finite(host[espec.name]["adanet_loss"]),
+                "adanet_loss_ema": finite(host[espec.name]["adanet_loss_ema"]),
+                "dead": bool(host[espec.name]["dead"]),
+                "best": i == best_index,
+                "global_step": int(info.global_step),
+            }
+            if values is not None and i < len(values):
+                entry["evaluator_objective"] = finite(values[i])
+            record[espec.name] = entry
+        ckpt_lib.write_json(self._model_dir, ckpt_lib.candidate_metrics_filename(iteration.iteration_number), record)
+        self._write_eval_summaries(
+            {
+                name: {
+                    k: v for k, v in entry.items()
+                    if k != "global_step" and isinstance(v, (int, float)) and not isinstance(v, bool)
+                }
+                for name, entry in record.items()
+            },
+            info.global_step,
+        )
+
+    def candidate_metrics(self, iteration_number: Optional[int] = None) -> Dict[str, Dict[str, Any]]:
+        """Every candidate's selection metrics of a completed iteration
+        (the last one by default), read from `candidate-metrics-<t>.json`;
+        floats (None where non-finite), bools (`dead`, `best`) and the
+        global step. For metrics on new data, `evaluate_all_candidates`."""
+        if iteration_number is None:
+            info = ckpt_lib.read_manifest(self._model_dir)
+            if info is None or info.iteration_number == 0:
+                raise ValueError("No completed iteration in %s." % self._model_dir)
+            iteration_number = info.iteration_number - 1
+        record = ckpt_lib.read_json(self._model_dir, ckpt_lib.candidate_metrics_filename(iteration_number))
+        if record is None:
+            raise ValueError(
+                "No candidate metrics recorded for iteration %s in %s." % (iteration_number, self._model_dir)
+            )
+        return record
+
+    def _write_eval_summaries(self, per_scope, global_step) -> None:
+        """Per-candidate eval summaries under
+        `<model_dir>/ensemble/<name>/eval`."""
+        summary = ScopedSummary(self._model_dir)
+        for name, metrics in per_scope.items():
+            summary.scalars("ensemble", os.path.join(name, "eval"), metrics, global_step)
+        summary.close()
 
     # ------------------------------------------------------ evaluate/predict
 
@@ -705,30 +862,45 @@ class Estimator:
         ensembler = self._iteration_builder._ensembler_by_name(frozen.ensembler_name)
 
         def forward(features):
+            features = self._model_features(features)
             return ensembler.build_ensemble(frozen.ensembler_params, frozen.member_outputs(features))
 
         return forward, frozen.name
 
     def evaluate(self, input_fn: Callable[[], Iterator], steps: Optional[int] = None) -> Dict[str, Any]:
         """Evaluates the best model (`_final_forward_fn`) on up to `steps`
-        batches of `input_fn`; returns the head's metrics, `loss` and the
-        `metric_fn`'s averaged by example count, with `best_ensemble`
-        and `global_step`."""
+        batches of `input_fn`; returns the head's metrics and `loss`,
+        averaged by example count (total example weight under a
+        `weight_key`), the `metric_fn`'s (its two-argument form by example
+        count), with `best_ensemble` and `global_step`."""
         data = iter(input_fn())
         try:
             first = next(data)
         except StopIteration:
             raise ValueError("input_fn yielded no batches.")
         forward, name = self._final_forward_fn(first)
+        # A metric_fn taking (logits, labels, weights) opts into example
+        # weighting; the two-argument form is a plain mean a batch.
+        metric_fn_weighted = False
+        if self._metric_fn is not None and self._weight_key is not None:
+            try:
+                metric_fn_weighted = len(inspect.signature(self._metric_fn).parameters) >= 3
+            except (TypeError, ValueError):
+                metric_fn_weighted = False
         acc = WeightedMeanAccumulator()
+        custom_acc = WeightedMeanAccumulator()
         staged = []
 
         def drain():
             # One host read for a window of batches' metrics.
-            keys = sorted(staged[0][0])
-            values = torch.stack([m[k].float() for m, _ in staged for k in keys]).tolist()
-            for i, (_, n) in enumerate(staged):
-                acc.add(dict(zip(keys, values[i * len(keys):(i + 1) * len(keys)])), n)
+            host = read_scalars({
+                "%d/%s" % (i, part): values for i, (metrics, custom, _, _) in enumerate(staged)
+                for part, values in (("head", metrics), ("custom", custom))
+            })
+            for i, (_, custom, n, n_examples) in enumerate(staged):
+                acc.add(host["%d/head" % i], n)
+                if custom:
+                    custom_acc.add(host["%d/custom" % i], n_examples)
             staged.clear()
 
         with full_f32_matmul(), torch.no_grad():
@@ -737,22 +909,86 @@ class Estimator:
                     break
                 if self._debug:
                     _check_batch_finite(batch)
-                n = batch_example_count(batch)
+                n = batch_metric_weight(batch, self._weight_key)
+                n_examples = batch_example_count(batch)
                 features, labels = to_device(batch, self._device)
+                features, weights = split_example_weights(features, self._weight_key)
                 logits = forward(features).logits
-                metrics = dict(self._head.eval_metrics(logits, labels))
-                metrics["loss"] = self._head.loss(logits, labels)
+                metrics = dict(self._head.eval_metrics(logits, labels, weights))
+                metrics["loss"] = self._head.loss(logits, labels, weights)
+                custom = {}
                 if self._metric_fn is not None:
-                    metrics.update(self._metric_fn(logits, labels))
-                staged.append((metrics, n))
+                    if metric_fn_weighted:
+                        metrics.update(self._metric_fn(logits, labels, weights))
+                    else:
+                        custom = dict(self._metric_fn(logits, labels))
+                staged.append((metrics, custom, n, n_examples))
                 if len(staged) >= EVAL_FETCH_WINDOW:
                     drain()
             if staged:
                 drain()
         result = acc.means()
+        if custom_acc.batches:
+            result.update(custom_acc.means())
+        self._write_eval_summaries({name: result}, self.latest_global_step())
         result["best_ensemble"] = name
         result["global_step"] = self.latest_global_step()
         return result
+
+    def evaluate_all_candidates(
+        self,
+        input_fn: Callable[[], Iterator],
+        steps: Optional[int] = None,
+        iteration_number: Optional[int] = None,
+    ) -> Dict[str, Dict[str, float]]:
+        """Every candidate's metrics over a dataset, in one pass (one
+        `Iteration.eval_step` and one host read a batch), also written to
+        `<model_dir>/ensemble/<name>/eval`. Uses the live mid-iteration
+        state when there is one (and `iteration_number` is None);
+        completed iterations use the states retained under
+        `keep_candidate_states=True` (`iteration_number` selects one; the
+        latest by default)."""
+        info = ckpt_lib.read_manifest(self._model_dir)
+        if info is None:
+            raise ValueError("No checkpoint in %s; call train() first." % self._model_dir)
+        data = iter(input_fn())
+        try:
+            first = next(data)
+        except StopIteration:
+            raise ValueError("input_fn yielded no batches.")
+        if info.iteration_state_file and iteration_number is None:
+            iteration = self._build_iteration(info.iteration_number, first)
+            state = self._init_or_restore_state(iteration, first, info, training=False)
+        else:
+            t = info.iteration_number - 1 if iteration_number is None else int(iteration_number)
+            retained = ckpt_lib.final_state_filename(t)
+            if t < 0 or not os.path.exists(os.path.join(self._model_dir, retained)):
+                raise ValueError(
+                    "evaluate_all_candidates needs retained candidate states for iteration %d; construct the "
+                    "Estimator with keep_candidate_states=True (or call during an iteration, from a mid-iteration "
+                    "checkpoint). The selection metrics recorded at iteration end are always available via "
+                    "candidate_metrics(%d)." % (t, t)
+                )
+            iteration = self._build_iteration(t, first)
+            state = iteration.init_state(self._iteration_generator(t), first)
+            iteration_lib.restore_state(
+                state, ckpt_lib.restore_payload(self._model_dir, retained), restore_generator=False
+            )
+        names = iteration.candidate_names()
+        accs = {n: WeightedMeanAccumulator() for n in names}
+        for index, batch in enumerate(itertools.chain([first], data)):
+            if steps is not None and index >= steps:
+                break
+            if self._debug:
+                _check_batch_finite(batch)
+            size = batch_metric_weight(batch, self._weight_key)
+            results = iteration.eval_step(state, batch)
+            host = read_scalars({n: results[n] for n in names})
+            for n in names:
+                accs[n].add(host[n], size)
+        results = {n: accs[n].means() for n in names}
+        self._write_eval_summaries(results, info.global_step)
+        return results
 
     def predict(self, input_fn: Callable[[], Iterator], on_cpu: bool = False):
         """Yields the head's predictions of the best model
@@ -772,6 +1008,9 @@ class Estimator:
         forward, _ = owner._final_forward_fn((features0, None))
         for batch in itertools.chain([first], data):
             features = to_device(batch[0] if isinstance(batch, tuple) else batch, owner._device)
+            # Prediction features may carry the weight column; it never
+            # feeds the model.
+            features = self._model_features(features)
             with full_f32_matmul(), torch.no_grad():
                 predictions = self._head.predictions(forward(features).logits)
             yield {key: value.cpu() for key, value in predictions.items()}

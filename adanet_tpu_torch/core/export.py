@@ -15,7 +15,8 @@ No pickle and no msgpack: `np.load(..., allow_pickle=False)` and JSON
 are all a loader needs. `load_serving_program(export_dir, device)`
 rebuilds `features -> predictions` (member forwards, the mixture
 combine, the head's predictions), the counterpart of the JAX package's
-`Estimator._frozen_predict_fn`.
+`Estimator._frozen_predict_fn`. A mean ensemble exports no weights; a
+multi-head (dict) program is not exported yet.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from adanet_tpu_torch.core.frozen import (
     FrozenWeightedSubnetwork,
 )
 from adanet_tpu_torch.core.heads import head_from_spec
-from adanet_tpu_torch.ensemble.weighted import ComplexityRegularizedEnsembler
+from adanet_tpu_torch.ensemble import ensembler_from_spec
 
 FORMAT = "adanet_tpu_torch/1"
 ARCHITECTURE_FILE = "architecture.json"
@@ -95,7 +96,7 @@ def _example_shape(inputs: Dict[str, Any]):
 def export_serving_program(
     export_dir: str,
     frozen: FrozenEnsemble,
-    ensembler: ComplexityRegularizedEnsembler,
+    ensembler,
     head,
     sample_features,
 ) -> str:
@@ -118,8 +119,10 @@ def export_serving_program(
         )
         for key, value in sub.module.state_dict().items():
             arrays["member_%d/%s" % (i, key)] = _numpy(value)
-    params = frozen.ensembler_params
-    for j, weight in enumerate(params["weights"]):
+    params = frozen.ensembler_params or {}
+    if any(isinstance(w, dict) for w in params.get("weights", [])) or isinstance(params.get("bias"), dict):
+        raise NotImplementedError("multi-head serving export is not ported yet")
+    for j, weight in enumerate(params.get("weights", [])):
         arrays["ensembler/weights/%d" % j] = _numpy(weight).astype(np.float32)
     if params.get("bias") is not None:
         arrays["ensembler/bias"] = _numpy(params["bias"]).astype(np.float32)
@@ -206,16 +209,18 @@ def load_frozen_ensemble(
             )
         )
     n = len(weighted)
-    params = {
-        "weights": [torch.from_numpy(arrays["ensembler/weights/%d" % j]).to(dev) for j in range(n)],
-        "bias": (
-            torch.from_numpy(arrays["ensembler/bias"]).to(dev)
-            if "ensembler/bias" in arrays
-            else None
-        ),
-    }
-    for ws, weight in zip(weighted, params["weights"]):
-        ws.weight = weight
+    params = {}
+    if "ensembler/weights/0" in arrays:
+        params = {
+            "weights": [torch.from_numpy(arrays["ensembler/weights/%d" % j]).to(dev) for j in range(n)],
+            "bias": (
+                torch.from_numpy(arrays["ensembler/bias"]).to(dev)
+                if "ensembler/bias" in arrays
+                else None
+            ),
+        }
+        for ws, weight in zip(weighted, params["weights"]):
+            ws.weight = weight
     return FrozenEnsemble(
         name=sig["name"],
         iteration_number=sig["iteration_number"],
@@ -240,7 +245,7 @@ def load_serving_program(
         _build.self_test(dev)
     sig = serving_signature(export_dir)
     frozen = load_frozen_ensemble(export_dir, dev, compute_dtype)
-    ensembler = ComplexityRegularizedEnsembler.from_spec(sig["ensembler"])
+    ensembler = ensembler_from_spec(sig["ensembler"])
     head = head_from_spec(sig["head"])
 
     def predict(features):

@@ -42,9 +42,17 @@ on kernels only); an optimizer that keeps its step count on the host
 unless `capturable` (Adam and its kin) is made capturable on the card,
 so that the count stays on the device too. Matrix products run with
 TF32 off. With `step_compute_dtype` (`utils/precision.py`) the float
-features are cast to it at the step's boundary. Bagging (and with it the
-teachers' extra batches) and RoundRobin placement come with later
-slices.
+features are cast to it at the step's boundary.
+
+With a `weight_key`, `split_example_weights` takes the per-example
+weights out of the features (the models never see them; they stay f32
+under the bf16 policy) and every `head.loss` and `head.eval_metrics`
+call gets them. An ensembler's parameters are a tree: `{"weights": [w,
+...], "bias": b}` with a tensor or, for multi-head logits, a dict of
+tensors by key in each place, or `{}` for a mean ensemble, which has no
+optimizer, slots or guard and skips the ensemble update. Bagging (and
+with it the teachers' extra batches) and RoundRobin placement come with
+later slices.
 """
 
 from __future__ import annotations
@@ -54,7 +62,7 @@ import dataclasses
 import functools
 import inspect
 import math
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -96,7 +104,9 @@ class SubnetworkTrainState:
 class EnsembleTrainState:
     """Train state for one ensemble candidate's ensembler params:
     `{"weights": [nn.Parameter], "bias": nn.Parameter}` (bias only with
-    `use_bias`) and their optimizer (None when untrained)."""
+    `use_bias`; a dict of parameters by key in each place for multi-head
+    logits; `{}` for a mean ensemble) and their optimizer (None when
+    untrained)."""
 
     params: Dict[str, Any]
     optimizer: Optional[torch.optim.Optimizer]
@@ -148,36 +158,92 @@ class EnsembleSpec:
     initial_ema: Optional[float] = None
 
 
+def split_example_weights(features, weight_key, require=True):
+    """`(model_features, weights)`: with a `weight_key`, `features` must
+    be a mapping holding that key; the model features leave it out (the
+    weights never feed a model) and the weights go to every head loss
+    and metric. `weights` is None without a `weight_key`; with
+    `require=False` a missing key is tolerated (serving features carry
+    no weights)."""
+    if weight_key is None:
+        return features, None
+    if not isinstance(features, Mapping) or weight_key not in features:
+        if not require:
+            return features, None
+        raise ValueError(
+            "weight_key=%r is set but the features batch %s; pass "
+            "features as a dict holding the per-example weight column."
+            % (
+                weight_key,
+                "is not a mapping"
+                if not isinstance(features, Mapping)
+                else "with keys %s does not contain it" % sorted(features),
+            )
+        )
+    model_features = {k: v for k, v in features.items() if k != weight_key}
+    return model_features, features[weight_key]
+
+
 def _complexity_regularization(ensemble):
     """The ensemble's complexity penalty; 0 for parameterless ensembles."""
     return getattr(ensemble, "complexity_regularization", 0.0)
 
 
+def _named_params(params: Dict[str, Any]) -> List[Tuple[str, Any]]:
+    """The ensembler params' leaves with their names, in a fixed order:
+    the weights (`weights/<i>`, `weights/<i>/<key>` for multi-head),
+    then the bias (`bias`, `bias/<key>`), then any other entry by name.
+    Empty for a mean ensemble."""
+    out: List[Tuple[str, Any]] = []
+
+    def walk(node, name):
+        if node is None:
+            return
+        if isinstance(node, Mapping):
+            for key in sorted(node):
+                walk(node[key], "%s/%s" % (name, key))
+        elif isinstance(node, (list, tuple)):
+            for i, item in enumerate(node):
+                walk(item, "%s/%d" % (name, i))
+        else:
+            out.append((name, node))
+
+    for key in ["weights", "bias"] + sorted(k for k in params if k not in ("weights", "bias")):
+        if key in params:
+            walk(params[key], key)
+    return out
+
+
 def _params_list(params: Dict[str, Any]) -> List[torch.Tensor]:
-    """The ensembler params in a fixed order: the weights, then the bias."""
-    out = list(params["weights"])
-    if params.get("bias") is not None:
-        out.append(params["bias"])
-    return out
-
-
-def _as_parameters(params: Dict[str, Any], device) -> Dict[str, Any]:
-    """Ensembler params as trainable `nn.Parameter`s on `device` (one
-    per member weight, so that each gets its own gradient)."""
-
-    def param(t):
-        return nn.Parameter(torch.as_tensor(t, dtype=torch.float32).detach().clone().to(device))
-
-    out = {"weights": [param(w) for w in params["weights"]]}
-    if params.get("bias") is not None:
-        out["bias"] = param(params["bias"])
-    return out
+    """The ensembler params in `_named_params`' order."""
+    return [t for _, t in _named_params(params)]
 
 
 def _params_names(params: Dict[str, Any]) -> List[str]:
     """Names of `_params_list`'s entries, in its order."""
-    names = ["weights/%d" % i for i in range(len(params["weights"]))]
-    return names + (["bias"] if params.get("bias") is not None else [])
+    return [name for name, _ in _named_params(params)]
+
+
+def _map_params(fn, params):
+    """`params` with `fn` applied to each tensor leaf (None stays None)."""
+    if params is None:
+        return None
+    if isinstance(params, Mapping):
+        return {key: _map_params(fn, value) for key, value in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [_map_params(fn, item) for item in params]
+    return fn(params)
+
+
+def _as_parameters(params: Dict[str, Any], device) -> Dict[str, Any]:
+    """Ensembler params as trainable `nn.Parameter`s on `device` (one
+    per member weight, and per key, so that each gets its own gradient);
+    a `None` bias is dropped."""
+
+    def param(t):
+        return nn.Parameter(torch.as_tensor(t, dtype=torch.float32).detach().clone().to(device))
+
+    return {key: _map_params(param, value) for key, value in params.items() if value is not None}
 
 
 def state_payload(state: "IterationState") -> Dict[str, Any]:
@@ -272,13 +338,17 @@ def restore_state(state: "IterationState", payload: Dict[str, Any], restore_gene
     return state
 
 
+def _cut(t):
+    """`t` cut from its graph (the JAX `stop_gradient`), dicts (multi-head
+    outputs) by key."""
+    if isinstance(t, Mapping):
+        return {key: _cut(value) for key, value in t.items()}
+    return t.detach() if torch.is_tensor(t) else t
+
+
 def _detached(out: Subnetwork) -> Subnetwork:
-    """A forward's outputs cut from its graph (the JAX `stop_gradient`)."""
-
-    def cut(t):
-        return t.detach() if torch.is_tensor(t) else t
-
-    return dataclasses.replace(out, last_layer=cut(out.last_layer), logits=cut(out.logits))
+    """A forward's outputs cut from its graph."""
+    return dataclasses.replace(out, last_layer=_cut(out.last_layer), logits=_cut(out.logits))
 
 
 def _grads(loss, params):
@@ -389,7 +459,7 @@ class TrainLossContext:
         self._ensembler = ensembler
         self._params = params
         self._frozen_outs = frozen_outs
-        self.previous_subnetwork_logits = frozen_outs[-1].logits.detach()
+        self.previous_subnetwork_logits = _cut(frozen_outs[-1].logits)
 
     @functools.cached_property
     def previous_ensemble_logits(self) -> torch.Tensor:
@@ -412,9 +482,13 @@ class Iteration:
         collect_summaries: bool = True,
         device=None,
         step_compute_dtype=None,
+        weight_key: Optional[str] = None,
     ):
         if not ensemble_specs:
             raise ValueError("An iteration needs at least one ensemble spec.")
+        # Per-example weights under this features key feed every head
+        # loss and metric (`split_example_weights`).
+        self.weight_key = weight_key
         self.iteration_number = iteration_number
         self.subnetwork_specs = list(subnetwork_specs)
         self.ensemble_specs = list(ensemble_specs)
@@ -435,6 +509,7 @@ class Iteration:
         """Initializes every candidate's parameters and optimizer state,
         drawing from `generator` (a CPU `torch.Generator`)."""
         features, _ = to_device(sample_batch, self.device)
+        features, _ = split_example_weights(features, self.weight_key, require=False)
         sub_states = {}
         sub_outs = {}
         for spec in self.subnetwork_specs:
@@ -594,6 +669,9 @@ class Iteration:
 
     def _train_step(self, state: IterationState, batch):
         features, labels = to_device(batch, self.device)
+        # The weights stay f32 under the bf16 policy: they are split out
+        # before the cast.
+        features, weights = split_example_weights(features, self.weight_key)
         if self.step_compute_dtype is not None:
             features = precision.cast_floats(features, self.step_compute_dtype)
         metrics: Dict[str, Any] = {}
@@ -613,7 +691,7 @@ class Iteration:
             out = st.module(features, training=True, **kwargs)
             loss = spec.builder.build_subnetwork_loss(out, labels, self.head, context)
             if loss is None:
-                loss = self.head.loss(out.logits, labels)
+                loss = self.head.loss(out.logits, labels, weights)
             params = list(st.module.parameters())
             grads = _grads(loss, params)
             finite = torch.isfinite(loss)
@@ -623,14 +701,16 @@ class Iteration:
             metrics["subnetwork_loss/%s" % spec.name] = loss.detach()
 
         # 3) Every ensemble candidate's mixture weights on loss +
-        #    complexity regularization, members as step 2 left them.
+        #    complexity regularization, members as step 2 left them; a
+        #    candidate without an optimizer (untrained, or a mean
+        #    ensemble) only computes its loss.
         ens_updates = []
         for espec in self.ensemble_specs:
             est = state.ensembles[espec.name]
             member_outs = self.member_outputs(espec, sub_outs, frozen_outs)
             with torch.set_grad_enabled(est.optimizer is not None):
                 ens = espec.ensembler.build_ensemble(est.params, member_outs)
-                loss = self.head.loss(ens.logits, labels)
+                loss = self.head.loss(ens.logits, labels, weights)
                 adanet_loss = loss + _complexity_regularization(ens)
             if est.optimizer is not None:
                 params = _params_list(est.params)
@@ -663,6 +743,7 @@ class Iteration:
         """Every candidate's losses and head metrics on one batch."""
         with full_f32_matmul(), torch.no_grad():
             features, labels = to_device(batch, self.device)
+            features, weights = split_example_weights(features, self.weight_key)
             sub_outs = {
                 spec.name: state.subnetworks[spec.name].module(features, training=False)
                 for spec in self.subnetwork_specs
@@ -672,20 +753,22 @@ class Iteration:
             for espec in self.ensemble_specs:
                 member_outs = self.member_outputs(espec, sub_outs, frozen_outs)
                 ens = espec.ensembler.build_ensemble(state.ensembles[espec.name].params, member_outs)
-                loss = self.head.loss(ens.logits, labels)
+                loss = self.head.loss(ens.logits, labels, weights)
                 out = {"loss": loss, "adanet_loss": loss + _complexity_regularization(ens)}
-                out.update(self.head.eval_metrics(ens.logits, labels))
+                out.update(self.head.eval_metrics(ens.logits, labels, weights))
                 results[espec.name] = out
             for spec in self.subnetwork_specs:
                 results["subnetwork/%s" % spec.name] = {
-                    "loss": self.head.loss(sub_outs[spec.name].logits, labels)
+                    "loss": self.head.loss(sub_outs[spec.name].logits, labels, weights)
                 }
             return results
 
     def candidate_forward(self, state: IterationState, name: str, features):
-        """The ensemble candidate `name` on `features`, as the mid-iteration
-        state holds it (no gradients); returns its `Ensemble`."""
+        """The ensemble candidate `name` on `features` (the weight column,
+        if any, left out), as the mid-iteration state holds it (no
+        gradients); returns its `Ensemble`."""
         espec = self._spec_by_name[name]
+        features, _ = split_example_weights(features, self.weight_key, require=False)
         with full_f32_matmul(), torch.no_grad():
             outs = [
                 (state.subnetworks[ref].module if kind == _NEW else state.frozen[ref])(features, training=False)
@@ -736,11 +819,9 @@ class Iteration:
         forward on `sample_batch`, and a copy of the mixture weights."""
         espec = self._spec_by_name[spec_name]
         features, _ = to_device(sample_batch, self.device)
-        params = state.ensembles[espec.name].params
-        weights = [w.detach().clone() for w in params["weights"]]
-        ensembler_params = {"weights": weights}
-        if params.get("bias") is not None:
-            ensembler_params["bias"] = params["bias"].detach().clone()
+        features, _ = split_example_weights(features, self.weight_key, require=False)
+        ensembler_params = _map_params(lambda t: t.detach().clone(), state.ensembles[espec.name].params)
+        weights = ensembler_params.get("weights")
 
         weighted = []
         for i, (kind, ref) in enumerate(espec.members):
@@ -764,7 +845,8 @@ class Iteration:
                     shared=out.shared,
                     builder_spec=to_spec() if to_spec is not None else None,
                 )
-            weighted.append(FrozenWeightedSubnetwork(subnetwork=frozen, weight=weights[i]))
+            weight = weights[i] if weights is not None and i < len(weights) else None
+            weighted.append(FrozenWeightedSubnetwork(subnetwork=frozen, weight=weight))
 
         return FrozenEnsemble(
             name=espec.name,
@@ -789,6 +871,7 @@ class IterationBuilder:
         collect_summaries: bool = True,
         device=None,
         step_compute_dtype=None,
+        weight_key: Optional[str] = None,
     ):
         if not ensemblers:
             raise ValueError("At least one ensembler is required.")
@@ -801,6 +884,7 @@ class IterationBuilder:
         self._collect_summaries = bool(collect_summaries)
         self._device = resolve_device(device)
         self._step_compute_dtype = precision.resolve_dtype(step_compute_dtype)
+        self._weight_key = weight_key
 
     def _ensembler_by_name(self, name: str):
         for ensembler in self._ensemblers:
@@ -916,4 +1000,5 @@ class IterationBuilder:
             collect_summaries=self._collect_summaries,
             device=self._device,
             step_compute_dtype=self._step_compute_dtype,
+            weight_key=self._weight_key,
         )

@@ -4,7 +4,8 @@ Port of adanet_tpu/examples/simple_dnn.py: at every iteration propose two
 candidates, one with the depth of the previous best subnetwork and one a
 layer deeper, with complexity sqrt(depth) and the previous depth read
 from the frozen subnetwork's `shared` state. `_SimpleDNN` names its
-`nn.Linear`s `dense_<i>` and `logits`, the Flax module's names, so that
+`nn.Linear`s `dense_<i>` and `logits` (`logits_<head>` for each head of
+dict logits dimensions, by sorted name), the Flax module's names, so that
 `utils.convert.convert_simple_dnn` carries a JAX subnetwork's variables
 onto its `state_dict` unchanged but for the kernels' transpose.
 """
@@ -33,15 +34,19 @@ class _SimpleDNN(nn.Module):
 
     def __init__(self, input_dim: int, logits_dimension, num_layers: int, layer_size: int, dropout: float):
         super().__init__()
-        if isinstance(logits_dimension, Mapping):
-            raise NotImplementedError("multi-head logits come with a later slice")
         self.num_layers = num_layers
         self.dropout = dropout
         width = input_dim
         for i in range(num_layers):
             setattr(self, "dense_%d" % i, nn.utils.skip_init(nn.Linear, width, layer_size))
             width = layer_size
-        self.logits = nn.utils.skip_init(nn.Linear, width, logits_dimension)
+        if isinstance(logits_dimension, Mapping):
+            self.heads = sorted(logits_dimension)
+            for key in self.heads:
+                setattr(self, "logits_%s" % key, nn.utils.skip_init(nn.Linear, width, logits_dimension[key]))
+        else:
+            self.heads = None
+            self.logits = nn.utils.skip_init(nn.Linear, width, logits_dimension)
 
     def init_parameters(self, generator: torch.Generator) -> None:
         """Flax's default Dense init from `generator`: LeCun-normal
@@ -65,9 +70,13 @@ class _SimpleDNN(nn.Module):
                 x = torch.where(keep, x / (1.0 - self.dropout), torch.zeros_like(x))
         # complexity = sqrt(depth), the Rademacher-style capacity growth
         # (reference: adanet/examples/simple_dnn.py:90).
+        if self.heads is None:
+            logits = self.logits(x)
+        else:
+            logits = {key: getattr(self, "logits_%s" % key)(x) for key in self.heads}
         return Subnetwork(
             last_layer=x,
-            logits=self.logits(x),
+            logits=logits,
             complexity=math.sqrt(max(self.num_layers, 1)),
             shared={_NUM_LAYERS_KEY: self.num_layers},
         )
@@ -116,7 +125,10 @@ class _DNNBuilder(Builder):
         return Report(
             hparams={"layer_size": self._layer_size, _NUM_LAYERS_KEY: self._num_layers},
             attributes={"complexity": math.sqrt(max(self._num_layers, 1))},
-            metrics={"mean_abs_logit": lambda s, f, l: torch.mean(torch.abs(s.logits))},
+            metrics={"mean_abs_logit": lambda s, f, l: torch.mean(torch.abs(
+                s.logits if not isinstance(s.logits, Mapping)
+                else torch.cat([v for _, v in sorted(s.logits.items())], -1)
+            ))},
         )
 
 

@@ -3,11 +3,10 @@
 Port of adanet_tpu/robustness/integrity.py, training chain only: `fsck`
 walks a model dir's durable artifacts (the manifest chain, the
 per-iteration `architecture-<t>.json` + `frozen-<t>.pt` pairs, the
-mid-iteration `ckpt-<step>.pt`) and verifies each against its SHA-256
-digest, or, for a file without one, a decode check. The JAX package's
-retained `iteration-final-<t>` states are not checked: the port writes
-none. A corrupt file degrades to "resume from the previous
-generation":
+mid-iteration `ckpt-<step>.pt`, the retained `iteration-final-<t>.pt`
+states of `keep_candidate_states`) and verifies each against its
+SHA-256 digest, or, for a file without one, a decode check. A corrupt
+file degrades to "resume from the previous generation":
 
 - corrupt mid-iteration state -> quarantined (`*.corrupt`); the run
   restarts the current iteration from its first step;
@@ -16,7 +15,10 @@ generation":
   later iterations are retired (`*.stale`) so that no reconstruction can
   mix two chains;
 - orphaned `ckpt-*` payloads that fail verification (the torn leftovers
-  of a crash mid-write) -> quarantined.
+  of a crash mid-write) -> quarantined;
+- a corrupt retained `iteration-final-<t>.pt` -> quarantined; it never
+  blocks resume (it serves evaluation after the fact), and a missing one
+  is no fault.
 
 `Estimator.train` runs `fsck(repair=True)` before restoring;
 `adanet_tpu_torch/tools/ckpt_fsck.py` is the operator CLI over it.
@@ -197,7 +199,7 @@ def fsck(model_dir: str, repair: bool = False) -> FsckReport:
 
     if rollback is not None:
         for t in range(rollback, info.iteration_number):
-            for name in (ckpt.architecture_filename(t), ckpt.frozen_filename(t)):
+            for name in (ckpt.architecture_filename(t), ckpt.frozen_filename(t), ckpt.final_state_filename(t)):
                 _retire(model_dir, name, report, repair)
         if info.iteration_state_file:
             _retire(model_dir, info.iteration_state_file, report, repair)
@@ -247,6 +249,14 @@ def fsck(model_dir: str, repair: bool = False) -> FsckReport:
             continue
         report.issues.append("orphan payload failed verification (torn write?): %s" % name)
         _quarantine(model_dir, name, report, repair)
+
+    # Retained final states: corruption never blocks the search, but a
+    # corrupt one must not be evaluated.
+    for t in range(info.iteration_number):
+        name = ckpt.final_state_filename(t)
+        if os.path.exists(os.path.join(model_dir, name)) and not _payload_intact(model_dir, name, info):
+            report.issues.append("retained candidate state corrupt (%s)" % name)
+            _quarantine(model_dir, name, report, repair)
 
     if dirty and repair:
         ckpt.write_manifest(model_dir, info)

@@ -1,9 +1,9 @@
 """Batch utilities shared by the training and evaluation paths.
 
-Port of adanet_tpu/utils/batches.py, single process and without
-example weights: `batch_metric_weight`, with its `weight_key` and its
-multi-host gather, comes with them.
-Batches come from an `input_fn` as numpy arrays (or tensors), nested in
+Port of adanet_tpu/utils/batches.py, single process:
+`batch_metric_weight` (a batch's example count, or its total example
+weight under a `weight_key`; the multi-host gather, `collective`, comes
+with distributed placement). Batches come from an `input_fn` as numpy arrays (or tensors), nested in
 dicts, lists and tuples, and `to_device` moves them to the device the
 caller names; nothing is moved implicitly.
 """
@@ -57,6 +57,43 @@ def feature_shape(features) -> Tuple[int, ...]:
     return tuple(int(d) for d in np.shape(features)[1:])
 
 
+def batch_metric_weight(batch, weight_key=None) -> float:
+    """Aggregation weight of one batch for cross-batch metric averaging:
+    the example count, or under `weight_key` the batch's total example
+    weight (a batch's metric means are then weighted means over that
+    total, as the reference's streamed `tf.metrics.mean(values,
+    weights)`). The sum is taken on the host, from numpy or a tensor."""
+    if weight_key is not None:
+        features = batch[0] if isinstance(batch, tuple) else batch
+        try:
+            weights = features[weight_key]
+        except (TypeError, KeyError, IndexError):
+            weights = None
+        if weights is not None:
+            if torch.is_tensor(weights):
+                weights = weights.detach().cpu().numpy()
+            return float(np.sum(np.asarray(weights)))
+    return float(batch_example_count(batch))
+
+
+def read_scalars(tree: Mapping[str, Mapping[str, object]]) -> Dict[str, Dict[str, float]]:
+    """`{outer: {inner: 0-d tensor or number}}` as Python floats, in one
+    device-to-host copy (one `stack` of every value, then `tolist`), as
+    the JAX package's single `device_get` of an eval step's results."""
+    pairs = [(outer, inner, value) for outer, values in tree.items() for inner, value in values.items()]
+    out: Dict[str, Dict[str, float]] = {outer: {} for outer in tree}
+    if not pairs:
+        return out
+    tensors = [value for _, _, value in pairs if torch.is_tensor(value)]
+    device = tensors[0].device if tensors else torch.device("cpu")
+    stacked = torch.stack([
+        torch.as_tensor(value, device=device).detach().to(torch.float32).reshape(()) for _, _, value in pairs
+    ])
+    for (outer, inner, _), value in zip(pairs, stacked.tolist()):
+        out[outer][inner] = value
+    return out
+
+
 def batch_example_count(batch) -> int:
     """Number of examples in a (features, labels) batch: the leading
     dimension of the first array leaf."""
@@ -83,7 +120,8 @@ class WeightedMeanAccumulator:
         return self._batches
 
     def add(self, metrics: Dict[str, float], example_count: float) -> None:
-        """Accumulates one batch's metric means, weighted by its size."""
+        """Accumulates one batch's metric means, weighted by its size
+        (or its total example weight under `weight_key`)."""
         for key, value in metrics.items():
             self._totals[key] = self._totals.get(key, 0.0) + float(value) * example_count
         self._examples += float(example_count)

@@ -87,17 +87,26 @@ def convert_variables(
 
 
 def convert_ensembler_params(params: Mapping[str, Any]) -> Dict[str, Any]:
-    """`ComplexityRegularizedEnsembler` params `{"weights": [...],
-    "bias": ...}` -> the same structure of f32 tensors (bias None when
-    absent). Weight shapes need no change: [] scalar, [C] vector, or
-    [D, C] matrix (right-multiplying the last layer, as in JAX)."""
-    weights = [
-        torch.from_numpy(np.array(w, dtype=np.float32, copy=True))
-        for w in params["weights"]
-    ]
-    bias: Optional[torch.Tensor] = None
+    """Ensembler params -> the same structure of f32 tensors. For a
+    `ComplexityRegularizedEnsembler`, `{"weights": [...], "bias": ...}`
+    (bias None when absent), each weight and the bias a dict by key for
+    multi-head logits; a mean ensemble's `{}` stays `{}`. Weight shapes
+    need no change: [] scalar, [C] vector, or [D, C] matrix
+    (right-multiplying the last layer, as in JAX)."""
+    if "weights" not in params:
+        if params:
+            raise ValueError("not ensembler params: %s" % sorted(params))
+        return {}
+
+    def tensor(value):
+        if isinstance(value, Mapping):
+            return {key: tensor(v) for key, v in value.items()}
+        return torch.from_numpy(np.array(value, dtype=np.float32, copy=True))
+
+    weights = [tensor(w) for w in params["weights"]]
+    bias: Optional[Any] = None
     if params.get("bias") is not None:
-        bias = torch.from_numpy(np.array(params["bias"], dtype=np.float32, copy=True))
+        bias = tensor(params["bias"])
     return {"weights": weights, "bias": bias}
 
 
@@ -135,11 +144,12 @@ def convert_cell_params(params: Mapping[str, Any]) -> Dict[str, Any]:
 
 def convert_simple_dnn(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """A JAX simple_dnn subnetwork's variables (`{"params": {"dense_<i>":
-    {"kernel", "bias"}, ..., "logits": {...}}}`, numpy leaves) -> the
+    {"kernel", "bias"}, ..., "logits": {...}}}`, numpy leaves; a
+    multi-head one has `logits_<head>` for each head) -> the
     `state_dict` of the port's `examples.simple_dnn._SimpleDNN`, whose
     layers carry the Flax names. Raises on any other leaf."""
     state = convert_variables(variables, collections=("params",))
-    unknown = [key for key in state if not re.fullmatch(r"(dense_\d+|logits)\.(weight|bias)", key)]
+    unknown = [key for key in state if not re.fullmatch(r"(dense_\d+|logits|logits_\w+)\.(weight|bias)", key)]
     if unknown:
         raise ValueError("not a simple_dnn subnetwork: %s" % unknown)
     return state
@@ -147,17 +157,28 @@ def convert_simple_dnn(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 def simple_dnn_variables(num_layers, layer_size, input_dim, n_classes, seed):
     """Flax-layout variables (numpy) of a JAX simple_dnn subnetwork,
-    `{"params": {"dense_<i>": {"kernel", "bias"}, ..., "logits": ...}}`,
-    drawn from `seed`: kernels ~ N(0, 1/fan_in), biases ~ N(0, 0.1^2)."""
+    `{"params": {"dense_<i>": {"kernel", "bias"}, ..., "logits": ...}}`
+    (`logits_<head>` for each head, by sorted name, when `n_classes` is
+    a dict), drawn from `seed`: kernels ~ N(0, 1/fan_in), biases ~ N(0,
+    0.1^2)."""
     rng = np.random.RandomState(seed)
     params = {}
-    width = input_dim
-    for name, out in [("dense_%d" % i, layer_size) for i in range(num_layers)] + [("logits", n_classes)]:
+
+    def dense(name, width, out):
         params[name] = {
             "kernel": (rng.randn(width, out) / np.sqrt(width)).astype(np.float32),
             "bias": (0.1 * rng.randn(out)).astype(np.float32),
         }
-        width = out
+
+    width = input_dim
+    for i in range(num_layers):
+        dense("dense_%d" % i, width, layer_size)
+        width = layer_size
+    if isinstance(n_classes, Mapping):
+        for key, dim in sorted(n_classes.items()):
+            dense("logits_%s" % key, width, dim)
+    else:
+        dense("logits", width, n_classes)
     return {"params": params}
 
 

@@ -153,12 +153,48 @@
    and K2 forward and gradient at every (shape, batch) this path
    launches (batches 32 and 7, C = 11 to 176).
 
+20. Sixth main path, selection (`search_selection`, after phase 12): the
+   gate's search at full width with an Evaluator on 1024 held-out digits
+   (seed 9; adanet_loss, minimized), a ReportMaterializer over 8 training
+   batches, a weighted (K1) and a mean ensembler under GrowStrategy,
+   example weights in [0.5, 1.5] from --seed (unit weights on the test
+   and validation digits) and every candidate's final state kept:
+   accuracy >= 0.88 and above 0.76; each iteration's winner the nanargmin
+   of the Evaluator values in `candidate-metrics-<t>.json` and named by
+   `architecture-<t>.json`; `evaluate_all_candidates(t)` on the retained
+   state within 1e-5 x max(1, |value|) of those values; every subnetwork
+   in `iteration_reports.json`, exactly the winner's new members
+   included, and the generator at t = 1 given iteration 0's included
+   reports; K1's launches exact (one a weighted candidate's step,
+   Evaluator batch and `evaluate_all_candidates` batch, one a test batch
+   of a weighted winner; none for a mean candidate). `selection:` prints
+   ms a step (host clock, CUDA events), a traced step's kernels, the
+   Evaluator's, the reports' and `evaluate_all_candidates`' seconds, the
+   bytes and save ms of `iteration-final-<t>.pt`, the launches.
+21. `selection_vs_cpu`: that search at 2 x 50 steps on the card and the
+   CPU from one converted init (fused Adam on both): Evaluator values,
+   candidate losses and the final metrics within 1e-4 x max(1, |value|),
+   the same winner wherever the CPU's two best are further apart.
+22. `multi_head_search`: simple_dnn (128 wide) on the digits under a
+   MultiHead (digit, even, value) and under a MultiLabelHead over the
+   digit's four-bit code, 2 x 100 steps through train, evaluate and
+   predict; K1 launches 0 on the multi-head path (dict logits never
+   fuse) and exact on the multi-label one; the multi-head search stopped
+   at step 150 restored bitwise by a fresh Estimator and resumed; card
+   against CPU at 2 x 20 steps within 1e-4 x max(1, |value|).
+23. `heads_vs_cpu`: the five heads' losses, metrics (1e-5 x max(1,
+   |value|)) and predictions (1e-6; class ids equal) at batch 4096 on
+   the card against the CPU, with and without weights, with forced ties.
+   Phases 20-23's command time is printed on `selection_phases:`.
+
 Prints the per-shape K2 and K3 timings, the served latency and
-throughput, the `train:`, `train_nasnet:`, `resume_nasnet:` and
-`nasnet_gate:` lines, a `kernels` JSON line (K1's row also with its
-launches on the search paths, K2's with its launches on the NASNet
-training paths, `train_launches`; both with `resume_launches`,
-`nasnet_gate_bf16_launches` and `nasnet_mobile_launches`),
+throughput, the `train:`, `train_nasnet:`, `resume_nasnet:`,
+`nasnet_gate:`, `selection:` and `multi_head:` lines, a `kernels` JSON
+line (K1's row also with its launches on the search paths, K2's with its
+launches on the NASNet training paths, `train_launches`; both with
+`resume_launches`, `nasnet_gate_bf16_launches` and
+`nasnet_mobile_launches`; K1's with `selection_launches`,
+`multi_head_launches` (0) and `multi_label_launches`),
 and as its last line `{"ok": true, "device": {...}}`. Any failure raises
 and exits non-zero.
 """
@@ -227,6 +263,17 @@ PARITY_STEPS = 50
 # Member counts of the search's combines: the carried-over winner of a
 # one-member iteration 0 (no grad) and a grown candidate (under autograd).
 SEARCH_COMBINE_MEMBERS = (1, 2)
+# search_selection: the gate's search with a held-out validation set for
+# the Evaluator (digits from seed 9), reports over this many training
+# batches, and selection_vs_cpu's steps per iteration.
+SELECTION_VALID, SELECTION_REPORT_STEPS, SELECTION_PARITY_STEPS = 1024, 8, 50
+# multi_head_search: steps per iteration, the stop of its resumed run
+# (inside iteration 1) and the card-against-CPU steps per iteration;
+# heads_vs_cpu's batch.
+MULTI_HEAD_STEPS, MULTI_HEAD_STOP, MULTI_HEAD_PARITY_STEPS = 100, 150, 20
+# The seeds of the CPU runs whose initial parameters are moved by 1e-7.
+MOVED_SEEDS = (5, 11, 17)
+HEADS_BATCH = 4096
 # NASNet-A (6@768) training, the flagship: research/improve_nas Hparams()
 # defaults (drop-path over the run's 40 steps, as the trainer sets
 # total_training_steps), ADAPTIVE distillation, momentum with a cosine
@@ -1559,15 +1606,7 @@ def train_search(model_dir):
     from adanet_tpu_torch.examples.synthetic_digits import input_fn, make_dataset
 
     head, generator, ensembler = search_parts()
-    builders = {}
-    generate = generator.generate_candidates
-
-    def recorded(previous_ensemble, iteration_number, *args, **kwargs):
-        out = generate(previous_ensemble, iteration_number, *args, **kwargs)
-        builders[iteration_number] = [b.name for b in out]
-        return out
-
-    generator.generate_candidates = recorded
+    seen = _recording_generator(generator)
     xtr, ytr = make_dataset(TRAIN_EXAMPLES, seed=7)
     xte, yte = make_dataset(EVAL_EXAMPLES, seed=8)
     search_dir = os.path.join(model_dir, "search")
@@ -1604,6 +1643,7 @@ def train_search(model_dir):
             raise AssertionError("architecture-%d.json was not written" % t)
     (host0, event0), (host1, event1) = clock.marks
     host_ms = (host1 - host0) / STEP_WINDOW * 1e3
+    builders = {t: record["builders"] for t, record in seen.items()}
     stats = dict(
         steps=steps,
         builders=builders,
@@ -1724,6 +1764,628 @@ def train_vs_cpu():
         raise AssertionError("train_vs_cpu: best candidates %s on the card, %s on the CPU" % (card_best, cpu_best))
     out = dict(steps=len(card), values_per_step=len(card[0]), best=card_best, max_abs_err=worst)
     print("train_vs_cpu: " + json.dumps(out))
+    return out
+
+
+def _weighted_fn(x, y, w=None, batch=TRAIN_BATCH, labels=None, weighted=True):
+    """input_fn of ({"x", "w"}, labels) batches (without "w" unless
+    `weighted`); unit weights when `w` is None; `labels(y)` maps the
+    digits to another head's labels."""
+    import numpy as np
+
+    def fn():
+        for start in range(0, len(x), batch):
+            rows = slice(start, start + batch)
+            features = {"x": x[rows]}
+            if weighted:
+                features["w"] = w[rows] if w is not None else np.ones(len(y[rows]), np.float32)
+            yield features, (y[rows] if labels is None else labels(y[rows]))
+
+    return fn
+
+
+class _Timed:
+    """Wraps `obj.method` to add its seconds (after a synchronize) to
+    `self.secs` and count its calls; `restore()` puts it back."""
+
+    def __init__(self, obj, method):
+        import torch
+
+        self.secs, self.calls = 0.0, 0
+        self._obj, self._method = obj, method
+        self._inner = inner = getattr(obj, method)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = inner(*args, **kwargs)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            self.secs += time.perf_counter() - t0
+            self.calls += 1
+            return out
+
+        setattr(obj, method, timed)
+
+    def restore(self):
+        setattr(self._obj, self._method, self._inner)
+
+
+def _recording_generator(generator):
+    """`generator` whose `generate_candidates` records, per iteration, the
+    builders it returned and the reports it was given."""
+    seen = {}
+    generate = generator.generate_candidates
+
+    def recorded(previous_ensemble, iteration_number, previous_ensemble_reports, all_reports, config=None):
+        out = generate(previous_ensemble, iteration_number, previous_ensemble_reports, all_reports, config)
+        seen[iteration_number] = dict(
+            builders=[b.name for b in out],
+            previous_reports=sorted(r.name for r in previous_ensemble_reports),
+            all_reports=len(all_reports),
+        )
+        return out
+
+    generator.generate_candidates = recorded
+    return seen
+
+
+def _selection_estimator(model_dir, device, steps, seed, generator_wrap=None):
+    """The search_selection configuration: the gate's simple_dnn search
+    with a weighted (K1) and a mean ensembler under GrowStrategy, an
+    Evaluator on SELECTION_VALID held-out digits (adanet_loss, minimized),
+    a ReportMaterializer over the training digits, example weights from
+    `seed` and every candidate's final state kept. Returns (estimator,
+    training input_fn, test input_fn, validation input_fn, generator
+    record)."""
+    import numpy as np
+
+    from adanet_tpu_torch.core.estimator import Estimator
+    from adanet_tpu_torch.core.evaluator import Evaluator, Objective
+    from adanet_tpu_torch.core.report_materializer import ReportMaterializer
+    from adanet_tpu_torch.ensemble.mean import MeanEnsembler
+    from adanet_tpu_torch.examples.synthetic_digits import make_dataset
+
+    head, generator, ensembler = search_parts()
+    if generator_wrap is not None:
+        generator = generator_wrap(generator)
+    seen = _recording_generator(generator)
+    xtr, ytr = make_dataset(TRAIN_EXAMPLES, seed=7)
+    xte, yte = make_dataset(EVAL_EXAMPLES, seed=8)
+    xva, yva = make_dataset(SELECTION_VALID, seed=9)
+    weights = np.random.RandomState(seed).uniform(0.5, 1.5, len(ytr)).astype(np.float32)
+    train_fn, test_fn, valid_fn = _weighted_fn(xtr, ytr, weights), _weighted_fn(xte, yte), _weighted_fn(xva, yva)
+    estimator = Estimator(
+        head, generator, max_iteration_steps=steps, max_iterations=TRAIN_ITERATIONS,
+        ensemblers=[ensembler, MeanEnsembler()],
+        evaluator=Evaluator(valid_fn, metric_name="adanet_loss", objective=Objective.MINIMIZE),
+        report_materializer=ReportMaterializer(_weighted_fn(xtr, ytr, weights), steps=SELECTION_REPORT_STEPS),
+        weight_key="w", keep_candidate_states=True, model_dir=model_dir, log_every_steps=0, device=device,
+    )
+    return estimator, train_fn, test_fn, valid_fn, seen
+
+
+def _read_json(model_dir, name):
+    with open(os.path.join(model_dir, name)) as f:
+        return json.load(f)
+
+
+def _winner(record):
+    """(name of the `best` entry, its Evaluator value, every value) of a
+    candidate-metrics record; exactly one entry is best."""
+    best = [name for name, entry in record.items() if entry["best"]]
+    if len(best) != 1:
+        raise AssertionError("candidate metrics with %d winners: %s" % (len(best), record))
+    return best[0], record[best[0]]["evaluator_objective"], [e["evaluator_objective"] for e in record.values()]
+
+
+def _is_weighted(name):
+    return name.endswith("_complexity_regularized")
+
+
+#: Metrics that count examples (or, AUC, pairs) on either side of a
+#: threshold or a rank: a logit that moves across it by a rounding moves
+#: the metric by a whole step, so card and CPU are held to one example of
+#: a batch; every other value to 1e-4 x max(1, |value|).
+COUNTED_METRICS = ("accuracy", "auc", "precision", "recall")
+
+
+def _parity_bound(key, value):
+    if key.rsplit("/", 1)[-1].startswith(COUNTED_METRICS):
+        return 1.0 / TRAIN_BATCH
+    return 1e-4 * max(1.0, abs(value))
+
+
+def search_selection(model_dir, seed):
+    """The search with Evaluator selection, reports, mean candidates,
+    example weights and retained states at the gate's full width on the
+    card; launch counts zeroed just before train() and read after the
+    last evaluate_all_candidates(). Returns (launch counts, the
+    `selection:` numbers)."""
+    import numpy as np
+    import torch
+
+    from adanet_tpu_torch import ops
+    from adanet_tpu_torch.core import checkpoint as ckpt
+    from adanet_tpu_torch.core import iteration as iteration_lib
+
+    t_phase = time.perf_counter()
+    search_dir = os.path.join(model_dir, "selection")
+    estimator, train_fn, test_fn, valid_fn, seen = _selection_estimator(search_dir, "cuda", TRAIN_STEPS, seed)
+    evaluator = _Timed(estimator._evaluator, "evaluate")
+    reports = _Timed(estimator._report_materializer, "materialize_subnetwork_reports")
+    payloads = _Timed(iteration_lib, "state_payload")
+    saves = {}
+    save_payload = ckpt.save_payload
+
+    def timed_save(directory, filename, payload):
+        t0 = time.perf_counter()
+        digest = save_payload(directory, filename, payload)
+        saves[filename] = (time.perf_counter() - t0) * 1e3
+        return digest
+
+    ckpt.save_payload = timed_save
+    clock = _StepClock(train_fn, first=TRAIN_STEPS + 11, traced=TRAIN_STEPS + 21 + STEP_WINDOW)
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        estimator.train(clock, max_steps=10**6)
+        torch.cuda.synchronize()
+        train_secs = time.perf_counter() - t0
+        metrics = estimator.evaluate(test_fn)
+        all_secs, retained = [], []
+        for t in range(TRAIN_ITERATIONS):
+            t1 = time.perf_counter()
+            retained.append(estimator.evaluate_all_candidates(valid_fn, iteration_number=t))
+            torch.cuda.synchronize()
+            all_secs.append(time.perf_counter() - t1)
+        counts = ops.launch_counts()
+    finally:
+        ckpt.save_payload = save_payload
+        payloads.restore()
+    if not (metrics["accuracy"] >= GATE_ACCURACY and metrics["accuracy"] > LINEAR_BASELINE_ACCURACY):
+        raise AssertionError("search_selection accuracy %s below the gate %s" % (metrics, GATE_ACCURACY))
+    steps = estimator.latest_global_step()
+    if steps != TRAIN_STEPS * TRAIN_ITERATIONS or clock.pulls != steps:
+        raise AssertionError("search_selection: %d steps, %d pulls" % (steps, clock.pulls))
+    valid_batches = -(-SELECTION_VALID // TRAIN_BATCH)
+    eval_batches = -(-EVAL_EXAMPLES // TRAIN_BATCH)
+    weighted, winners, worst = [], [], 0.0
+    with open(os.path.join(search_dir, "report", "iteration_reports.json")) as f:
+        iteration_reports = json.load(f)
+    for t in range(TRAIN_ITERATIONS):
+        record = _read_json(search_dir, ckpt.candidate_metrics_filename(t))
+        arch = _read_json(search_dir, ckpt.architecture_filename(t))
+        name, value, values = _winner(record)
+        if not value == np.nanmin(np.asarray(values, np.float64)):
+            raise AssertionError("iteration %d: winner %s at %r is not nanargmin of %s" % (t, name, value, values))
+        arch_name = "t%d_%s_%s" % (arch["iteration_number"], arch["ensemble_candidate_name"], arch["ensembler_name"])
+        if arch_name != name:
+            raise AssertionError("iteration %d: architecture %s, candidate metrics %s" % (t, arch_name, name))
+        winners.append(name)
+        weighted.append(sum(_is_weighted(n) for n in record))
+        # The retained state, the same validation data, the same card.
+        for n, entry in record.items():
+            got, want = retained[t][n]["adanet_loss"], entry["evaluator_objective"]
+            err = abs(got - want)
+            if not err <= 1e-5 * max(1.0, abs(want)):
+                raise AssertionError("evaluate_all_candidates(%d) %s: %r, Evaluator %r" % (t, n, got, want))
+            worst = max(worst, err)
+        # Reports: every subnetwork, the winner's new members included.
+        new_members = sorted(s["builder_name"] for s in arch["subnetworks"] if s["iteration_number"] == t)
+        listed = iteration_reports[str(t)]
+        if sorted(r["name"] for r in listed) != sorted(seen[t]["builders"]):
+            raise AssertionError("iteration %d reports %s, builders %s" % (t, listed, seen[t]["builders"]))
+        included = sorted(r["name"] for r in listed if r["included_in_final_ensemble"])
+        if included != new_members:
+            raise AssertionError("iteration %d: included %s, the winner's new members %s" % (t, included, new_members))
+        if t + 1 < TRAIN_ITERATIONS and (seen[t + 1]["previous_reports"] != included
+                                         or seen[t + 1]["all_reports"] != len(listed)):
+            raise AssertionError("the generator at t=%d got %s" % (t + 1, seen[t + 1]))
+    # K1: one launch a weighted candidate (the carried-over winner too, when
+    # weighted) a training step and an Evaluator batch, as many again in
+    # evaluate_all_candidates, and one a test batch when the final winner
+    # is weighted; a mean candidate none.
+    final_weighted = _is_weighted(winners[-1])
+    expected = dict(copy=0, sepconv=0, cell=0, combine=(TRAIN_STEPS + 2 * valid_batches) * sum(weighted)
+                    + eval_batches * final_weighted)
+    if counts != expected:
+        raise AssertionError("search_selection: launches %s, expected %s (weighted candidates %s, winners %s)"
+                             % (counts, expected, weighted, winners))
+    (host0, event0), (host1, event1) = clock.marks
+    host_ms = (host1 - host0) / STEP_WINDOW * 1e3
+    final_files = {t: ckpt.final_state_filename(t) for t in range(TRAIN_ITERATIONS)}
+    stats = dict(
+        steps=steps,
+        candidates=[len(_read_json(search_dir, ckpt.candidate_metrics_filename(t))) for t in range(TRAIN_ITERATIONS)],
+        weighted_candidates=weighted,
+        winners=winners,
+        accuracy=metrics["accuracy"],
+        loss=metrics["loss"],
+        search_secs=train_secs,
+        search_ms_per_step=train_secs / steps * 1e3,
+        window_steps=[clock._first, clock._first + STEP_WINDOW - 1],
+        window_host_ms_per_step=host_ms,
+        window_event_ms_per_step=event0.elapsed_time(event1) / STEP_WINDOW,
+        evaluator_secs=evaluator.secs,
+        evaluator_calls=evaluator.calls,
+        report_secs=reports.secs,
+        evaluate_all_candidates_secs=all_secs,
+        evaluate_all_candidates_max_abs_err=worst,
+        final_state_bytes=[os.path.getsize(os.path.join(search_dir, f)) for f in final_files.values()],
+        final_state_save_ms=[saves[f] for f in final_files.values()],
+        final_state_payload_ms=payloads.secs * 1e3 / max(1, payloads.calls),
+        k1_launches=counts["combine"],
+        phase_secs=time.perf_counter() - t_phase,
+    )
+    stats.update(traced_step(clock.profile, host_ms))
+    stats["card"] = card_line()
+    print("selection: " + json.dumps(stats))
+    return counts, stats
+
+
+def selection_vs_cpu(seed):
+    """search_selection's configuration at 2 x SELECTION_PARITY_STEPS on
+    the card and on the CPU (fused Adam on both) from the same converted
+    init: Evaluator values, candidate-metrics losses and the final
+    metrics within 1e-4 x max(1, |value|) (counted metrics within one
+    example of a batch, `_parity_bound`); the same winner wherever the
+    CPU's two best are further apart than that."""
+    from adanet_tpu_torch.utils.convert import WithInitialVariables
+
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="selection_vs_cpu_") as root:
+        for device in ("cuda", "cpu"):
+            model_dir = os.path.join(root, device)
+            estimator, train_fn, test_fn, _, _ = _selection_estimator(
+                model_dir, device, SELECTION_PARITY_STEPS, seed,
+                generator_wrap=lambda g: WithInitialVariables(g, 256, 10))
+            estimator.train(train_fn, max_steps=10**6)
+            runs[device] = dict(
+                records=[_read_json(model_dir, "candidate-metrics-%d.json" % t) for t in range(TRAIN_ITERATIONS)],
+                metrics=estimator.evaluate(test_fn),
+            )
+    worst, compared, tied = 0.0, 0, []
+
+    def close(what, got, want, bound=None):
+        nonlocal worst
+        err = abs(got - want)
+        if not err <= (1e-4 * max(1.0, abs(want)) if bound is None else bound):
+            raise AssertionError("selection_vs_cpu %s: card %r, cpu %r" % (what, got, want))
+        worst = max(worst, err)
+
+    same = True
+    for t in range(TRAIN_ITERATIONS):
+        card, cpu = runs["cuda"]["records"][t], runs["cpu"]["records"][t]
+        if sorted(card) != sorted(cpu):
+            raise AssertionError("selection_vs_cpu t=%d: candidates %s vs %s" % (t, sorted(card), sorted(cpu)))
+        for name in cpu:
+            for key in ("evaluator_objective", "adanet_loss", "adanet_loss_ema"):
+                close("t=%d %s %s" % (t, name, key), card[name][key], cpu[name][key])
+        compared += 1
+        ordered = sorted(e["evaluator_objective"] for e in cpu.values())
+        gap = ordered[1] - ordered[0]
+        if _winner(card)[0] != _winner(cpu)[0]:
+            if gap > 1e-4 * max(1.0, abs(ordered[0])):
+                raise AssertionError("selection_vs_cpu t=%d: winner %s on the card, %s on the CPU (gap %g)"
+                                     % (t, _winner(card)[0], _winner(cpu)[0], gap))
+            tied.append(t)
+            same = False
+            break
+    if same:
+        for key, value in runs["cpu"]["metrics"].items():
+            if isinstance(value, float):
+                close("final %s" % key, runs["cuda"]["metrics"][key], value, _parity_bound(key, value))
+    out = dict(steps=SELECTION_PARITY_STEPS * TRAIN_ITERATIONS, iterations_compared=compared,
+               winners=[_winner(r)[0] for r in runs["cuda"]["records"]], near_tie_flips=tied,
+               final_metrics_compared=same, max_abs_err=worst)
+    print("selection_vs_cpu: " + json.dumps(out))
+    return out
+
+
+def _multi_head_parts(kind):
+    """(head, labels(digits)) of the multi-head search's configurations:
+    "multi_head", the digit (10 classes), whether it is even and its value;
+    "multi_label", the digit's four-bit binary code."""
+    import numpy as np
+
+    from adanet_tpu_torch.core.heads import (
+        BinaryClassificationHead,
+        MultiClassHead,
+        MultiHead,
+        MultiLabelHead,
+        RegressionHead,
+    )
+
+    if kind == "multi_head":
+        head = MultiHead([MultiClassHead(10, name="digit"), BinaryClassificationHead(name="even"),
+                          RegressionHead(name="value")])
+
+        def labels(y):
+            return {"digit": y, "even": (y % 2 == 0).astype(np.float32), "value": y.astype(np.float32)}
+    else:
+        head = MultiLabelHead(4, name="bits")
+
+        def labels(y):
+            return ((y[:, None] >> np.arange(4)) & 1).astype(np.float32)
+    return head, labels
+
+
+def _multi_head_estimator(model_dir, device, kind, steps, cls=None, wrap=None):
+    from adanet_tpu_torch.core.estimator import Estimator
+    from adanet_tpu_torch.ensemble.mean import MeanEnsembler
+
+    head, labels = _multi_head_parts(kind)
+    _, generator, ensembler = search_parts()
+    if wrap is not None:
+        generator = wrap(generator, head)
+    return (cls or Estimator)(
+        head, generator, max_iteration_steps=steps, max_iterations=TRAIN_ITERATIONS,
+        ensemblers=[ensembler, MeanEnsembler()], model_dir=model_dir, log_every_steps=0, device=device,
+    ), labels
+
+
+def multi_head_search(model_dir):
+    """simple_dnn at 128 wide on the digits under a MultiHead (digit, even,
+    value) and, second, a MultiLabelHead over the digit's four-bit code,
+    2 x MULTI_HEAD_STEPS each through train, evaluate and predict (launch
+    counts zeroed just before train and read after predict: K1 none on the
+    multi-head path; on the multi-label one, one a weighted candidate's
+    step and one a test batch of a weighted winner). The multi-head search
+    stopped by max_steps at MULTI_HEAD_STOP is restored by a fresh
+    Estimator bitwise, and resumed on the uninterrupted run's batches to
+    the end: the same architectures and `frozen-1.pt`. Then card against
+    CPU at 2 x MULTI_HEAD_PARITY_STEPS from the same converted init:
+    candidate losses and the final metrics within 1e-4 x max(1, |value|)
+    (counted metrics within one example of a batch), the same winners
+    where the CPU's two best EMAs are further apart; printed beside the
+    CPU's own response to a relative 1e-7 move of the initial
+    parameters. Returns ({kind: launch counts}, the `multi_head:`
+    numbers)."""
+    import numpy as np
+    import torch
+
+    from adanet_tpu_torch import ops
+    from adanet_tpu_torch.core import checkpoint as ckpt
+    from adanet_tpu_torch.core import iteration as iteration_lib
+    from adanet_tpu_torch.core.estimator import Estimator
+    from adanet_tpu_torch.examples.synthetic_digits import make_dataset
+    from adanet_tpu_torch.utils.convert import WithInitialVariables, convert_simple_dnn
+
+    t_phase = time.perf_counter()
+    xtr, ytr = make_dataset(TRAIN_EXAMPLES, seed=7)
+    xte, yte = make_dataset(EVAL_EXAMPLES, seed=8)
+    eval_batches = -(-EVAL_EXAMPLES // TRAIN_BATCH)
+    counts, stats = {}, {}
+    for kind in ("multi_head", "multi_label"):
+        directory = os.path.join(model_dir, kind)
+        estimator, labels = _multi_head_estimator(directory, "cuda", kind, MULTI_HEAD_STEPS)
+        train_fn = _weighted_fn(xtr, ytr, labels=labels, weighted=False)
+        test_fn = _weighted_fn(xte, yte, labels=labels, weighted=False)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        estimator.train(train_fn, max_steps=10**6)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        metrics = estimator.evaluate(test_fn)
+        predictions = list(estimator.predict(lambda: ((f, None) for f, _ in test_fn())))
+        counts[kind] = ops.launch_counts()
+        records = [_read_json(directory, ckpt.candidate_metrics_filename(t)) for t in range(TRAIN_ITERATIONS)]
+        winners = [name for r in records for name, e in r.items() if e["best"]]
+        if kind == "multi_head":
+            expected = 0
+            keys = {"digit/accuracy", "even/auc", "value/average_loss", "average_loss"}
+            shapes = {"digit/class_ids": (TRAIN_BATCH,), "even/logistic": (TRAIN_BATCH, 1),
+                      "value/predictions": (TRAIN_BATCH, 1)}
+        else:
+            # One a weighted candidate's step; one a test batch of
+            # evaluate and one of predict when the final winner is weighted.
+            weighted = [sum(_is_weighted(n) for n in r) for r in records]
+            expected = MULTI_HEAD_STEPS * sum(weighted) + 2 * eval_batches * _is_weighted(winners[-1])
+            keys = {"accuracy", "auc", "precision", "recall", "average_loss"}
+            shapes = {"class_ids": (TRAIN_BATCH, 4), "probabilities": (TRAIN_BATCH, 4)}
+        if counts[kind] != dict(copy=0, sepconv=0, cell=0, combine=expected):
+            raise AssertionError("%s: launches %s, K1 expected %d" % (kind, counts[kind], expected))
+        if not keys <= set(metrics) or not all(np.isfinite(metrics[k]) for k in keys):
+            raise AssertionError("%s: metrics %s" % (kind, metrics))
+        if len(predictions) != eval_batches or any(
+                tuple(predictions[0][k].shape) != s or not torch.isfinite(predictions[0][k].float()).all()
+                for k, s in shapes.items()):
+            raise AssertionError("%s: predictions %s" % (kind, {k: tuple(v.shape) for k, v in predictions[0].items()}))
+        stats[kind] = dict(ms_per_step=secs / (MULTI_HEAD_STEPS * TRAIN_ITERATIONS) * 1e3, winners=winners,
+                           k1_launches=counts[kind]["combine"],
+                           metrics={k: metrics[k] for k in sorted(keys)})
+
+    # Stop at MULTI_HEAD_STOP, restore bitwise in a fresh Estimator, resume.
+    class Keeping(Estimator):
+        def _save_iteration_state(self, info, iteration_number, state):
+            super()._save_iteration_state(info, iteration_number, state)
+            self.live = state
+
+    directory = os.path.join(model_dir, "multi_head_resumed")
+    stopped, labels = _multi_head_estimator(directory, "cuda", "multi_head", MULTI_HEAD_STEPS, cls=Keeping)
+    train_fn = _weighted_fn(xtr, ytr, labels=labels, weighted=False)
+    stopped.train(train_fn, max_steps=MULTI_HEAD_STOP)
+    live = iteration_lib.state_payload(stopped.live)
+    info = ckpt.read_manifest(directory)
+    fresh, _ = _multi_head_estimator(directory, "cuda", "multi_head", MULTI_HEAD_STEPS)
+    sample = next(train_fn())
+    restored = fresh._init_or_restore_state(fresh._build_iteration(info.iteration_number, sample), sample, info)
+    deviation = _tree_deviation(iteration_lib.state_payload(restored), live)
+    if deviation != 0.0 or info.global_step != MULTI_HEAD_STOP:
+        raise AssertionError("multi_head resume: stopped at %s, restore deviates by %g" % (info, deviation))
+    # A fresh process calls input_fn afresh; this one picks the stream up
+    # where the stopped run left it, so that the resumed run sees the
+    # uninterrupted run's batches.
+    skip = MULTI_HEAD_STOP % -(-TRAIN_EXAMPLES // TRAIN_BATCH)
+
+    def picked_up():
+        nonlocal skip
+        for batch in train_fn():
+            if skip:
+                skip -= 1
+                continue
+            yield batch
+
+    fresh.train(picked_up, max_steps=10**6)
+    resumed = dict(stop=MULTI_HEAD_STOP, restore_deviation=deviation,
+                   tensors=sum(1 for _ in _payload_tensors(live)),
+                   architectures_equal=all(
+                       _read_json(directory, "architecture-%d.json" % t)
+                       == _read_json(os.path.join(model_dir, "multi_head"), "architecture-%d.json" % t)
+                       for t in range(TRAIN_ITERATIONS)),
+                   frozen_1_deviation=_tree_deviation(
+                       ckpt.restore_payload(directory, "frozen-1.pt"),
+                       ckpt.restore_payload(os.path.join(model_dir, "multi_head"), "frozen-1.pt")))
+    if fresh.latest_global_step() != MULTI_HEAD_STEPS * TRAIN_ITERATIONS or not resumed["architectures_equal"] \
+            or resumed["frozen_1_deviation"] != 0.0:
+        raise AssertionError("multi_head resume: %s at step %d" % (resumed, fresh.latest_global_step()))
+
+    # Card against CPU, beside the CPU against itself with every initial
+    # parameter moved by a relative 1e-7 (random, from each of
+    # MOVED_SEEDS): how far such a search carries a rounding's worth of
+    # difference in 2 x 20 steps.
+    def converted(seed):
+        def convert(variables):
+            state = convert_simple_dnn(variables)
+            if seed is not None:
+                noise = torch.Generator().manual_seed(seed)
+                state = {k: v * (1.0 + 1e-7 * torch.randn(v.shape, generator=noise)) for k, v in state.items()}
+            return state
+
+        return lambda generator, head: WithInitialVariables(generator, 256, head.logits_dimension, convert=convert)
+
+    runs = {}
+    for run, device, seed in [("card", "cuda", None), ("cpu", "cpu", None)] + [
+            ("cpu_moved_%d" % s, "cpu", s) for s in MOVED_SEEDS]:
+        directory = os.path.join(model_dir, "multi_head_%s" % run)
+        estimator, labels = _multi_head_estimator(directory, device, "multi_head", MULTI_HEAD_PARITY_STEPS,
+                                                  wrap=converted(seed))
+        estimator.train(_weighted_fn(xtr, ytr, labels=labels, weighted=False), max_steps=10**6)
+        runs[run] = ([_read_json(directory, "candidate-metrics-%d.json" % t) for t in range(TRAIN_ITERATIONS)],
+                     estimator.evaluate(_weighted_fn(xte, yte, labels=labels, weighted=False)))
+
+    def gap(got_run, want_run, check):
+        """Max |got - want| / max(1, |want|) over the candidates' losses
+        and the final metrics (counted metrics apart); with `check`, each
+        within its `_parity_bound`, and the same winners wherever the
+        want run's two best EMAs are further apart than that."""
+        worst = {"losses": 0.0, "counted": 0.0}
+        for t, (got, want) in enumerate(zip(got_run[0], want_run[0])):
+            if sorted(got) != sorted(want):
+                raise AssertionError("multi_head_vs_cpu t=%d: candidates %s vs %s" % (t, sorted(got), sorted(want)))
+            for name in want:
+                for key in ("adanet_loss", "adanet_loss_ema"):
+                    err = abs(got[name][key] - want[name][key])
+                    if check and not err <= _parity_bound(key, want[name][key]):
+                        raise AssertionError("multi_head_vs_cpu t=%d %s %s: %r vs %r"
+                                             % (t, name, key, got[name][key], want[name][key]))
+                    worst["losses"] = max(worst["losses"], err / max(1.0, abs(want[name][key])))
+            if [n for n in got if got[n]["best"]] != [n for n in want if want[n]["best"]]:
+                emas = sorted(e["adanet_loss_ema"] for e in want.values())
+                if check and emas[1] - emas[0] > 1e-4 * max(1.0, abs(emas[0])):
+                    raise AssertionError("multi_head_vs_cpu t=%d: the winners differ" % t)
+                return dict(worst, near_tie_flip=t)
+        for key, value in want_run[1].items():
+            if isinstance(value, float):
+                err = abs(got_run[1][key] - value)
+                if check and not err <= _parity_bound(key, value):
+                    raise AssertionError("multi_head_vs_cpu final %s: %r vs %r" % (key, got_run[1][key], value))
+                part = "counted" if _parity_bound(key, value) == 1.0 / TRAIN_BATCH else "losses"
+                worst[part] = max(worst[part], err / max(1.0, abs(value)))
+        return dict(worst, near_tie_flip=None)
+
+    stats.update(resume=resumed, vs_cpu=dict(steps=MULTI_HEAD_PARITY_STEPS * TRAIN_ITERATIONS,
+                                             card_vs_cpu=gap(runs["card"], runs["cpu"], check=True),
+                                             cpu_moved_1e7_vs_cpu=[gap(runs["cpu_moved_%d" % s], runs["cpu"], check=False)
+                                                                   for s in MOVED_SEEDS]),
+                 phase_secs=time.perf_counter() - t_phase, card=card_line())
+    print("multi_head: " + json.dumps(stats))
+    return counts, stats
+
+
+def heads_vs_cpu(gen):
+    """Each of the five heads' loss, eval metrics and predictions at batch
+    HEADS_BATCH on the card against the CPU, without and with example
+    weights, the sigmoid heads also with their scores rounded into ties
+    (AUC's tie handling). Tolerances: losses and metrics 1e-5 x max(1,
+    |value|) (f32 reductions over 4096 rows in another order; AUC's
+    cumulative sums too), predictions 1e-6 (elementwise), class ids
+    equal."""
+    import torch
+
+    from adanet_tpu_torch.core.heads import (
+        BinaryClassificationHead,
+        MultiClassHead,
+        MultiHead,
+        MultiLabelHead,
+        RegressionHead,
+    )
+
+    b = HEADS_BATCH
+
+    def case(kind, ties):
+        dim = {"regression": 1, "binary": 1, "multilabel": 4, "multiclass": 10}[kind]
+        logits = torch.randn(b, dim, generator=gen) * 2.0
+        if ties:
+            logits = torch.round(logits)
+        if kind == "multiclass":
+            labels = torch.randint(0, dim, (b,), generator=gen)
+        elif kind == "regression":
+            labels = torch.randn(b, 1, generator=gen)
+        else:
+            labels = (torch.rand(b, dim, generator=gen) > 0.5).float()
+        return logits, labels
+
+    heads = {"regression": RegressionHead(), "binary": BinaryClassificationHead(), "multilabel": MultiLabelHead(4),
+             "multiclass": MultiClassHead(10)}
+    cases = {(kind, ties): case(kind, ties) for kind in heads for ties in (False, True)}
+    multi = MultiHead([MultiClassHead(10, name="digit"), BinaryClassificationHead(name="even"),
+                       RegressionHead(name="value")])
+    cases[("multi_head", False)] = tuple(
+        {k: cases[(kind, False)][i] for k, kind in (("digit", "multiclass"), ("even", "binary"),
+                                                     ("value", "regression"))} for i in (0, 1))
+    heads["multi_head"] = multi
+    weights = torch.rand(b, generator=gen) * 2.0
+    worst = {"metrics": 0.0, "predictions": 0.0}
+
+    def on(tree, device):
+        if isinstance(tree, dict):
+            return {k: on(v, device) for k, v in tree.items()}
+        return None if tree is None else tree.to(device)
+
+    checked = 0
+    for (kind, ties), (logits, labels) in sorted(cases.items()):
+        head = heads[kind]
+        for w in (None, weights):
+            if w is not None and kind == "multi_head":
+                w = {"digit": weights, "even": weights}
+            got = dict(head.eval_metrics(on(logits, "cuda"), on(labels, "cuda"), on(w, "cuda")))
+            got["loss"] = head.loss(on(logits, "cuda"), on(labels, "cuda"), on(w, "cuda"))
+            want = dict(head.eval_metrics(logits, labels, w))
+            want["loss"] = head.loss(logits, labels, w)
+            if sorted(got) != sorted(want):
+                raise AssertionError("heads_vs_cpu %s: keys %s vs %s" % (kind, sorted(got), sorted(want)))
+            for key, value in want.items():
+                err = abs(float(got[key]) - float(value))
+                if not err <= 1e-5 * max(1.0, abs(float(value))):
+                    raise AssertionError("heads_vs_cpu %s ties=%s weights=%s %s: card %r, cpu %r"
+                                         % (kind, ties, w is not None, key, float(got[key]), float(value)))
+                worst["metrics"] = max(worst["metrics"], err)
+                checked += 1
+        got = head.predictions(on(logits, "cuda"))
+        want = head.predictions(logits)
+        for key, value in want.items():
+            g = got[key].cpu()
+            if g.dtype != value.dtype or g.shape != value.shape:
+                raise AssertionError("heads_vs_cpu %s prediction %s: %s %s" % (kind, key, g.dtype, g.shape))
+            if not value.is_floating_point():
+                if not torch.equal(g, value):
+                    raise AssertionError("heads_vs_cpu %s prediction %s differs" % (kind, key))
+                continue
+            worst["predictions"] = max(worst["predictions"], check_close("heads_vs_cpu %s %s" % (kind, key),
+                                                                         g, value, 1e-6))
+    out = dict(batch=b, cases=len(cases), values_checked=checked, max_abs_err=worst)
+    print("heads_vs_cpu: " + json.dumps(out))
     return out
 
 
@@ -2781,6 +3443,12 @@ def main(argv=None):
         check_sepconv_grads(sep_shapes, rng)
         train_counts, _ = train_search(model_dir)
         train_vs_cpu()
+        t_selection = time.perf_counter()
+        selection_counts, _ = search_selection(model_dir, args.seed)
+        selection_vs_cpu(args.seed)
+        multi_head_counts, _ = multi_head_search(model_dir)
+        heads_vs_cpu(rng)
+        print("selection_phases: " + json.dumps({"secs": time.perf_counter() - t_selection, "card": card_line()}))
         nasnet_counts, _ = train_nasnet(model_dir)
         with deterministic_cudnn():
             resume_counts, _ = resume_nasnet(model_dir)
@@ -2839,6 +3507,9 @@ def main(argv=None):
             kernels[-1]["resume_launches"] = resume_counts["combine"]
             kernels[-1]["nasnet_gate_bf16_launches"] = gate_bf16_counts["combine"]
             kernels[-1]["nasnet_mobile_launches"] = mobile_counts["combine"]
+            kernels[-1]["selection_launches"] = selection_counts["combine"]
+            kernels[-1]["multi_head_launches"] = multi_head_counts["multi_head"]["combine"]
+            kernels[-1]["multi_label_launches"] = multi_head_counts["multi_label"]["combine"]
         if name == "sepconv":
             kernels[-1]["train_launches"] = nasnet_counts["sepconv"]
             kernels[-1]["nasnet_gate_launches"] = gate_counts["sepconv"]

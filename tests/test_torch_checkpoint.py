@@ -14,7 +14,10 @@
   `ckpt-*`, both manifests gone, `frozen-0` corrupt. Both give the same
   verdict, exit code, rollback iteration and step, and the same
   quarantined and retired names and issues once `.msgpack` reads `.pt`;
-  then the same manifest after repair.
+  then the same manifest after repair. With `keep_candidate_states`, the
+  retained `iteration-final-<t>` states in three more: one corrupt
+  (quarantined, no rollback), one missing (clean), and `frozen-1`
+  corrupt (the rollback retires `iteration-final-1`).
 - The port's `ckpt_fsck` CLI: exit codes 0, 1, 2 and 64 and its `--json`
   fields; `tools/payload_versions.py` runs on the CPU at a small size
   and both payload forms round-trip the same numbers.
@@ -194,7 +197,7 @@ def test_checkpoint_write_torn_fault(tmp_path, monkeypatch):
 # --------------------------------------------------------------------- fsck
 
 
-def _jax_estimator(model_dir):
+def _jax_estimator(model_dir, **kwargs):
     return adanet_tpu.Estimator(
         head=adanet_tpu.MultiClassHead(n_classes=10),
         subnetwork_generator=WithInitialVariables(
@@ -204,7 +207,7 @@ def _jax_estimator(model_dir):
         ),
         max_iteration_steps=STEPS, max_iterations=3,
         ensemblers=[JaxEnsembler(optimizer=optax.adam(1e-3), use_fused_combine=True)],
-        model_dir=model_dir, log_every_steps=0, save_checkpoint_steps=2,
+        model_dir=model_dir, log_every_steps=0, save_checkpoint_steps=2, **kwargs,
     )
 
 
@@ -309,6 +312,56 @@ def test_fsck_matches_jax(model_dirs, tmp_path, state):
                 "generation"):
         assert got[key] == want[key], (key, got[key], want[key])
     assert manifests["torch"] == manifests["jax"]
+
+
+@pytest.fixture(scope="module")
+def kept_dirs(tmp_path_factory):
+    """`model_dirs` trained with `keep_candidate_states=True`: the
+    `iteration-final-<t>` states of iterations 0 and 1 are on disk."""
+    xtr, ytr = make_dataset(4 * 32, seed=7)
+    root = tmp_path_factory.mktemp("fsck_kept")
+    dirs = {"jax": str(root / "jax"), "torch": str(root / "torch")}
+    _jax_estimator(dirs["jax"], keep_candidate_states=True).train(input_fn(xtr, ytr, 32), max_steps=STOP)
+    torch_estimator(dirs["torch"], keep_candidate_states=True).train(input_fn(xtr, ytr, 32), max_steps=STOP)
+    for d, suffix in ((dirs["jax"], ".msgpack"), (dirs["torch"], ".pt")):
+        for t in range(2):
+            assert os.path.exists(os.path.join(d, "iteration-final-%d%s" % (t, suffix)))
+    return dirs
+
+
+RETAINED_STATES = {
+    # state: (verdict, rolled back to iteration, quarantined, retired)
+    "final_corrupt": ("healed", None, ["iteration-final-1.pt.corrupt"], []),
+    "final_missing": ("clean", None, [], []),
+    "frozen_corrupt": ("healed", 1, ["frozen-1.pt.corrupt"],
+                       ["architecture-1.json.stale", "iteration-final-1.pt.stale", "ckpt-%d.pt.stale" % STOP]),
+}
+
+
+@pytest.mark.parametrize("state", sorted(RETAINED_STATES))
+def test_fsck_of_retained_states_matches_jax(kept_dirs, tmp_path, state):
+    """A corrupt `iteration-final-<t>` is quarantined and never blocks
+    resume; a missing one is no fault; a rollback past it retires it."""
+    reports = {}
+    for key, engine, suffix in (("jax", jax_integrity, ".msgpack"), ("torch", integrity, ".pt")):
+        d = str(tmp_path / key)
+        shutil.copytree(kept_dirs[key], d)
+        if state == "final_corrupt":
+            _flip(os.path.join(d, "iteration-final-1" + suffix))
+        elif state == "final_missing":
+            os.remove(os.path.join(d, "iteration-final-0" + suffix))
+        else:
+            _flip(os.path.join(d, "frozen-1" + suffix))
+        report = engine.fsck(d, repair=True).to_json()
+        reports[key] = {k: _as_pt(v) for k, v in report.items()}
+        assert engine.fsck(d).verdict == "clean"
+    verdict, iteration, quarantined, retired = RETAINED_STATES[state]
+    got, want = reports["torch"], reports["jax"]
+    assert (got["verdict"], got["rolled_back_to_iteration"]) == (verdict, iteration)
+    assert got["quarantined"] == quarantined and sorted(got["retired"]) == sorted(retired)
+    for key in ("verdict", "exit_code", "rolled_back_to_iteration", "rolled_back_global_step", "quarantined",
+                "retired", "issues", "ok", "manifest_rewritten", "iteration_number", "global_step", "generation"):
+        assert got[key] == want[key], (key, got[key], want[key])
 
 
 def test_fsck_of_a_fresh_dir_is_clean(tmp_path):

@@ -44,6 +44,8 @@ COPIES = {
     "adanet_tpu_torch/ensemble/strategy.py": "adanet_tpu/ensemble/strategy.py",
     "adanet_tpu_torch/examples/synthetic_digits.py": "adanet_tpu/examples/synthetic_digits.py",
     "adanet_tpu_torch/research/improve_nas/fake_data.py": "research/improve_nas/trainer/fake_data.py",
+    "adanet_tpu_torch/core/timer.py": "adanet_tpu/core/timer.py",
+    "adanet_tpu_torch/core/report_accessor.py": "adanet_tpu/core/report_accessor.py",
 }
 
 #: Top-level definitions a copy replaces on purpose ("__doc__": the
@@ -83,6 +85,11 @@ SLICE_MODULES = (
     "adanet_tpu_torch.utils.device_timing",
     "adanet_tpu_torch.utils.precision",
     "adanet_tpu_torch.utils.prefetch",
+    "adanet_tpu_torch.core.evaluator",
+    "adanet_tpu_torch.core.report_accessor",
+    "adanet_tpu_torch.core.report_materializer",
+    "adanet_tpu_torch.core.timer",
+    "adanet_tpu_torch.ensemble.mean",
 )
 
 
@@ -178,7 +185,10 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
     from adanet_tpu_torch import resolve_device
     from adanet_tpu_torch.core import TPUEstimator, export
     from adanet_tpu_torch.core.estimator import Estimator
-    from adanet_tpu_torch.core.heads import MultiClassHead
+    from adanet_tpu_torch.core.evaluator import Evaluator
+    from adanet_tpu_torch.core.heads import MultiClassHead, MultiHead, RegressionHead
+    from adanet_tpu_torch.core.report_materializer import ReportMaterializer
+    from adanet_tpu_torch.ensemble.mean import MeanEnsembler
     from adanet_tpu_torch.core.iteration import IterationBuilder
     from adanet_tpu_torch.ensemble.strategy import GrowStrategy
     from adanet_tpu_torch.ensemble.weighted import ComplexityRegularizedEnsembler
@@ -190,6 +200,11 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert resolve_device("cpu") == torch.device("cpu")
     head, generator = MultiClassHead(10), simple_dnn.Generator()
+    # The selection slice's arguments: an Evaluator, reports, retained
+    # states and example weights, over mean and multi-head candidates.
+    selection = dict(evaluator=Evaluator(lambda: iter(())), report_materializer=ReportMaterializer(lambda: iter(())),
+                     weight_key="w", keep_candidate_states=True, ensemblers=[MeanEnsembler()])
+    multi_head = MultiHead([RegressionHead(name="r"), MultiClassHead(3, name="c")])
     for call in (
         lambda: resolve_device(),
         lambda: resolve_device("cuda:0"),
@@ -200,6 +215,9 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
                              prefetch_to_device=True),
         lambda: DevicePrefetchIterator(iter([])),
         lambda: IterationBuilder(head, [ComplexityRegularizedEnsembler()], [GrowStrategy()]),
+        lambda: Estimator(multi_head, generator, 10, model_dir=str(tmp_path), **selection),
+        lambda: TPUEstimator(head, generator, 10, model_dir=str(tmp_path), **selection),
+        lambda: IterationBuilder(multi_head, [MeanEnsembler()], [GrowStrategy()], weight_key="w"),
         lambda: trainer.main(["--num_cells=3", "--train_steps=2", "--boosting_iterations=1",
                               "--model_dir", str(tmp_path)]),
     ):

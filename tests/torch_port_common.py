@@ -161,3 +161,98 @@ def unflatten(flat):
             node = node.setdefault(part, {})
         node[name] = value
     return tree
+
+
+def linear_dataset(n=64, dim=2, batch_size=16, seed=42, classification=False):
+    """tests/helpers.py's toy dataset (numpy only): an input_fn of
+    ({"x": [batch, dim]}, [batch, 1]) batches."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, dim).astype(np.float32)
+    w = np.linspace(1.0, 2.0, dim).astype(np.float32)
+    y = x @ w[:, None] + 0.1 * rng.randn(n, 1).astype(np.float32)
+    if classification:
+        y = (y > 0).astype(np.float32)
+
+    def input_fn():
+        for start in range(0, n, batch_size):
+            yield {"x": x[start:start + batch_size]}, y[start:start + batch_size]
+
+    return input_fn
+
+
+def dnn_builder(name, num_layers=1, learning_rate=0.1, hidden=8, nan_logits=False, with_report=False):
+    """The port's counterpart of tests/helpers.py's `DNNBuilder`: `hidden`
+    wide relu layers named `dense_<i>`, then `logits` (`logits_<head>`
+    for dict logits dimensions), SGD at `learning_rate`; with
+    `with_report`, a report with a `mean_logit` metric. Its parameters
+    are initialised from the engine's generator (LeCun-normal kernels,
+    zero biases, as Flax's Dense)."""
+    import math
+    from collections.abc import Mapping
+
+    import torch
+    from torch import nn
+
+    from adanet_tpu_torch.subnetwork.generator import Builder, Subnetwork
+    from adanet_tpu_torch.subnetwork.report import Report
+
+    class _DNN(nn.Module):
+        def __init__(self, input_dim, logits_dimension):
+            super().__init__()
+            width = input_dim
+            for i in range(num_layers):
+                setattr(self, "dense_%d" % i, nn.Linear(width, hidden))
+                width = hidden
+            self.heads = sorted(logits_dimension) if isinstance(logits_dimension, Mapping) else None
+            if self.heads is None:
+                self.logits = nn.Linear(width, logits_dimension)
+            else:
+                for key in self.heads:
+                    setattr(self, "logits_%s" % key, nn.Linear(width, logits_dimension[key]))
+
+        def init_parameters(self, generator):
+            with torch.no_grad():
+                for layer in self.children():
+                    std = math.sqrt(1.0 / layer.in_features) / 0.87962566103423978
+                    nn.init.trunc_normal_(layer.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+                    layer.bias.zero_()
+
+        def forward(self, features, training=False):
+            x = features["x"] if isinstance(features, Mapping) else features
+            x = x.to(torch.float32)
+            for i in range(num_layers):
+                x = torch.relu(getattr(self, "dense_%d" % i)(x))
+            if self.heads is None:
+                logits = self.logits(x)
+            else:
+                logits = {key: getattr(self, "logits_%s" % key)(x) for key in self.heads}
+            if nan_logits:
+                logits = logits * float("nan")
+            return Subnetwork(
+                last_layer=x if self.heads is None else {key: x for key in self.heads},
+                logits=logits,
+                complexity=float(np.sqrt(max(num_layers, 1))),
+                shared={"num_layers": num_layers},
+            )
+
+    class _Builder(Builder):
+        @property
+        def name(self):
+            return name
+
+        def build_subnetwork(self, logits_dimension, previous_ensemble=None, *, input_shape):
+            return _DNN(int(np.prod(input_shape)), logits_dimension)
+
+        def build_train_optimizer(self, previous_ensemble=None):
+            return lambda named: torch.optim.SGD([p for _, p in named], lr=learning_rate)
+
+        def build_subnetwork_report(self):
+            if not with_report:
+                return None
+            return Report(
+                hparams={"num_layers": num_layers},
+                attributes={"name": name},
+                metrics={"mean_logit": lambda subnetwork, features, labels: torch.mean(subnetwork.logits)},
+            )
+
+    return _Builder()
