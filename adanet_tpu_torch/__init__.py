@@ -8,7 +8,14 @@ with `ctypes`; each has a plain PyTorch version that runs only for CPU
 tensors.
 
 Every entry point runs on the card unless the caller passes
-`device="cpu"` (`_device.resolve_device`).
+`device="cpu"` (`_device.resolve_device`). As the JAX package does, the
+package exports `replay` and the AutoEnsemble estimators.
 """
 
 from adanet_tpu_torch._device import DEFAULT_DEVICE, resolve_device  # noqa: F401
+from adanet_tpu_torch import replay  # noqa: F401,E402
+from adanet_tpu_torch.autoensemble import (  # noqa: F401,E402
+    AutoEnsembleEstimator,
+    AutoEnsembleSubestimator,
+    AutoEnsembleTPUEstimator,
+)

@@ -70,9 +70,17 @@ reports to `<report_dir>/iteration_reports.json`, which the generator
 reads at later iterations; `keep_candidate_states` retains every
 candidate's final state (`iteration-final-<t>.pt`) for
 `evaluate_all_candidates`; a `weight_key` names the features' example
-weight column, which every loss and metric is weighted by. Replay, the
-artifact store, serving export and multi-host placement come with later
-slices.
+weight column, which every loss and metric is weighted by.
+
+Replay and bagging: a `replay_config` (`replay.Config`) takes each
+recorded iteration's winner without running the Evaluator, and
+`replay.json` is written after every completed iteration and at search
+end; a builder with a `train_input_fn` (an AutoEnsemble candidate's
+bagging stream) trains on batches from its own iterator, opened each
+iteration through the same debug check and prefetch as the shared one
+and closed when the iteration ends, and such an iteration takes single
+steps whatever `iterations_per_loop` says. The artifact store, serving
+export and multi-host placement come with later slices.
 """
 
 from __future__ import annotations
@@ -91,6 +99,7 @@ from typing import Any, Callable, Dict, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from adanet_tpu_torch import replay as replay_lib
 from adanet_tpu_torch._device import resolve_device
 from adanet_tpu_torch.core import candidate as candidate_lib
 from adanet_tpu_torch.core import checkpoint as ckpt_lib
@@ -108,7 +117,6 @@ from adanet_tpu_torch.robustness import faults as faults_lib
 from adanet_tpu_torch.robustness import integrity
 from adanet_tpu_torch.robustness import retry as retry_lib
 from adanet_tpu_torch.utils import precision
-from adanet_tpu_torch.utils.trees import tree_leaves
 from adanet_tpu_torch.utils.batches import (
     EVAL_FETCH_WINDOW,
     WeightedMeanAccumulator,
@@ -128,16 +136,43 @@ def _crossed(prev_step: int, step: int, interval: int) -> bool:
     return step // interval > prev_step // interval
 
 
+def _leaves_with_path(tree, path=""):
+    """(path, leaf) of `tree` but None, the path as the JAX package's
+    `keystr` writes it (`[0]['x']`), dict entries in sorted key order."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _leaves_with_path(tree[key], "%s[%r]" % (path, key))
+    elif isinstance(tree, (list, tuple)):
+        for i, item in enumerate(tree):
+            yield from _leaves_with_path(item, "%s[%d]" % (path, i))
+    elif tree is not None:
+        yield path, tree
+
+
 def _check_batch_finite(batch) -> None:
-    """Raises `FloatingPointError` when a float leaf of the host batch is
-    not finite (`debug=True`)."""
-    for leaf in tree_leaves(batch):
+    """Raises `FloatingPointError`, naming the leaf, when a float leaf of
+    the batch is not finite (`debug=True`)."""
+    for path, leaf in _leaves_with_path(batch):
         if torch.is_tensor(leaf):
             leaf = leaf.detach().float().cpu().numpy() if leaf.is_floating_point() else None
         if leaf is None or not np.issubdtype(np.asarray(leaf).dtype, np.floating):
             continue
         if not np.all(np.isfinite(leaf)):
-            raise FloatingPointError("Non-finite values in an input batch (debug=True).")
+            raise FloatingPointError("Non-finite values in input batch at %s (debug=True)." % path)
+
+
+class _Prepended:
+    """`first`, then the rest of the iterator `source` (which a close
+    reaches through `source`)."""
+
+    def __init__(self, first, source):
+        self._first, self.source = [first], source
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self._first.pop() if self._first else next(self.source)
 
 
 def _checked(source):
@@ -207,6 +242,8 @@ class Estimator:
       keep_candidate_states: keep every candidate's final state when an
         iteration completes (`iteration-final-<t>.pt`), so that
         `evaluate_all_candidates` works after the winner is frozen.
+      replay_config: a `replay.Config`: each iteration it records takes
+        the recorded winner, and no Evaluator runs for it.
     """
 
     def __init__(
@@ -238,6 +275,7 @@ class Estimator:
         profile_steps: int = 5,
         weight_key: Optional[str] = None,
         keep_candidate_states: bool = False,
+        replay_config=None,
     ):
         if max_iteration_steps is None or max_iteration_steps <= 0:
             raise ValueError(
@@ -265,6 +303,7 @@ class Estimator:
         self._report_materializer = report_materializer
         self._weight_key = weight_key
         self._keep_candidate_states = bool(keep_candidate_states)
+        self._replay_config = replay_config
         # The Evaluator's values of the last selection, for the
         # candidate-metrics record (None without an Evaluator).
         self._last_selection_values: Optional[list] = None
@@ -374,6 +413,9 @@ class Estimator:
         try:
             with full_f32_matmul():
                 self._train_loop(input_fn, max_steps, info)
+            # Search end: once more, for a resumed run that completed no
+            # iteration in this call.
+            self._write_replay_record()
         finally:
             if handler_installed:
                 signal.signal(signal.SIGTERM, previous_handler if previous_handler is not None else signal.SIG_DFL)
@@ -405,7 +447,9 @@ class Estimator:
 
             batch, data_iter = self._next_batch(input_fn, data_iter)
             sample_batch = batch
-            data_iter = itertools.chain([batch], data_iter)
+            if isinstance(data_iter, _Prepended):  # spent by the pull above
+                data_iter = data_iter.source
+            data_iter = _Prepended(batch, data_iter)
             iteration = self._build_iteration(t, sample_batch)
             state = self._init_or_restore_state(iteration, sample_batch, info)
             steps_done = state.iteration_step
@@ -416,6 +460,14 @@ class Estimator:
             profile = None
             profile_stop_at = None
             dead: set = set()
+            # Candidates with their own training data (bagging) pull from
+            # their own streams, opened afresh each iteration.
+            extra_input_fns = {
+                spec.name: spec.builder.train_input_fn
+                for spec in iteration.subnetwork_specs
+                if getattr(spec.builder, "train_input_fn", None) is not None
+            }
+            extra_iters: Dict[str, Iterator] = {}
             while (
                 steps_done < self._max_iteration_steps
                 and not self._stop_requested
@@ -427,12 +479,22 @@ class Estimator:
                 budget = self._max_iteration_steps - steps_done
                 if max_steps is not None:
                     budget = min(budget, max_steps - info.global_step)
-                loop_size = min(self._iterations_per_loop, budget)
-                batches = []
-                for _ in range(loop_size):
+                if extra_input_fns:
+                    # Bagged candidates pull their own batch each step, so
+                    # an iteration with one takes single steps.
+                    loop_size = 1
                     batch, data_iter = self._next_batch(input_fn, data_iter)
-                    batches.append(batch)
-                state, metrics = iteration.train_steps(state, batches)
+                    extra_batches = {}
+                    for name, fn in extra_input_fns.items():
+                        extra_batches[name], extra_iters[name] = self._next_batch(fn, extra_iters.get(name))
+                    state, metrics = iteration.train_step(state, batch, extra_batches)
+                else:
+                    loop_size = min(self._iterations_per_loop, budget)
+                    batches = []
+                    for _ in range(loop_size):
+                        batch, data_iter = self._next_batch(input_fn, data_iter)
+                        batches.append(batch)
+                    state, metrics = iteration.train_steps(state, batches)
                 prev_steps_done = steps_done
                 steps_done += loop_size
                 info.global_step += loop_size
@@ -454,6 +516,10 @@ class Estimator:
                     self._save_iteration_state(info, t, state)
             if profile is not None:
                 self._stop_profile(profile, t)
+            # The bagged streams end with their iteration: their prefetch
+            # workers are closed now, not when train() returns.
+            for extra_iter in extra_iters.values():
+                self._close_iter(extra_iter)
             if steps_done < self._max_iteration_steps:
                 # Stopped inside the iteration (max_steps or SIGTERM):
                 # persist the state; a fresh process resumes from here.
@@ -512,6 +578,14 @@ class Estimator:
             prefetcher.close()
         self._open_prefetchers.clear()
 
+    def _close_iter(self, data_iter) -> None:
+        """Closes `data_iter`'s prefetch worker, if it has one."""
+        if isinstance(data_iter, _Prepended):
+            data_iter = data_iter.source
+        if any(data_iter is p for p in self._open_prefetchers):
+            data_iter.close()
+            self._open_prefetchers[:] = [p for p in self._open_prefetchers if p is not data_iter]
+
     def _next_batch(self, input_fn, data_iter, attempts: int = 3):
         """The next batch, calling `input_fn` again at the end of its
         iterator; a transient data-source failure re-opens the pipeline
@@ -523,9 +597,9 @@ class Estimator:
                 faults_lib.trip("data.pull")
                 return next(data_iter), data_iter
             except StopIteration:
-                # The stream ended: its prefetcher (the only open one)
-                # goes before the next epoch's opens.
-                self._close_prefetchers()
+                # The stream ended: its prefetcher goes before the next
+                # epoch's opens.
+                self._close_iter(data_iter)
                 data_iter = self._make_train_iter(input_fn)
                 try:
                     return next(data_iter), data_iter
@@ -538,7 +612,8 @@ class Estimator:
                     "Transient data-source failure (pull attempt %d/%d): %s; re-opening the "
                     "input pipeline.", attempt + 1, attempts, exc,
                 )
-                self._close_prefetchers()
+                if data_iter is not None:
+                    self._close_iter(data_iter)
                 data_iter = None
         raise AssertionError("unreachable")  # pragma: no cover
 
@@ -704,10 +779,15 @@ class Estimator:
         ckpt_lib.remove_digest(self._model_dir, filename)
 
     def _get_best_ensemble_index(self, iteration, state) -> int:
-        """The reference's selection: the Evaluator's objective over its
-        values when there is an Evaluator, else the EMA argmin; with
-        `force_grow` at t>0 the carried-over ensemble is left out."""
+        """The reference's selection: the `replay_config`'s recorded index
+        for iteration t when it has one, else the Evaluator's objective
+        over its values when there is an Evaluator, else the EMA argmin;
+        with `force_grow` at t>0 the carried-over ensemble is left out."""
         self._last_selection_values = None
+        if self._replay_config:
+            index = self._replay_config.get_best_ensemble_index(iteration.iteration_number)
+            if index is not None:
+                return int(index)
         if len(iteration.ensemble_specs) == 1:
             return 0
         exclude_first = self._force_grow and iteration.iteration_number > 0
@@ -758,9 +838,23 @@ class Estimator:
         )
         ckpt_lib.write_manifest(self._model_dir, info)
         self._remove_state_file(stale_state)
+        # replay.json after every completed iteration, so that an
+        # interrupted search stays replayable up to here.
+        self._write_replay_record()
         if self._summary is not None:
             self._summary.close()
         return frozen
+
+    def _write_replay_record(self) -> None:
+        """Writes `replay.json`, derived afresh from the manifest and the
+        architecture files (so a rolled-back or resumed search never
+        keeps a stale record); a failure is logged, never raised."""
+        try:
+            config = replay_lib.Config.from_model_dir(self._model_dir, prefer_recorded=False)
+            if config.num_iterations:
+                config.save(os.path.join(self._model_dir, replay_lib.REPLAY_FILENAME))
+        except Exception:
+            _LOG.exception("Could not write the replay record; the search result itself is unaffected.")
 
     def _write_candidate_metrics(self, iteration, state, best_index, info) -> None:
         """`candidate-metrics-<t>.json`: each candidate's last adanet
@@ -997,8 +1091,11 @@ class Estimator:
         model on the CPU and predicts there, when the caller wants it
         (a model too large for the card's memory; the reference's
         inference fallback for embedding tables on the host); nothing
-        moves to the CPU otherwise."""
+        moves to the CPU otherwise. With `debug`, every batch is checked
+        for non-finite floats before the model sees it."""
         data = iter(input_fn())
+        if self._debug:
+            data = _checked(data)
         try:
             first = next(data)
         except StopIteration:

@@ -50,9 +50,19 @@ under the bf16 policy) and every `head.loss` and `head.eval_metrics`
 call gets them. An ensembler's parameters are a tree: `{"weights": [w,
 ...], "bias": b}` with a tensor or, for multi-head logits, a dict of
 tensors by key in each place, or `{}` for a mean ensemble, which has no
-optimizer, slots or guard and skips the ensemble update. Bagging (and
-with it the teachers' extra batches) and RoundRobin placement come with
-later slices.
+optimizer, slots or guard and skips the ensemble update.
+
+Bagging (`train_step(state, batch, extra_batches)`, the JAX
+`_train_step_impl`): a subnetwork named in `extra_batches` trains on its
+own batch (cast like the shared one under the bf16 policy, its weight
+column kept f32), with the teachers recomputed from the frozen members
+on its own features; its ensemble-facing output is then recomputed on
+the shared batch in training mode with its updated parameters, and the
+buffers that recompute moves are put back (the JAX step discards its
+mutated collections), so batch-norm statistics move once a step. The
+builder's summaries see the bagged forward. The recompute draws dropout
+from the engine's generator where the JAX step folds the step key with
+1000 + i. RoundRobin placement comes with a later slice.
 """
 
 from __future__ import annotations
@@ -642,12 +652,13 @@ class Iteration:
             for tag, value in (extra or {}).items()
         }
 
-    def train_step(self, state: IterationState, batch):
+    def train_step(self, state: IterationState, batch, extra_batches=None):
         """One step over every candidate on a (features, labels) batch.
-        Returns (state, metrics), metrics as 0-d tensors. Nothing is read
-        on the host."""
+        `extra_batches` maps subnetwork names to their own (features,
+        labels) batch (bagging). Returns (state, metrics), metrics as 0-d
+        tensors. Nothing is read on the host."""
         with full_f32_matmul():
-            return self._train_step(state, batch)
+            return self._train_step(state, batch, dict(extra_batches or {}))
 
     def train_steps(self, state: IterationState, batches):
         """K steps back to back, one a batch of `batches` (the JAX
@@ -667,13 +678,18 @@ class Iteration:
         ).tolist() if names else []
         return {n: (values[2 * i], bool(values[2 * i + 1])) for i, n in enumerate(names)}
 
-    def _train_step(self, state: IterationState, batch):
+    def _step_inputs(self, batch):
+        """(features, weights, labels) of a batch on the device; the
+        weights stay f32 under the bf16 policy: they are split out before
+        the cast."""
         features, labels = to_device(batch, self.device)
-        # The weights stay f32 under the bf16 policy: they are split out
-        # before the cast.
         features, weights = split_example_weights(features, self.weight_key)
         if self.step_compute_dtype is not None:
             features = precision.cast_floats(features, self.step_compute_dtype)
+        return features, weights, labels
+
+    def _train_step(self, state: IterationState, batch, extra_batches):
+        features, weights, labels = self._step_inputs(batch)
         metrics: Dict[str, Any] = {}
 
         # 1) The frozen members, once for every candidate, and the
@@ -681,24 +697,51 @@ class Iteration:
         frozen_outs = self.frozen_outputs(state.frozen, features)
         context = self.build_loss_context(state.ensembles[self.ensemble_specs[0].name].params, frozen_outs)
 
-        # 2) Every new subnetwork on its own loss.
+        # 2) Every new subnetwork on its own loss. A bagged subnetwork
+        #    trains on its own batch, with the teachers recomputed on its
+        #    features so that distillation pairs matching examples.
         sub_outs = {}
-        sub_updates = []
+        sub_updates = {}
         for spec in self.subnetwork_specs:
             st = state.subnetworks[spec.name]
             kwargs = {"generator": state.generator} if spec.takes_generator else {}
             guard = _Guard(st.module, st.optimizer)
-            out = st.module(features, training=True, **kwargs)
-            loss = spec.builder.build_subnetwork_loss(out, labels, self.head, context)
+            if spec.name in extra_batches:
+                own_features, own_weights, own_labels = self._step_inputs(extra_batches[spec.name])
+                own_context = self.build_loss_context(
+                    state.ensembles[self.ensemble_specs[0].name].params,
+                    self.frozen_outputs(state.frozen, own_features),
+                )
+            else:
+                own_features, own_weights, own_labels, own_context = features, weights, labels, context
+            out = st.module(own_features, training=True, **kwargs)
+            loss = spec.builder.build_subnetwork_loss(out, own_labels, self.head, own_context)
             if loss is None:
-                loss = self.head.loss(out.logits, labels, weights)
+                loss = self.head.loss(out.logits, own_labels, own_weights)
             params = list(st.module.parameters())
             grads = _grads(loss, params)
             finite = torch.isfinite(loss)
-            sub_updates.append((st, params, grads, guard, finite & tree_finite(grads) & ~st.dead, finite))
-            metrics.update(self.builder_summary_metrics(spec, out, features, labels))
+            sub_updates[spec.name] = (st, params, grads, guard, finite & tree_finite(grads) & ~st.dead, finite)
+            metrics.update(self.builder_summary_metrics(spec, out, own_features, own_labels))
             sub_outs[spec.name] = _detached(out)
             metrics["subnetwork_loss/%s" % spec.name] = loss.detach()
+        for spec in self.subnetwork_specs:
+            if spec.name not in extra_batches:
+                continue
+            # The ensembles see a bagged subnetwork on the shared batch,
+            # with its parameters after this step's update (the JAX
+            # step's recompute); the buffers this training-mode forward
+            # moves are put back, so that its statistics move once a step.
+            st, params, grads, guard, ok, _ = sub_updates[spec.name]
+            _step(st.optimizer, params, grads)
+            guard.keep(ok)
+            kwargs = {"generator": state.generator} if spec.takes_generator else {}
+            buffers = list(st.module.buffers())
+            kept = [b.clone() for b in buffers]
+            with torch.no_grad():
+                sub_outs[spec.name] = _detached(st.module(features, training=True, **kwargs))
+                for buffer, value in zip(buffers, kept):
+                    buffer.copy_(value)
 
         # 3) Every ensemble candidate's mixture weights on loss +
         #    complexity regularization, members as step 2 left them; a
@@ -723,11 +766,12 @@ class Iteration:
             metrics["adanet_loss/%s" % espec.name] = adanet_loss.detach()
             metrics["ensemble_loss/%s" % espec.name] = loss.detach()
 
-        # 4) Every optimizer steps; what was not finite is put back on
-        #    the device.
-        for st, params, grads, guard, ok, finite in sub_updates:
-            _step(st.optimizer, params, grads)
-            guard.keep(ok)
+        # 4) Every optimizer steps (a bagged one stepped above); what was
+        #    not finite is put back on the device.
+        for name, (st, params, grads, guard, ok, finite) in sub_updates.items():
+            if name not in extra_batches:
+                _step(st.optimizer, params, grads)
+                guard.keep(ok)
             st.step = st.step + ok.to(torch.int32)
             st.dead = st.dead | ~finite
         for est, params, grads, ok in ens_updates:

@@ -75,14 +75,17 @@ def _first_tensor(tree):
 
 @contextlib.contextmanager
 def full_f32_matmul():
-    """TF32 off for f32 matrix products: the MATRIX combine (JAX:
-    Precision.HIGHEST) and the training and eval steps' Dense layers."""
-    previous = torch.backends.cuda.matmul.allow_tf32
+    """TF32 off for f32 matrix products and convolutions: the MATRIX
+    combine (JAX: Precision.HIGHEST) and the training and eval steps'
+    Dense and convolution layers (cuDNN's TF32 is on by torch's default,
+    which would run an f32 convolution at a 10-bit mantissa)."""
+    previous = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = previous
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = previous
 
 
 class ComplexityRegularizedEnsembler(Ensembler):

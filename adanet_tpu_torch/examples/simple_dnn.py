@@ -27,6 +27,13 @@ from adanet_tpu_torch.subnetwork.report import Report
 _NUM_LAYERS_KEY = "num_layers"
 
 
+def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """Flax's default kernel init, in place: a normal truncated at two
+    standard deviations with variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
 class _SimpleDNN(nn.Module):
     """Fully-connected stack producing a `Subnetwork`. Its parameters are
     left uninitialised: the engine calls `init_parameters` with the
@@ -54,8 +61,7 @@ class _SimpleDNN(nn.Module):
         1/fan_in) and zero biases."""
         with torch.no_grad():
             for layer in self.children():
-                std = math.sqrt(1.0 / layer.in_features) / 0.87962566103423978
-                nn.init.trunc_normal_(layer.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+                lecun_normal_(layer.weight, layer.in_features, generator)
                 layer.bias.zero_()
 
     def forward(self, features, training: bool = False, generator: Optional[torch.Generator] = None):

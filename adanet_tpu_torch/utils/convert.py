@@ -22,6 +22,10 @@ same way, keeping its structure, and `convert_simple_dnn` a simple_dnn
 subnetwork's variables (a builder's `initial_variables` in the port).
 `WithInitialVariables` starts every simple_dnn candidate of either
 package from the same numbers, drawn in numpy (`simple_dnn_variables`).
+`convert_simple_cnn` carries a `SimpleCNN`'s variables, and
+`convert_module` the variables of any Flax module of Dense and Conv
+layers onto a torch module of Linear and Conv2d layers (an
+AutoEnsemble candidate's `initial_variables`).
 """
 
 from __future__ import annotations
@@ -208,3 +212,64 @@ class WithInitialVariables:
                 builder._num_layers, builder._layer_size, self._input_dim, self._n_classes, seed
             ))
         return builders
+
+
+def convert_simple_cnn(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX `SimpleCNN`'s variables (`{"params": {"conv_<i>_a", "conv_<i>_b":
+    {"kernel" HWIO, "bias"}, ..., "logits": {...}}}`, numpy leaves) -> the
+    `state_dict` of the port's `examples.simple_cnn.SimpleCNN`. Raises on
+    any other leaf."""
+    state = convert_variables(variables, collections=("params",))
+    unknown = [key for key in state if not re.fullmatch(r"(conv_\d+_[ab]|logits)\.(weight|bias)", key)]
+    if unknown:
+        raise ValueError("not a SimpleCNN subnetwork: %s" % unknown)
+    return state
+
+
+#: Flax's automatic layer names by the torch layer type they map to.
+_AUTO_NAMES = {torch.nn.Linear: "Dense", torch.nn.Conv2d: "Conv"}
+
+
+def convert_module(variables: Mapping[str, Any], module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The Flax variables of a user module (`{"params": tree}`, numpy
+    leaves; a tree nested under `inner`, as an AutoEnsemble wrapper holds
+    it, is unwrapped) -> the `state_dict` of the torch `module`.
+
+    Each layer of `module` that holds parameters (Linear or Conv2d, in
+    module order) takes the Flax layer of its own path (`conv1`,
+    `block.dense`) when the tree has one, else the next automatic name of
+    its type (`Dense_<i>`, `Conv_<i>`, counted in module order). Kernels
+    change layout as in `convert_variables`; every Flax layer must be
+    used once, and shapes must agree."""
+    tree = variables.get("params", variables)
+    if set(tree) == {"inner"}:
+        tree = tree["inner"]
+    flat = {".".join(path): value for path, value in _flatten(tree)}
+    counters: Dict[str, int] = {}
+    out: Dict[str, torch.Tensor] = {}
+    used = set()
+    for name, layer in module.named_modules():
+        own = dict(layer.named_parameters(recurse=False))
+        if not own:
+            continue
+        kind = next((auto for cls, auto in _AUTO_NAMES.items() if isinstance(layer, cls)), None)
+        if kind is None:
+            raise ValueError("cannot map layer %r of type %s" % (name, type(layer).__name__))
+        source = name
+        if not any(key.startswith(name + ".") for key in flat):
+            source = "%s_%d" % (kind, counters.get(kind, 0))
+            counters[kind] = counters.get(kind, 0) + 1
+        for param_name, param in own.items():
+            leaf = {"weight": "kernel"}.get(param_name, param_name)
+            key = "%s.%s" % (source, leaf)
+            if key not in flat:
+                raise ValueError("no Flax leaf %s for %s.%s" % (key.replace(".", "/"), name, param_name))
+            _, value = _leaf(tuple(key.split(".")), flat[key])
+            if tuple(value.shape) != tuple(param.shape):
+                raise ValueError("%s: Flax %s against torch %s" % (key, value.shape, tuple(param.shape)))
+            out["%s.%s" % (name, param_name) if name else param_name] = torch.from_numpy(np.array(value, copy=True))
+            used.add(key)
+    unused = sorted(set(flat) - used)
+    if unused:
+        raise ValueError("Flax leaves with no torch counterpart: %s" % unused)
+    return out

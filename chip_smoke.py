@@ -186,6 +186,33 @@
    |value|)) and predictions (1e-6; class ids equal) at batch 4096 on
    the card against the CPU, with and without weights, with forced ties.
    Phases 20-23's command time is printed on `selection_phases:`.
+24. `full_dnn_gate`: tests/test_convergence.py::
+   test_search_converges_to_target_accuracy (8192 digits, simple_dnn 256
+   wide with dropout 0.1, 3 x 800 steps, K1 fused): accuracy >= 0.94,
+   top-5 >= 0.99, K1 exact (one a candidate a step, one a test batch);
+   ms a step by the host clock and CUDA events over 100 steps of the
+   last iteration, and 5 traced steps (kernels and K1 a step).
+25. `cnn_search`: tests/test_convergence.py::test_cnn_family_converges
+   (CNNBuilder 1 and 2 blocks, 32 channels, bf16 convolutions, 2 x 400
+   steps): accuracy >= 0.89, K1 exact, the same timing fields;
+   `cnn_vs_cpu`: 2 x 20 steps of it on the card and the CPU from one
+   init, losses within (2 x 2 + 1) x 2^-8 x max(1, |value|), accuracy
+   within one example of a batch, beside the CPU's bf16 against f32.
+26. `autoensemble`: the bagging gate (three bootstrap-bagged MLPs, mean
+   ensemble, 150 steps; bagged >= the best single member, K1 0), again
+   with device prefetch (bagged streams closed at iteration end),
+   transfer_learning at its defaults with cuDNN's TF32 at torch's default
+   (accuracy > 0.3, TF32 off inside every step, the frozen member bitwise
+   the pretrained one, K1 exact) and boston_housing (finite, K1 exact).
+27. `replay_search`: the selection search at 2 x 50 steps, then replayed
+   from its `replay.json`: written after each iteration, no Evaluator
+   call, equal architecture files, K1 exact.
+28. `tutorials`: adanet_objective at its slow test's settings (lambda 0
+   grows a deeper member, lambda 1 keeps 1-layer ones), mnist_simple_dnn
+   and cifar10_cnn at 300 steps. 29. `predict_debug`: predict and
+   TPUEstimator.predict under debug=True raise on a NaN feature.
+   Phases 24-29's command time is printed on
+   `gates_autoensemble_replay_phases:`.
 
 Prints the per-shape K2 and K3 timings, the served latency and
 throughput, the `train:`, `train_nasnet:`, `resume_nasnet:`,
@@ -194,7 +221,9 @@ line (K1's row also with its launches on the search paths, K2's with its
 launches on the NASNet training paths, `train_launches`; both with
 `resume_launches`, `nasnet_gate_bf16_launches` and
 `nasnet_mobile_launches`; K1's with `selection_launches`,
-`multi_head_launches` (0) and `multi_label_launches`),
+`multi_head_launches` (0), `multi_label_launches`, `full_gate_launches`,
+`cnn_launches`, `bagging_launches` (0), `transfer_launches`,
+`boston_launches` and `replay_launches`),
 and as its last line `{"ok": true, "device": {...}}`. Any failure raises
 and exits non-zero.
 """
@@ -263,6 +292,11 @@ PARITY_STEPS = 50
 # Member counts of the search's combines: the carried-over winner of a
 # one-member iteration 0 (no grad) and a grown candidate (under autograd).
 SEARCH_COMBINE_MEMBERS = (1, 2)
+# The combines that the three-iteration searches (the full simple_dnn
+# gate, replay) and AutoEnsemble add, as [N, batch, classes]: N = 3 and 4
+# at [128, 10] (the full gate's t = 2, transfer_learning's grown
+# ensembles) and boston_housing's regression logits, N = 1-3 at [32, 1].
+SLICE_COMBINE_SHAPES = ((3, 128, 10), (4, 128, 10), (1, 32, 1), (2, 32, 1), (3, 32, 1))
 # search_selection: the gate's search with a held-out validation set for
 # the Evaluator (digits from seed 9), reports over this many training
 # batches, and selection_vs_cpu's steps per iteration.
@@ -271,6 +305,25 @@ SELECTION_VALID, SELECTION_REPORT_STEPS, SELECTION_PARITY_STEPS = 1024, 8, 50
 # (inside iteration 1) and the card-against-CPU steps per iteration;
 # heads_vs_cpu's batch.
 MULTI_HEAD_STEPS, MULTI_HEAD_STOP, MULTI_HEAD_PARITY_STEPS = 100, 150, 20
+# full_dnn_gate: tests/test_convergence.py::test_search_converges_to_target_accuracy
+# (8192 and 2048 digits, simple_dnn 256 wide with dropout 0.1, 3 x 800 steps).
+FULL_GATE_TRAIN, FULL_GATE_TEST, FULL_GATE_LAYER, FULL_GATE_DROPOUT = 8192, 2048, 256, 0.1
+FULL_GATE_STEPS, FULL_GATE_ITERATIONS, FULL_GATE_ACCURACY, FULL_GATE_TOP5 = 800, 3, 0.94, 0.99
+# cnn_search: tests/test_convergence.py::test_cnn_family_converges (CNNBuilder
+# 1 and 2 blocks, 32 channels, lr 0.02, 2 x 400 steps); cnn_vs_cpu's steps.
+CNN_TRAIN, CNN_TEST, CNN_CHANNELS, CNN_LR, CNN_STEPS, CNN_ACCURACY = 8192, 2048, 32, 0.02, 400, 0.89
+CNN_PARITY_STEPS = 20
+# cnn_vs_cpu's bound on losses, relative to max(1, |value|): twice the
+# largest reading of the bf16 CPU search against itself with its
+# parameters moved by 1e-7 (2.19e-4 on the H100 host's CPU), rounded up;
+# each run asserts that its moved readings stay below it.
+CNN_PARITY_BOUND = 5e-4
+# autoensemble: tests/test_autoensemble.py::test_bagging_improves_accuracy
+# (2048 noisy digits, 1024 test digits, 150 steps); transfer_learning's and
+# boston_housing's steps an iteration at their defaults, and the transfer
+# test digits; the reduced steps of mnist_simple_dnn and cifar10_cnn.
+BAGGING_TRAIN, BAGGING_TEST, BAGGING_STEPS = 2048, 1024, 150
+TRANSFER_STEPS, TRANSFER_TEST, BOSTON_STEPS, TUTORIAL_STEPS = 200, 1024, 200, 300
 # The seeds of the CPU runs whose initial parameters are moved by 1e-7.
 MOVED_SEEDS = (5, 11, 17)
 HEADS_BATCH = 4096
@@ -541,8 +594,9 @@ def check_combine(gen):
     (the stacked tensor with [N] / [N, C] weights, and the members as
     separate tensors with one weight tensor each, as the ensembler hands
     them). Then a member that is not 16-byte aligned (the scalar
-    variant) and N = 500 (stacked past the pointer table). Returns the
-    worst absolute error by dtype and the number of cases."""
+    variant) and N = 500 (stacked past the pointer table). Last, each
+    search's and AutoEnsemble's own shapes (`check_search_combine`).
+    Returns the worst absolute error by dtype and the number of cases."""
     import torch
 
     from adanet_tpu_torch.ops import ensemble_kernels as ek
@@ -584,18 +638,18 @@ def check_combine(gen):
                 worst[str(dtype).replace("torch.", "")], check_close(name, got, want, combine_tolerance(want)))
             cases += 1
     grads = 0.0
-    for batch in (TRAIN_BATCH, NASNET_BATCH):
-        for n in SEARCH_COMBINE_MEMBERS:
-            for use_bias in (False, True):
-                err, grad_err = check_search_combine(n, use_bias, gen, batch)
-                worst["float32"] = max(worst["float32"], err)
-                grads = max(grads, grad_err)
-                cases += 3
+    search_shapes = [(n, batch, 10) for batch in (TRAIN_BATCH, NASNET_BATCH) for n in SEARCH_COMBINE_MEMBERS]
+    for n, batch, classes in search_shapes + list(SLICE_COMBINE_SHAPES):
+        for use_bias in (False, True):
+            err, grad_err = check_search_combine(n, use_bias, gen, batch, classes)
+            worst["float32"] = max(worst["float32"], err)
+            grads = max(grads, grad_err)
+            cases += 3
     torch.cuda.synchronize()
     print("K1 checked at %d cases (buckets x N %s, %s, a misaligned member, N = 500, the searches' "
-          "[N %s, %d | %d, 10] forward and backward); worst abs err: %s, gradients %g"
+          "[N %s, %d | %d, 10] and %s forward and backward); worst abs err: %s, gradients %g"
           % (cases, COMBINE_MEMBERS, COMBINE_BYTE_BOUND, SEARCH_COMBINE_MEMBERS, TRAIN_BATCH, NASNET_BATCH,
-             dict(worst), grads))
+             SLICE_COMBINE_SHAPES, dict(worst), grads))
     return dict(worst), cases
 
 
@@ -1534,24 +1588,25 @@ def check_sepconv_grads(sep_shapes, gen, batch=2):
     return worst
 
 
+def fused_adam(params):
+    """Adam 1e-3, torch's fused form: one arithmetic on the card and the
+    CPU (`train_vs_cpu`): the Iteration makes Adam capturable on the card,
+    whose foreach form computes the bias corrections in f32 there where
+    the CPU's computes them in f64 on the host."""
+    import torch
+
+    return torch.optim.Adam(params, lr=1e-3, eps=1e-8, fused=True)
+
+
 def search_parts():
     """(head, simple_dnn generator, ensembler) of the gate's
     configuration, the combine fused."""
-    import torch
-
     from adanet_tpu_torch.core.heads import MultiClassHead
     from adanet_tpu_torch.ensemble.weighted import ComplexityRegularizedEnsembler
     from adanet_tpu_torch.examples import simple_dnn
 
-    def adam(params):
-        # torch's fused Adam, one arithmetic on the card and the CPU
-        # (`train_vs_cpu`): the Iteration makes Adam capturable on the card,
-        # whose foreach form computes the bias corrections in f32 there
-        # where the CPU's computes them in f64 on the host.
-        return torch.optim.Adam(params, lr=1e-3, eps=1e-8, fused=True)
-
-    generator = simple_dnn.Generator(optimizer_fn=adam, layer_size=LAYER_SIZE, initial_num_layers=1, seed=0)
-    ensembler = ComplexityRegularizedEnsembler(optimizer=adam, use_fused_combine=True)
+    generator = simple_dnn.Generator(optimizer_fn=fused_adam, layer_size=LAYER_SIZE, initial_num_layers=1, seed=0)
+    ensembler = ComplexityRegularizedEnsembler(optimizer=fused_adam, use_fused_combine=True)
     return MultiClassHead(10), generator, ensembler
 
 
@@ -1829,12 +1884,13 @@ def _recording_generator(generator):
     return seen
 
 
-def _selection_estimator(model_dir, device, steps, seed, generator_wrap=None):
+def _selection_estimator(model_dir, device, steps, seed, generator_wrap=None, **kwargs):
     """The search_selection configuration: the gate's simple_dnn search
     with a weighted (K1) and a mean ensembler under GrowStrategy, an
     Evaluator on SELECTION_VALID held-out digits (adanet_loss, minimized),
     a ReportMaterializer over the training digits, example weights from
-    `seed` and every candidate's final state kept. Returns (estimator,
+    `seed` and every candidate's final state kept; `kwargs` go to the
+    Estimator. Returns (estimator,
     training input_fn, test input_fn, validation input_fn, generator
     record)."""
     import numpy as np
@@ -1859,7 +1915,7 @@ def _selection_estimator(model_dir, device, steps, seed, generator_wrap=None):
         ensemblers=[ensembler, MeanEnsembler()],
         evaluator=Evaluator(valid_fn, metric_name="adanet_loss", objective=Objective.MINIMIZE),
         report_materializer=ReportMaterializer(_weighted_fn(xtr, ytr, weights), steps=SELECTION_REPORT_STEPS),
-        weight_key="w", keep_candidate_states=True, model_dir=model_dir, log_every_steps=0, device=device,
+        weight_key="w", keep_candidate_states=True, model_dir=model_dir, log_every_steps=0, device=device, **kwargs,
     )
     return estimator, train_fn, test_fn, valid_fn, seen
 
@@ -3390,6 +3446,584 @@ def nasnet_train_vs_cpu():
     return out, shapes
 
 
+def _counts(combine):
+    """The launch counts of a path that runs K1 only."""
+    return dict(copy=0, sepconv=0, cell=0, combine=combine)
+
+
+def _grow_candidates(builders, iterations):
+    """Candidates an iteration under GrowStrategy with one ensembler:
+    one a builder, and from iteration 1 the carried-over winner too."""
+    return [builders + (1 if t else 0) for t in range(iterations)]
+
+
+def _timed_search(estimator, train_fn, test_fn, steps, iterations):
+    """`estimator.train` and `evaluate` with the launch counts zeroed just
+    before and read just after; the last iteration's steps 11-110 timed
+    at their pulls and steps 121-125 traced (`_StepClock`). Returns
+    (metrics, counts, the timing numbers)."""
+    import torch
+
+    from adanet_tpu_torch import ops
+
+    last = steps * (iterations - 1)
+    clock = _StepClock(train_fn, first=last + 11, traced=last + 21 + STEP_WINDOW, window=STEP_WINDOW,
+                       traced_steps=TRACED_STEPS)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    estimator.train(clock, max_steps=10**6)
+    torch.cuda.synchronize()
+    train_secs = time.perf_counter() - t0
+    metrics = estimator.evaluate(test_fn)
+    counts = ops.launch_counts()
+    if estimator.latest_global_step() != steps * iterations or clock.pulls != steps * iterations:
+        raise AssertionError("search: %d steps, %d pulls" % (estimator.latest_global_step(), clock.pulls))
+    (host0, event0), (host1, event1) = clock.marks
+    host_ms = (host1 - host0) / STEP_WINDOW * 1e3
+    stats = dict(
+        steps=steps * iterations,
+        search_secs=train_secs,
+        search_ms_per_step=train_secs / (steps * iterations) * 1e3,
+        window_steps=[clock._first, clock._first + STEP_WINDOW - 1],
+        window_host_ms_per_step=host_ms,
+        window_event_ms_per_step=event0.elapsed_time(event1) / STEP_WINDOW,
+    )
+    stats.update(traced_step(clock.profile, host_ms))
+    return metrics, counts, stats
+
+
+def _check_k1(what, counts, steps, candidates, eval_batches, record_dir):
+    """K1 exactly: one launch a candidate a training step (every candidate
+    weighted) and one a test batch; the candidates an iteration as
+    derived, and as `candidate-metrics-<t>.json` lists them."""
+    listed = [len(_read_json(record_dir, "candidate-metrics-%d.json" % t)) for t in range(len(candidates))]
+    expected = _counts(steps * sum(candidates) + eval_batches)
+    if counts != expected or listed != candidates:
+        raise AssertionError("%s: launches %s, expected %s; candidates %s, derived %s"
+                             % (what, counts, expected, listed, candidates))
+
+
+def full_dnn_gate(model_dir):
+    """tests/test_convergence.py::test_search_converges_to_target_accuracy
+    on the card: 8192 training and 2048 test digits, simple_dnn 256 wide
+    with dropout 0.1, 3 x 800 steps at batch 128, adam 1e-3 on both sides,
+    the combine fused: accuracy >= 0.94, top-5 >= 0.99, K1 exact."""
+    from adanet_tpu_torch.core.estimator import Estimator
+    from adanet_tpu_torch.examples import simple_dnn
+    from adanet_tpu_torch.examples.synthetic_digits import input_fn, make_dataset
+
+    t_phase = time.perf_counter()
+    head, _, ensembler = search_parts()
+    generator = simple_dnn.Generator(optimizer_fn=fused_adam, layer_size=FULL_GATE_LAYER, initial_num_layers=1,
+                                     dropout=FULL_GATE_DROPOUT, seed=0)
+    xtr, ytr = make_dataset(FULL_GATE_TRAIN, seed=7)
+    xte, yte = make_dataset(FULL_GATE_TEST, seed=8)
+    directory = os.path.join(model_dir, "full_dnn_gate")
+    estimator = Estimator(head, generator, max_iteration_steps=FULL_GATE_STEPS, max_iterations=FULL_GATE_ITERATIONS,
+                          ensemblers=[ensembler], model_dir=directory, log_every_steps=0, device="cuda")
+    metrics, counts, stats = _timed_search(estimator, input_fn(xtr, ytr, TRAIN_BATCH), input_fn(xte, yte, TRAIN_BATCH),
+                                           FULL_GATE_STEPS, FULL_GATE_ITERATIONS)
+    candidates = _grow_candidates(2, FULL_GATE_ITERATIONS)
+    eval_batches = -(-FULL_GATE_TEST // TRAIN_BATCH)
+    _check_k1("full_dnn_gate", counts, FULL_GATE_STEPS, candidates, eval_batches, directory)
+    if not (metrics["accuracy"] >= FULL_GATE_ACCURACY and metrics["top_5_accuracy"] >= FULL_GATE_TOP5):
+        raise AssertionError("full_dnn_gate: %s below %s / top-5 %s" % (metrics, FULL_GATE_ACCURACY, FULL_GATE_TOP5))
+    stats = dict(accuracy=metrics["accuracy"], top_5_accuracy=metrics["top_5_accuracy"], loss=metrics["loss"],
+                 best_ensemble=metrics["best_ensemble"], candidates=candidates, k1_launches=counts["combine"],
+                 **stats, phase_secs=time.perf_counter() - t_phase, card=card_line())
+    print("full_dnn_gate: " + json.dumps(stats))
+    return counts, stats
+
+
+def _cnn_initial_state(builder, initial_seed, moved=None):
+    """The CPU state dict that `builder`'s SimpleCNN starts from in a
+    search seeded `initial_seed`, moved by a relative 1e-7 x N(0, 1) from
+    a generator seeded `moved` where that is given."""
+    import zlib
+
+    import torch
+
+    module = builder.build_subnetwork(10, input_shape=(16, 16, 1))
+    module.init_parameters(torch.Generator().manual_seed(zlib.crc32(builder.name.encode()) + initial_seed))
+    state = {k: v.clone() for k, v in module.state_dict().items()}
+    if moved is not None:
+        noise = torch.Generator().manual_seed(moved)
+        state = {k: v * (1.0 + 1e-7 * torch.randn(v.shape, generator=noise)) for k, v in state.items()}
+    return state
+
+
+def cnn_forward_precision(images):
+    """Each CNN candidate's forward at cnn_vs_cpu's initial parameters on
+    `images` (one batch): the card's bf16 logits against the CPU's, by
+    the mean absolute difference over the batch's logits, within a
+    quarter of bf16's own effect on them on the CPU (the mean of its f32
+    forward against its bf16 one). A rounding that flips moves a few
+    logits by as much as bf16 moves the largest (PERF.md), so the max
+    tells no precision apart; the mean does. The bound is held to its
+    derivation: the CPU's bf16 forward moved by a relative 1e-7 (each
+    of MOVED_SEEDS) stays within it, and the card's f32 forward does
+    not, so that a card computing the CNN in f32 fails it. The largest
+    differences are reported beside the means."""
+    import torch
+
+    from adanet_tpu_torch.ensemble.weighted import full_f32_matmul
+    from adanet_tpu_torch.examples import simple_cnn
+
+    out = {}
+    for blocks in (1, 2):
+        builder = simple_cnn.CNNBuilder(blocks, channels=CNN_CHANNELS, learning_rate=CNN_LR)
+
+        def logits(device, dtype, state):
+            module = simple_cnn.SimpleCNN(1, 10, blocks, CNN_CHANNELS, compute_dtype=dtype)
+            module.load_state_dict(state)
+            with torch.no_grad(), full_f32_matmul():
+                got = module.to(device)({"image": torch.from_numpy(images).to(device)}, training=False).logits
+            return got.float().cpu()
+
+        state = _cnn_initial_state(builder, 0)
+        want = logits("cpu", torch.bfloat16, state)
+
+        def gap(got):
+            diff = (got - want).abs()
+            return float(diff.mean()), float(diff.max())
+
+        moved = [gap(logits("cpu", torch.bfloat16, _cnn_initial_state(builder, 0, s))) for s in MOVED_SEEDS]
+        row = dict(cpu_f32=gap(logits("cpu", torch.float32, state)), cpu_moved_1e7=max(moved),
+                   card=gap(logits("cuda", torch.bfloat16, state)), card_f32=gap(logits("cuda", torch.float32, state)))
+        row["bound"] = 0.25 * row["cpu_f32"][0]
+        out[builder.name] = row
+        print("cnn_forward_precision %s (mean, max): %s" % (builder.name, json.dumps(row)))
+        if not (max(m[0] for m in moved) <= row["bound"] and row["card"][0] <= row["bound"] < row["card_f32"][0]):
+            raise AssertionError("cnn_forward_precision %s: %s" % (builder.name, row))
+    return out
+
+
+def _cnn_estimator(directory, device, steps, initial_seed=None, f32=False, moved=None):
+    """The CNN family gate's search (tests/test_convergence.py:66-97):
+    CNNBuilder(1 and 2 blocks, 32 channels, SGD 0.02 with momentum, bf16
+    convolutions), adam 1e-3 mixture weights, the combine fused. With
+    `initial_seed`, every candidate starts from parameters drawn by
+    `SimpleCNN.init_parameters` from a generator seeded from it and the
+    builder's name (card and CPU alike), each then moved by a relative
+    1e-7 x N(0, 1) from a generator seeded `moved` where that is given;
+    `f32` computes in f32."""
+    import torch
+
+    from adanet_tpu_torch.core.estimator import Estimator
+    from adanet_tpu_torch.examples import simple_cnn
+    from adanet_tpu_torch.subnetwork.generator import SimpleGenerator
+
+    class F32Builder(simple_cnn.CNNBuilder):
+        def build_subnetwork(self, logits_dimension, previous_ensemble=None, *, input_shape):
+            return simple_cnn.SimpleCNN(input_shape[-1], logits_dimension, self._num_blocks, self._channels,
+                                        compute_dtype=torch.float32)
+
+    builder = F32Builder if f32 else simple_cnn.CNNBuilder
+    pool = [builder(b, channels=CNN_CHANNELS, learning_rate=CNN_LR) for b in (1, 2)]
+    if initial_seed is not None:
+        for builder in pool:
+            builder.initial_variables = _cnn_initial_state(builder, initial_seed, moved)
+    head, _, ensembler = search_parts()
+    return Estimator(head, SimpleGenerator(pool), max_iteration_steps=steps, max_iterations=TRAIN_ITERATIONS,
+                     ensemblers=[ensembler], model_dir=directory, log_every_steps=0, device=device)
+
+
+def cnn_search(model_dir):
+    """tests/test_convergence.py::test_cnn_family_converges on the card:
+    8192 training and 2048 test digit images, 2 x 400 steps at batch 128:
+    accuracy >= 0.89 and above the linear baseline, K1 exact."""
+    from adanet_tpu_torch.examples.synthetic_digits import image_input_fn, make_dataset
+
+    t_phase = time.perf_counter()
+    xtr, ytr = make_dataset(CNN_TRAIN, seed=7)
+    xte, yte = make_dataset(CNN_TEST, seed=8)
+    directory = os.path.join(model_dir, "cnn_search")
+    estimator = _cnn_estimator(directory, "cuda", CNN_STEPS)
+    metrics, counts, stats = _timed_search(estimator, image_input_fn(xtr, ytr, TRAIN_BATCH),
+                                           image_input_fn(xte, yte, TRAIN_BATCH), CNN_STEPS, TRAIN_ITERATIONS)
+    candidates = _grow_candidates(2, TRAIN_ITERATIONS)
+    _check_k1("cnn_search", counts, CNN_STEPS, candidates, -(-CNN_TEST // TRAIN_BATCH), directory)
+    if not (metrics["accuracy"] >= CNN_ACCURACY and metrics["accuracy"] > LINEAR_BASELINE_ACCURACY):
+        raise AssertionError("cnn_search: %s below %s" % (metrics, CNN_ACCURACY))
+    stats = dict(accuracy=metrics["accuracy"], top_5_accuracy=metrics["top_5_accuracy"], loss=metrics["loss"],
+                 best_ensemble=metrics["best_ensemble"], candidates=candidates, k1_launches=counts["combine"],
+                 **stats, phase_secs=time.perf_counter() - t_phase, card=card_line())
+    print("cnn_search: " + json.dumps(stats))
+    return counts, stats
+
+
+def cnn_vs_cpu(model_dir):
+    """The CNN search at 2 x CNN_PARITY_STEPS on the card and on the CPU
+    from the same initial parameters, bf16 convolutions on both: every
+    candidate's adanet loss and EMA and the final loss within
+    CNN_PARITY_BOUND x max(1, |value|); accuracy and top-5 within one
+    example of a batch (1/128); the same winners wherever the CPU's two
+    best EMAs are further apart than the bound. Beside it: the CPU
+    against itself with every initial parameter moved by a relative 1e-7
+    (from each of MOVED_SEEDS), which the bound lies above (asserted),
+    and the same search in f32 on the CPU. 40 steps carry a 1e-7 move as
+    far as bf16 itself moves these numbers, so the precision is held at
+    the forward instead (`cnn_forward_precision`)."""
+    from adanet_tpu_torch.examples.synthetic_digits import image_input_fn, make_dataset
+
+    xtr, ytr = make_dataset(TRAIN_BATCH * CNN_PARITY_STEPS * TRAIN_ITERATIONS, seed=7)
+    xte, yte = make_dataset(CNN_TEST, seed=8)
+    forward = cnn_forward_precision(xte[:TRAIN_BATCH])
+    bound = CNN_PARITY_BOUND
+    runs = {}
+    for run, device, kwargs in [("card", "cuda", {}), ("cpu", "cpu", {}), ("cpu_f32", "cpu", dict(f32=True))] + [
+            ("cpu_moved_%d" % s, "cpu", dict(moved=s)) for s in MOVED_SEEDS]:
+        directory = os.path.join(model_dir, "cnn_vs_cpu_%s" % run)
+        estimator = _cnn_estimator(directory, device, CNN_PARITY_STEPS, initial_seed=0, **kwargs)
+        estimator.train(image_input_fn(xtr, ytr, TRAIN_BATCH), max_steps=10**6)
+        runs[run] = ([_read_json(directory, "candidate-metrics-%d.json" % t) for t in range(TRAIN_ITERATIONS)],
+                     estimator.evaluate(image_input_fn(xte, yte, TRAIN_BATCH)))
+
+    def gap(got_run, want_run, check):
+        worst = {"losses": 0.0, "counted": 0.0, "flip": None}
+        for t, (got, want) in enumerate(zip(got_run[0], want_run[0])):
+            for name in want:
+                for key in ("adanet_loss", "adanet_loss_ema"):
+                    err = abs(got[name][key] - want[name][key]) / max(1.0, abs(want[name][key]))
+                    if check and not err <= bound:
+                        raise AssertionError("cnn_vs_cpu t=%d %s %s: %r vs %r" % (t, name, key, got[name][key],
+                                                                                 want[name][key]))
+                    worst["losses"] = max(worst["losses"], err)
+            if [n for n in got if got[n]["best"]] != [n for n in want if want[n]["best"]]:
+                emas = sorted(e["adanet_loss_ema"] for e in want.values())
+                if check and emas[1] - emas[0] > bound * max(1.0, abs(emas[0])):
+                    raise AssertionError("cnn_vs_cpu t=%d: the winners differ" % t)
+                worst["flip"] = t
+                return worst
+        for key, value in want_run[1].items():
+            if isinstance(value, float):
+                counted = key.startswith(("accuracy", "top_5"))
+                err = abs(got_run[1][key] - value) / (1.0 if counted else max(1.0, abs(value)))
+                if check and not err <= (1.0 / TRAIN_BATCH if counted else bound):
+                    raise AssertionError("cnn_vs_cpu final %s: %r vs %r" % (key, got_run[1][key], value))
+                part = "counted" if counted else "losses"
+                worst[part] = max(worst[part], err)
+        return worst
+
+    moved = [gap(runs["cpu_moved_%d" % s], runs["cpu"], False) for s in MOVED_SEEDS]
+    out = dict(steps=CNN_PARITY_STEPS * TRAIN_ITERATIONS, bound=bound, card_vs_cpu=gap(runs["card"], runs["cpu"], True),
+               cpu_moved_1e7_vs_cpu=moved, cpu_bf16_vs_f32=gap(runs["cpu"], runs["cpu_f32"], False),
+               forward=forward, card=card_line())
+    if max(m["losses"] for m in moved) > bound:
+        raise AssertionError("cnn_vs_cpu: the bound %g is below the moved CPU runs: %s" % (bound, out))
+    print("cnn_vs_cpu: " + json.dumps(out))
+    return out
+
+
+def _mlp(out, dim):
+    import torch
+    from torch import nn
+
+    class MLP(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.hidden = nn.Linear(dim, 8)
+            self.logits = nn.Linear(8, out)
+
+        def forward(self, features, training=False):
+            return self.logits(torch.relu(self.hidden(features["x"].float())))
+
+    return MLP()
+
+
+def bagging_gate(model_dir, **estimator_kwargs):
+    """tests/test_autoensemble.py::test_bagging_improves_accuracy on the
+    card: 2048 digits with 25% of the labels redrawn, three MLPs each on
+    its own bootstrap stream, MeanEnsembler under AllStrategy, 150 steps,
+    against each member alone: the bagged ensemble's accuracy at least
+    the best single member's, and no K1 launch (mean candidates). With
+    `estimator_kwargs` (prefetch), also: each iteration's bagged streams
+    closed before it completes, and no prefetcher left open."""
+    import numpy as np
+    import torch
+
+    from adanet_tpu_torch import ops
+    from adanet_tpu_torch.autoensemble import AutoEnsembleEstimator, AutoEnsembleSubestimator
+    from adanet_tpu_torch.core.heads import MultiClassHead
+    from adanet_tpu_torch.ensemble.mean import MeanEnsembler
+    from adanet_tpu_torch.ensemble.strategy import AllStrategy
+    from adanet_tpu_torch.examples.synthetic_digits import make_dataset
+
+    xtr, ytr = make_dataset(BAGGING_TRAIN, seed=3)
+    xte, yte = make_dataset(BAGGING_TEST, seed=4)
+    noise_rng = np.random.RandomState(0)
+    flip = noise_rng.rand(len(ytr)) < 0.25
+    ytr = np.where(flip, noise_rng.randint(0, 10, size=len(ytr)), ytr)
+    xtr = xtr.reshape(len(xtr), -1).astype(np.float32)
+    xte = xte.reshape(len(xte), -1).astype(np.float32)
+
+    def stream(seed, batch=64):
+        def fn():
+            idx = np.random.RandomState(seed).randint(0, len(xtr), size=len(xtr))
+            for start in range(0, len(idx) - batch + 1, batch):
+                take = idx[start:start + batch]
+                yield {"x": xtr[take]}, ytr[take]
+
+        return fn
+
+    def eval_stream(batch=64):
+        for start in range(0, len(xte) - batch + 1, batch):
+            yield {"x": xte[start:start + batch]}, yte[start:start + batch]
+
+    def members():
+        return {"bag_%d" % k: AutoEnsembleSubestimator(
+            _mlp(10, xtr.shape[1]), optimizer=lambda params: torch.optim.Adam(params, lr=2e-3, fused=True),
+            train_input_fn=stream(100 + k)) for k in range(3)}
+
+    open_at_completion = []
+
+    class Probe(AutoEnsembleEstimator):
+        def _complete_iteration(self, *args, **kwargs):
+            open_at_completion.append(len(self._open_prefetchers))
+            return super()._complete_iteration(*args, **kwargs)
+
+    def run(pool, name):
+        est = Probe(head=MultiClassHead(10), candidate_pool=pool, ensemblers=[MeanEnsembler()],
+                    ensemble_strategies=[AllStrategy()], max_iteration_steps=BAGGING_STEPS, max_iterations=1,
+                    model_dir=os.path.join(model_dir, name), log_every_steps=0, device="cuda", **estimator_kwargs)
+        est.train(stream(9), max_steps=BAGGING_STEPS)
+        metrics = est.evaluate(eval_stream)
+        if est._open_prefetchers:
+            raise AssertionError("bagging: %d prefetchers left open" % len(est._open_prefetchers))
+        return metrics
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    bagged = run(members(), "bagged")
+    counts = ops.launch_counts()
+    singles = [run({name: sub}, "single_%s" % name)["accuracy"] for name, sub in members().items()]
+    out = dict(bagged_accuracy=bagged["accuracy"], single_accuracies=singles, k1_launches=counts["combine"],
+               secs=time.perf_counter() - t0, **{key: str(value) for key, value in estimator_kwargs.items()})
+    if estimator_kwargs:
+        # One shared stream stays open while an iteration completes; its
+        # bagged streams are closed by then.
+        out["open_prefetchers_at_completion"] = open_at_completion
+        if open_at_completion != [1] * 4:
+            raise AssertionError("bagging prefetchers open at iteration end: %s" % open_at_completion)
+    if counts != _counts(0) or not bagged["accuracy"] >= max(singles):
+        raise AssertionError("bagging gate: %s" % out)
+    return counts, out
+
+
+def transfer_on_card(model_dir):
+    """The transfer_learning tutorial at its defaults on the card (300
+    pretraining steps, 2 x 200 search steps), with cuDNN's TF32 at
+    torch's default (on) so that the port's own guards are what turn it
+    off: accuracy > 0.3, every f32 convolution of the pretraining loop
+    and of a training or eval step run with TF32 off, the frozen
+    member's parameters bitwise the
+    pretrained ones at each iteration's end, K1 exact."""
+    import torch
+
+    from adanet_tpu_torch import ops
+    from adanet_tpu_torch.autoensemble import AutoEnsembleEstimator
+    from adanet_tpu_torch.examples.tutorials import transfer_learning
+
+    pretrain, forward, complete = (transfer_learning.pretrain, transfer_learning.ConvEncoder.forward,
+                                   AutoEnsembleEstimator._complete_iteration)
+    captured, flags, frozen_equal = {}, set(), []
+
+    def recorded_pretrain(*args, **kwargs):
+        captured["pretrained"], loss = pretrain(*args, **kwargs)
+        ops.reset_launch_counts()
+        return captured["pretrained"], loss
+
+    def recorded_forward(self, features, training=False):
+        flags.add(torch.backends.cudnn.allow_tf32)
+        return forward(self, features, training)
+
+    def recorded_complete(self, iteration, state, *args, **kwargs):
+        live = state.subnetworks["pretrained_frozen"].module.inner.state_dict()
+        frozen_equal.append(all(torch.equal(live[k].cpu(), v) for k, v in captured["pretrained"].items()))
+        return complete(self, iteration, state, *args, **kwargs)
+
+    transfer_learning.pretrain, transfer_learning.ConvEncoder.forward = recorded_pretrain, recorded_forward
+    AutoEnsembleEstimator._complete_iteration = recorded_complete
+    previous_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    t0 = time.perf_counter()
+    try:
+        metrics = transfer_learning.main(["--model_dir=%s" % os.path.join(model_dir, "transfer")])
+        counts = ops.launch_counts()
+    finally:
+        torch.backends.cudnn.allow_tf32 = previous_tf32
+        transfer_learning.pretrain, transfer_learning.ConvEncoder.forward = pretrain, forward
+        AutoEnsembleEstimator._complete_iteration = complete
+    # Three candidates at t = 0, the carried-over winner too at t = 1; one
+    # K1 a candidate a step, one a test batch.
+    expected = _counts(TRANSFER_STEPS * sum(_grow_candidates(3, TRAIN_ITERATIONS)) + -(-TRANSFER_TEST // TRAIN_BATCH))
+    out = dict(accuracy=metrics["accuracy"], best_ensemble=metrics["best_ensemble"], tf32_in_forwards=sorted(flags),
+               frozen_bitwise=frozen_equal, k1_launches=counts["combine"], secs=time.perf_counter() - t0)
+    if not (metrics["accuracy"] > 0.3 and flags == {False} and frozen_equal == [True] * TRAIN_ITERATIONS
+            and counts == expected):
+        raise AssertionError("transfer_learning: %s, expected launches %s" % (out, expected))
+    return counts, out
+
+
+def boston_on_card(model_dir):
+    """The boston_housing tutorial at its defaults on the card (3 x 200
+    steps, the synthetic stand-in): a finite average loss, K1 exact."""
+    import math
+
+    from adanet_tpu_torch import ops
+    from adanet_tpu_torch.examples.tutorials import boston_housing
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = boston_housing.main(["--model_dir=%s" % os.path.join(model_dir, "boston")])
+    counts = ops.launch_counts()
+    test_batches = (506 - int(0.8 * 506)) // 32
+    expected = _counts(BOSTON_STEPS * sum(_grow_candidates(2, 3)) + test_batches)
+    out = dict(average_loss=metrics["average_loss"], k1_launches=counts["combine"], secs=time.perf_counter() - t0)
+    if not math.isfinite(metrics["average_loss"]) or counts != expected:
+        raise AssertionError("boston_housing: %s, expected launches %s" % (out, expected))
+    return counts, out
+
+
+def autoensemble(model_dir):
+    """The AutoEnsemble phases: the bagging gate, again with device
+    prefetch, transfer_learning and boston_housing."""
+    t_phase = time.perf_counter()
+    bagging_counts, bagging = bagging_gate(os.path.join(model_dir, "bagging"))
+    _, prefetched = bagging_gate(os.path.join(model_dir, "bagging_prefetch"), prefetch_buffer=2,
+                                 prefetch_to_device=True)
+    transfer_counts, transfer = transfer_on_card(model_dir)
+    boston_counts, boston = boston_on_card(model_dir)
+    stats = dict(bagging=bagging, bagging_prefetched=prefetched, transfer_learning=transfer, boston_housing=boston,
+                 phase_secs=time.perf_counter() - t_phase, card=card_line())
+    print("autoensemble: " + json.dumps(stats))
+    return dict(bagging=bagging_counts, transfer=transfer_counts, boston=boston_counts), stats
+
+
+def replay_search(model_dir, seed):
+    """`_selection_estimator`'s search at 2 x SELECTION_PARITY_STEPS on
+    the card, then again from `replay.Config.from_model_dir` of the first:
+    `replay.json` written after each iteration (1 then 2 indices) and at
+    search end; the replayed run calls its Evaluator 0 times and writes
+    the same architecture files and record; its K1 launches exact (one a
+    weighted candidate a step, one a test batch of a weighted winner; no
+    Evaluator batch)."""
+    from adanet_tpu_torch import ops, replay
+
+    t_phase = time.perf_counter()
+    first_dir, replay_dir = os.path.join(model_dir, "replay_first"), os.path.join(model_dir, "replay_replayed")
+    first, train_fn, test_fn, _, _ = _selection_estimator(first_dir, "cuda", SELECTION_PARITY_STEPS, seed)
+    written = []
+    record = first._write_replay_record
+
+    def recorded():
+        record()
+        written.append(len(_read_json(first_dir, replay.REPLAY_FILENAME)["best_ensemble_indices"]))
+
+    first._write_replay_record = recorded
+    first.train(train_fn, max_steps=10**6)
+    replayed, train_fn, test_fn, _, _ = _selection_estimator(replay_dir, "cuda", SELECTION_PARITY_STEPS, seed,
+                                                             replay_config=replay.Config.from_model_dir(first_dir))
+    evaluator = _Timed(replayed._evaluator, "evaluate")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    replayed.train(train_fn, max_steps=10**6)
+    metrics = replayed.evaluate(test_fn)
+    counts = ops.launch_counts()
+    replay_secs = time.perf_counter() - t0
+    weighted = [sum(_is_weighted(n) for n in _read_json(replay_dir, "candidate-metrics-%d.json" % t))
+                for t in range(TRAIN_ITERATIONS)]
+    final = _read_json(replay_dir, "architecture-%d.json" % (TRAIN_ITERATIONS - 1))
+    final_weighted = final["ensembler_name"] == "complexity_regularized"
+    expected = _counts(SELECTION_PARITY_STEPS * sum(weighted) + -(-EVAL_EXAMPLES // TRAIN_BATCH) * final_weighted)
+    same = all(_read_json(replay_dir, name) == _read_json(first_dir, name)
+               for name in ["architecture-%d.json" % t for t in range(TRAIN_ITERATIONS)] + [replay.REPLAY_FILENAME])
+    out = dict(replay_json_indices_after_each_write=written, evaluator_calls=evaluator.calls,
+               architectures_and_record_equal=same, indices=replayed._replay_config.best_ensemble_indices,
+               weighted_candidates=weighted, accuracy=metrics["accuracy"], k1_launches=counts["combine"],
+               replay_secs=replay_secs, phase_secs=time.perf_counter() - t_phase, card=card_line())
+    if written != [1, 2, 2] or evaluator.calls != 0 or not same or counts != expected:
+        raise AssertionError("replay_search: %s, expected launches %s" % (out, expected))
+    print("replay_search: " + json.dumps(out))
+    return counts, out
+
+
+def tutorials_on_card(model_dir):
+    """adanet_objective at tests/test_examples.py:98-125's settings (120
+    steps, 1024 examples, lambda 0 and 1): lambda = 0 grows a 2- or
+    3-layer member, every lambda = 1 member is 1-layer; mnist_simple_dnn
+    on its stand-in and cifar10_cnn on synthetic data at reduced steps:
+    finite losses."""
+    import math
+
+    from adanet_tpu_torch import ops
+    from adanet_tpu_torch.examples.tutorials import adanet_objective, cifar10_cnn, mnist_simple_dnn
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    results = adanet_objective.main(["--steps", "120", "--train_size", "1024", "--lambdas", "0.0,1.0",
+                                     "--model_dir", os.path.join(model_dir, "objective")])
+    free, priced = results[0.0][0], results[1.0][0]
+    mnist = mnist_simple_dnn.main(["--max_steps=%d" % TUTORIAL_STEPS, "--iterations=3",
+                                   "--model_dir=%s" % os.path.join(model_dir, "mnist")])
+    cifar = cifar10_cnn.main(["--max_steps=%d" % TUTORIAL_STEPS, "--iterations=3",
+                              "--model_dir=%s" % os.path.join(model_dir, "cifar10")])
+    counts = ops.launch_counts()
+    out = dict(objective={str(lam): dict(members=m, accuracy=a) for lam, (m, a) in results.items()},
+               mnist_simple_dnn=dict(loss=mnist["loss"], accuracy=mnist["accuracy"]),
+               cifar10_cnn=dict(loss=cifar["loss"], accuracy=cifar["accuracy"]),
+               reduced={"mnist_simple_dnn": "--max_steps %d of 3000" % TUTORIAL_STEPS,
+                        "cifar10_cnn": "--max_steps %d of 3000" % TUTORIAL_STEPS},
+               k1_launches=counts["combine"], phase_secs=time.perf_counter() - t_phase, card=card_line())
+    flips = (any("2_layer" in m or "3_layer" in m for m in free) and priced
+             and all("1_layer" in m for m in priced))
+    if not (flips and math.isfinite(mnist["loss"]) and math.isfinite(cifar["loss"]) and counts["combine"] > 0):
+        raise AssertionError("tutorials: %s" % out)
+    print("tutorials: " + json.dumps(out))
+    return counts, out
+
+
+def predict_debug(model_dir):
+    """F3 on the card: under debug=True, Estimator.predict and
+    TPUEstimator.predict (padded and not) raise FloatingPointError on a
+    NaN feature before the model sees it; a clean batch predicts."""
+    import numpy as np
+
+    from adanet_tpu_torch.core import TPUEstimator
+    from adanet_tpu_torch.core.estimator import Estimator
+    from adanet_tpu_torch.examples.synthetic_digits import input_fn, make_dataset
+
+    head, generator, ensembler = search_parts()
+    x, y = make_dataset(4 * TRAIN_BATCH, seed=7)
+    flat = x.reshape(len(x), -1)
+    estimator = TPUEstimator(head, generator, max_iteration_steps=4, max_iterations=1, ensemblers=[ensembler],
+                             model_dir=os.path.join(model_dir, "predict_debug"), log_every_steps=0, device="cuda",
+                             debug=True, iterations_per_loop=2)
+    estimator.train(input_fn(x, y, TRAIN_BATCH), max_steps=4)
+    poisoned = flat[:32].copy()
+    poisoned[3, 1] = np.nan
+    raised = {}
+    calls = {
+        "predict": lambda fn: Estimator.predict(estimator, fn),
+        "tpu_unpadded": lambda fn: estimator.predict(fn, predict_batch_size=0),
+        "tpu_padded": lambda fn: estimator.predict(fn, predict_batch_size=40),
+    }
+    for label, predict in calls.items():
+        clean = next(predict(lambda: iter([({"x": flat[:32]}, None)])))
+        if not np.all(np.isfinite(clean["probabilities"].numpy())):
+            raise AssertionError("predict_debug %s: a clean batch predicted %s" % (label, clean))
+        try:
+            next(predict(lambda: iter([({"x": poisoned}, y[:32])])))
+            raised[label] = None
+        except FloatingPointError as exc:
+            raised[label] = str(exc)
+    out = dict(raised=raised, card=card_line())
+    if any(message is None or "debug=True" not in message for message in raised.values()):
+        raise AssertionError("predict_debug: %s" % out)
+    print("predict_debug: " + json.dumps(out))
+    return out
+
+
 def trainer_on_card():
     """The trainer CLI on the card, on fake data, at a small size."""
     from adanet_tpu_torch.research.improve_nas import trainer
@@ -3449,6 +4083,16 @@ def main(argv=None):
         multi_head_counts, _ = multi_head_search(model_dir)
         heads_vs_cpu(rng)
         print("selection_phases: " + json.dumps({"secs": time.perf_counter() - t_selection, "card": card_line()}))
+        t_gates = time.perf_counter()
+        full_gate_counts, _ = full_dnn_gate(model_dir)
+        cnn_counts, _ = cnn_search(model_dir)
+        cnn_vs_cpu(model_dir)
+        autoensemble_counts, _ = autoensemble(model_dir)
+        replay_counts, _ = replay_search(model_dir, args.seed)
+        tutorials_on_card(model_dir)
+        predict_debug(model_dir)
+        print("gates_autoensemble_replay_phases: " + json.dumps({"secs": time.perf_counter() - t_gates,
+                                                                  "card": card_line()}))
         nasnet_counts, _ = train_nasnet(model_dir)
         with deterministic_cudnn():
             resume_counts, _ = resume_nasnet(model_dir)
@@ -3510,6 +4154,12 @@ def main(argv=None):
             kernels[-1]["selection_launches"] = selection_counts["combine"]
             kernels[-1]["multi_head_launches"] = multi_head_counts["multi_head"]["combine"]
             kernels[-1]["multi_label_launches"] = multi_head_counts["multi_label"]["combine"]
+            kernels[-1]["full_gate_launches"] = full_gate_counts["combine"]
+            kernels[-1]["cnn_launches"] = cnn_counts["combine"]
+            kernels[-1]["bagging_launches"] = autoensemble_counts["bagging"]["combine"]
+            kernels[-1]["transfer_launches"] = autoensemble_counts["transfer"]["combine"]
+            kernels[-1]["boston_launches"] = autoensemble_counts["boston"]["combine"]
+            kernels[-1]["replay_launches"] = replay_counts["combine"]
         if name == "sepconv":
             kernels[-1]["train_launches"] = nasnet_counts["sepconv"]
             kernels[-1]["nasnet_gate_launches"] = gate_counts["sepconv"]

@@ -21,6 +21,9 @@ at rtol 1e-4, and:
 - windows with device prefetch (to the CPU here) and the bf16 step
   policy equal to single steps bitwise; a checkpoint fires when a window
   crosses its interval;
+- under `debug`, `predict` and `TPUEstimator.predict` (padded or not)
+  raise the JAX `predict`'s `FloatingPointError` on a non-finite
+  feature, and the JAX `predict` raises it on the same batch;
 - the torch copy of tests/test_convergence.py::
   test_bf16_step_trains_to_finite_metrics (tier-1), and under RUN_SLOW
   of test_nasnet_family_converges_bf16_steps (accuracy >= 0.88 and above
@@ -439,6 +442,58 @@ def test_debug_rejects_non_finite_batches(tmp_path):
     assert not est._open_prefetchers
     with pytest.raises(ValueError, match="iterations_per_loop"):
         _estimator(tmp_path, iterations_per_loop=0)
+
+
+def _poisoned_features(rows=32):
+    x = X[:rows].copy()
+    x[3, 1] = np.nan
+    return {"x": x}
+
+
+# The JAX package's message for a NaN in the features of a (features,
+# labels) batch; TPUEstimator's padded path hands (features, None) on.
+NAN_FEATURES = r"Non-finite values in input batch at \[0\]\['x'\] \(debug=True\)\."
+
+
+@pytest.mark.parametrize("batch_size", [None, 0, 40])
+def test_debug_predict_rejects_non_finite_features(tmp_path, batch_size):
+    """`predict` and `TPUEstimator.predict` (padded to 40, and not padded)
+    check every batch under `debug` before the model sees it, and raise
+    the JAX `predict`'s `FloatingPointError`; without `debug` the NaN
+    flows through to the predictions."""
+    est = _estimator(tmp_path, debug=True, max_iterations=1)
+    est.train(_input_fn(), max_steps=STEPS)
+
+    def poisoned():
+        yield _input_fn()().__next__()[0], None
+        yield _poisoned_features(), Y[:32]
+
+    predictions = est.predict(poisoned, predict_batch_size=batch_size)
+    assert np.all(np.isfinite(next(predictions)["probabilities"].numpy()))
+    with pytest.raises(FloatingPointError, match=NAN_FEATURES):
+        next(predictions)
+    with pytest.raises(FloatingPointError, match=r"at \['x'\] \(debug=True\)"):
+        next(Estimator.predict(est, lambda: iter([_poisoned_features()])))
+    quiet = _estimator(tmp_path, max_iterations=1)
+    out = next(quiet.predict(lambda: iter([(_poisoned_features(), None)]), predict_batch_size=batch_size))
+    assert not np.all(np.isfinite(out["probabilities"].numpy()))
+
+
+def test_debug_predict_rejects_non_finite_features_in_jax(tmp_path):
+    """The same check on the JAX side: its `predict` raises on the same
+    batch with the message the port's matches."""
+    jax_est = adanet_tpu.Estimator(
+        head=adanet_tpu.MultiClassHead(n_classes=CLASSES),
+        subnetwork_generator=jax_simple_dnn.Generator(layer_size=16, initial_num_layers=1, seed=0),
+        max_iteration_steps=2,
+        max_iterations=1,
+        model_dir=str(tmp_path / "jax"),
+        log_every_steps=0,
+        debug=True,
+    )
+    jax_est.train(_input_fn(), max_steps=2)
+    with pytest.raises(FloatingPointError, match=NAN_FEATURES):
+        list(jax_est.predict(lambda: iter([(_poisoned_features(), Y[:32])])))
 
 
 # ---------------------------------------------------------------- bf16 gates
