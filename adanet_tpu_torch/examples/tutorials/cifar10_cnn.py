@@ -2,8 +2,9 @@
 
 Port of adanet_tpu/examples/tutorials/cifar10_cnn.py: an adaptive search
 over progressively deeper CNNs (`examples.simple_cnn.CNNGenerator`) with
-learned, complexity-penalised mixture weights, on synthetic CIFAR-shaped
-data. The CIFAR-10 archive reader (`--data_dir`) is not ported yet.
+learned, complexity-penalised mixture weights. Loads the CIFAR-10 python
+archive from `--data_dir` when given (`research.improve_nas.cifar10`,
+evaluated on its test batch), else runs on synthetic CIFAR-shaped data.
 
 Run: python -m adanet_tpu_torch.examples.tutorials.cifar10_cnn [--device cpu]
 """
@@ -53,12 +54,12 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     if args.data_dir:
-        raise ValueError(
-            "--data_dir needs the CIFAR-10 archive reader, which the PyTorch port does not have yet; "
-            "run without --data_dir for synthetic CIFAR-shaped data."
-        )
-    print("No --data_dir; using synthetic CIFAR-shaped data.")
-    provider = synthetic_provider(args.batch_size)
+        from adanet_tpu_torch.research.improve_nas import cifar10
+
+        provider = cifar10.Provider(args.data_dir, args.batch_size)
+    else:
+        print("No --data_dir; using synthetic CIFAR-shaped data.")
+        provider = synthetic_provider(args.batch_size)
 
     estimator = Estimator(
         head=MultiClassHead(n_classes=provider.num_classes),
@@ -79,7 +80,7 @@ def main(argv=None):
         device=args.device,
     )
     estimator.train(provider.get_input_fn("train"), max_steps=args.max_steps)
-    metrics = estimator.evaluate(provider.get_input_fn("train"))
+    metrics = estimator.evaluate(provider.get_input_fn("test" if args.data_dir else "train"))
     print("Eval metrics:", metrics)
     return metrics
 

@@ -23,8 +23,16 @@ optax's gradient transforms, in optax's order:
 The rules follow optax, not torch's defaults: adagrad starts its sum of
 squares at 0.1 and adds eps 1e-7 under the root; rmsprop decays by 0.9
 and takes rsqrt(nu + 1e-8); adam adds eps 1e-8 outside the root;
-momentum is `optax.sgd(momentum=0.9)` (no nesterov, no dampening). The
-slots are made at their initial values when the optimizer is. Every
+momentum is `optax.sgd(momentum=0.9)` (no nesterov, no dampening). A
+rule's `eps`, `initial_scale` and `momentum` (rmsprop only,
+`rmsprop(...)`) take optax's `rmsprop` arguments: nu starts at
+`initial_scale`, the update is g * rsqrt(nu + eps) with eps inside the
+root, and with `momentum` optax's `trace` runs after the learning rate,
+`t <- momentum * t - lr * g * rsqrt(nu + eps)` and p <- p + t
+(`chain(scale_by_rms, scale_by_learning_rate, trace)`), where
+`torch.optim.RMSprop` starts nu at 0, adds eps outside the root and
+applies the learning rate after its momentum. The slots are made at
+their initial values when the optimizer is. Every
 update is a few multi-tensor (`torch._foreach_*`) operations over all
 parameters, computed on the device without a host read.
 """
@@ -53,6 +61,21 @@ class Rule:
 
     name: str
     learning_rate: Callable[[torch.Tensor], torch.Tensor]
+    eps: float = RMSPROP_EPS
+    initial_scale: float = 0.0
+    momentum: Optional[float] = None
+
+
+def rmsprop(
+    learning_rate: float,
+    eps: float = RMSPROP_EPS,
+    initial_scale: float = 0.0,
+    momentum: Optional[float] = None,
+) -> Rule:
+    """`optax.rmsprop(learning_rate, decay=0.9, eps=eps,
+    initial_scale=initial_scale, momentum=momentum)` at a constant
+    learning rate."""
+    return Rule("rmsprop", constant_schedule(learning_rate), eps=eps, initial_scale=initial_scale, momentum=momentum)
 
 
 def constant_schedule(value: float) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -107,33 +130,45 @@ _SLOTS = {
 }
 
 
+def _slot_specs(rule: Rule):
+    """(slot, initial value) pairs of `rule`."""
+    if rule.name != "rmsprop":
+        return _SLOTS.get(rule.name, ())
+    return (("nu", rule.initial_scale),) + ((("trace", 0.0),) if rule.momentum is not None else ())
+
+
 class Chain(torch.optim.Optimizer):
     """optax.chain(clip_by_global_norm(clip_norm), add_decayed_weights(
     weight_decay, mask), rule) on `params`; `decay_mask[i]` says whether
-    parameter i is decayed. A non-positive `clip_norm` or
-    `weight_decay` leaves that transform out, as the JAX builder does.
-    The update count is `param_groups[0]["count"]`, an int32 tensor."""
+    parameter i is decayed (none is when it is None). A non-positive
+    `clip_norm` or `weight_decay` leaves that transform out, as the JAX
+    builder does. The update count is `param_groups[0]["count"]`, an
+    int32 tensor."""
 
     def __init__(
         self,
         params: Iterable[torch.nn.Parameter],
         rule: Rule,
-        decay_mask: Sequence[bool],
+        decay_mask: Optional[Sequence[bool]] = None,
         clip_norm: float = 0.0,
         weight_decay: float = 0.0,
     ):
         params = list(params)
         if rule.name not in RULES:
             raise ValueError("Invalid optimizer '{}'".format(rule.name))
+        if rule.momentum is not None and rule.name != "rmsprop":
+            raise ValueError("a rule's momentum is rmsprop's; use the 'momentum' rule")
         super().__init__(params, dict(count=0))
         self.param_groups[0]["count"] = self._count(0)
         self.rule = rule
         self.clip_norm = float(clip_norm)
         self.weight_decay = float(weight_decay)
+        if decay_mask is None:
+            decay_mask = [False] * len(params)
         if len(decay_mask) != len(params):
             raise ValueError("decay_mask has %d entries for %d parameters" % (len(decay_mask), len(params)))
         self._decayed = [i for i, keep in enumerate(decay_mask) if keep]
-        for key, init in _SLOTS.get(rule.name, ()):
+        for key, init in _slot_specs(rule):
             self._slots(key, params, init)
 
     def _count(self, value: int) -> torch.Tensor:
@@ -209,14 +244,21 @@ class Chain(torch.optim.Optimizer):
                 torch._foreach_addcmul_(acc, grads, grads)
                 eps = ADAGRAD_EPS
             else:  # rmsprop
-                acc = self._slots("nu", params, 0.0)
+                acc = self._slots("nu", params, self.rule.initial_scale)
                 torch._foreach_mul_(acc, RMSPROP_DECAY)
                 torch._foreach_addcmul_(acc, grads, grads, value=1.0 - RMSPROP_DECAY)
-                eps = RMSPROP_EPS
+                eps = self.rule.eps
             scale = torch._foreach_add(acc, eps)
             torch._foreach_sqrt_(scale)
             torch._foreach_reciprocal_(scale)
             updates = torch._foreach_mul(scale, grads)
         # optax's scale_by_learning_rate, then apply_updates.
-        torch._foreach_add_(params, torch._foreach_mul(updates, -self.rule.learning_rate(count)))
+        updates = torch._foreach_mul(updates, -self.rule.learning_rate(count))
+        if self.rule.momentum is not None:
+            # optax's trace after the learning rate (optax.rmsprop's momentum).
+            trace = self._slots("trace", params, 0.0)
+            torch._foreach_mul_(trace, self.rule.momentum)
+            torch._foreach_add_(trace, updates)
+            updates = trace
+        torch._foreach_add_(params, updates)
         group["count"] = count + 1

@@ -5,11 +5,24 @@ defaults, through argparse, plus `--device` (the card unless "cpu"). It
 searches NASNet-A ensembles with AdaNet (boosting iterations, adanet
 lambda/beta, knowledge distillation, learned mixture weights, generator
 choice), trains, evaluates, and prints the final metrics as one JSON
-line. Only `--dataset=fake` runs: the CIFAR providers wait until their
-files are in the repository. `--model_dir` defaults to a new temporary
-directory. Run again over the same `--model_dir`, it resumes the search
-where the checkpoint stands; on SIGTERM it checkpoints at the next step,
-evaluates the current best ensemble and exits 0, as the Estimator does.
+line. `--dataset` is `cifar10` or `cifar100` (the extracted python
+archives under `--data_dir`, read by `cifar10.Provider` and
+`cifar100.Provider` with the native augmentation) or `fake`.
+`--model_dir` defaults to a new temporary directory. Run again over the
+same `--model_dir`, it resumes the search where the checkpoint stands;
+on SIGTERM it checkpoints at the next step, evaluates the current best
+ensemble and exits 0, as the Estimator does.
+
+The search runs through the port's Hopper kernels: every NASNet
+separable convolution through K2 (`ops/sepconv_kernels.py`,
+`Hparams.use_pallas_sep_conv`; the depthwise result stays f32 into the
+pointwise product, where the JAX trainer's unfused path rounds it to
+bf16) and every ensemble combine through K1 (`ops/ensemble_kernels.py`,
+`use_fused_combine`).
+
+Example (CIFAR-10):
+    python -m adanet_tpu_torch.research.improve_nas.trainer \\
+        --dataset=cifar10 --data_dir=DIR  # DIR holds cifar-10-batches-py/
 
 Example (fake data):
     python -m adanet_tpu_torch.research.improve_nas.trainer \\
@@ -30,7 +43,7 @@ from adanet_tpu_torch.core.estimator import Estimator
 from adanet_tpu_torch.core.heads import MultiClassHead
 from adanet_tpu_torch.ensemble.strategy import GrowStrategy
 from adanet_tpu_torch.ensemble.weighted import ComplexityRegularizedEnsembler, MixtureWeightType
-from adanet_tpu_torch.research.improve_nas import fake_data, improve_nas, optimizer
+from adanet_tpu_torch.research.improve_nas import cifar10, cifar100, fake_data, improve_nas, optimizer
 
 _LOG = logging.getLogger("adanet_tpu_torch")
 
@@ -82,8 +95,10 @@ def _provider(flags):
             batch_size=flags.batch_size,
             seed=flags.seed,
         )
-    if flags.dataset in ("cifar10", "cifar100"):
-        raise ValueError("dataset %r: the CIFAR providers are not ported yet; use --dataset=fake" % flags.dataset)
+    if flags.dataset == "cifar10":
+        return cifar10.Provider(flags.data_dir, flags.batch_size, flags.seed)
+    if flags.dataset == "cifar100":
+        return cifar100.Provider(flags.data_dir, flags.batch_size, flags.seed)
     raise ValueError("Unknown dataset %r" % flags.dataset)
 
 
@@ -98,6 +113,7 @@ def main(argv=None) -> int:
         knowledge_distillation=improve_nas.KnowledgeDistillation(flags.knowledge_distillation),
         initial_learning_rate=flags.initial_learning_rate,
         total_training_steps=flags.train_steps,
+        use_pallas_sep_conv=True,
     )
     optimizer_fn = optimizer.fn_with_name(
         flags.optimizer,
@@ -127,6 +143,7 @@ def main(argv=None) -> int:
                 mixture_weight_type=MixtureWeightType.SCALAR,
                 adanet_lambda=flags.adanet_lambda,
                 adanet_beta=flags.adanet_beta,
+                use_fused_combine=True,
             )
         ],
         ensemble_strategies=[GrowStrategy()],

@@ -25,7 +25,10 @@ package from the same numbers, drawn in numpy (`simple_dnn_variables`).
 `convert_simple_cnn` carries a `SimpleCNN`'s variables, and
 `convert_module` the variables of any Flax module of Dense and Conv
 layers onto a torch module of Linear and Conv2d layers (an
-AutoEnsemble candidate's `initial_variables`).
+AutoEnsemble candidate's `initial_variables`, or an experimental
+`Model`'s through `convert_model`). `convert_resnet` and
+`convert_efficientnet` carry the ImageNet-class families' variables,
+batch-norm `mean`/`var` into buffers.
 """
 
 from __future__ import annotations
@@ -273,3 +276,41 @@ def convert_module(variables: Mapping[str, Any], module: torch.nn.Module) -> Dic
     if unused:
         raise ValueError("Flax leaves with no torch counterpart: %s" % unused)
     return out
+
+
+def _convert_family(variables: Mapping[str, Any], pattern: str, what: str) -> Dict[str, torch.Tensor]:
+    state = convert_variables(variables, collections=("params", "batch_stats"))
+    unknown = [key for key in state if not re.fullmatch(pattern, key)]
+    if unknown:
+        raise ValueError("not a %s: %s" % (what, unknown))
+    return state
+
+
+def convert_resnet(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX `ResNet`'s variables (`{"params": {"stem", "stem_bn",
+    "stage<s>_block<b>": {"conv<i>", "bn<i>", "proj", "proj_bn"}, "logits"},
+    "batch_stats": {...}}`, numpy leaves) -> the `state_dict` of the port's
+    `models.resnet.ResNet`: kernels in torch's layouts, batch-norm `scale`
+    and `bias` parameters, `mean` and `var` buffers. Raises on any other
+    leaf."""
+    layer = r"(stem|stem_bn|logits|stage\d+_block\d+\.(conv\d|bn\d|proj|proj_bn))"
+    return _convert_family(variables, layer + r"\.(weight|bias|scale|mean|var)", "ResNet")
+
+
+def convert_efficientnet(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX `EfficientNet`'s variables (`{"params": {"stem", "stem_bn",
+    "stage<s>_block<b>": {"expand", "expand_bn", "depthwise", "dw_bn",
+    "se": {"Conv_0", "Conv_1"}, "project", "project_bn"}, "head", "head_bn",
+    "logits"}, "batch_stats": {...}}`) -> the `state_dict` of the port's
+    `models.efficientnet.EfficientNet`, as `convert_resnet` does."""
+    block = r"stage\d+_block\d+\.(expand|expand_bn|depthwise|dw_bn|se\.Conv_[01]|project|project_bn)"
+    layer = r"(stem|stem_bn|head|head_bn|logits|%s)" % block
+    return _convert_family(variables, layer + r"\.(weight|bias|scale|mean|var)", "EfficientNet")
+
+
+def convert_model(variables: Mapping[str, Any], model) -> None:
+    """Loads a JAX experimental `Model`'s variables (`{"params": tree}`,
+    numpy leaves) into the port's `experimental.Model` `model`, whose
+    module holds Linear and Conv2d layers (`convert_module`), so that it
+    trains on from those numbers instead of its own seeded init."""
+    model.load_state_dict(convert_module(variables, model.module))

@@ -441,8 +441,12 @@ def test_trainer_flags_are_the_jax_trainers():
     parsed = trainer.parse_args(["--noforce_grow", "--learn_mixture_weights", "--knowledge_distillation=adaptive"])
     assert parsed.force_grow is False and parsed.learn_mixture_weights is True
     assert trainer.parse_args(["--force_grow=false"]).force_grow is False
-    with pytest.raises(ValueError, match="not ported"):
-        trainer.main(["--dataset=cifar10", "--device=cpu"])
+    # The CIFAR providers are wired in: without the archive, the error
+    # names the missing files.
+    with pytest.raises(FileNotFoundError, match="data_batch_1"):
+        trainer.main(["--dataset=cifar10", "--data_dir=/nonexistent", "--device=cpu"])
+    with pytest.raises(ValueError, match="Unknown dataset"):
+        trainer.main(["--dataset=svhn", "--device=cpu"])
 
 
 # ------------------------------------------------------------------ slow gates

@@ -47,6 +47,15 @@ COPIES = {
     "adanet_tpu_torch/core/timer.py": "adanet_tpu/core/timer.py",
     "adanet_tpu_torch/core/report_accessor.py": "adanet_tpu/core/report_accessor.py",
     "adanet_tpu_torch/replay/__init__.py": "adanet_tpu/replay/__init__.py",
+    # The twelfth slice: the CIFAR providers with native augmentation,
+    # the ImageNet input pipeline and ModelFlow's storages.
+    "adanet_tpu_torch/ops/native_augment.py": "adanet_tpu/ops/native_augment.py",
+    "adanet_tpu_torch/research/improve_nas/image_processing.py": "research/improve_nas/trainer/image_processing.py",
+    "adanet_tpu_torch/research/improve_nas/cifar10.py": "research/improve_nas/trainer/cifar10.py",
+    "adanet_tpu_torch/research/improve_nas/cifar100.py": "research/improve_nas/trainer/cifar100.py",
+    "adanet_tpu_torch/research/imagenet_autoensemble/imagenet_data.py":
+        "research/imagenet_autoensemble/imagenet_data.py",
+    "adanet_tpu_torch/experimental/storages.py": "adanet_tpu/experimental/storages.py",
 }
 
 #: Top-level definitions a copy replaces on purpose ("__doc__": the
@@ -58,6 +67,10 @@ REPLACED = {
     "adanet_tpu_torch/store/keys.py": ("__doc__", "_env_fp_cache", "env_fingerprint"),
     # The port's replay retrains replayed iterations (no store graft yet).
     "adanet_tpu_torch/replay/__init__.py": ("__doc__",),
+    # The port builds its own copy of the source into ops/.build/.
+    "adanet_tpu_torch/ops/native_augment.py": ("__doc__", "_SRC", "_SO", "_build"),
+    # The docstring names the port's source and the card.
+    "adanet_tpu_torch/research/improve_nas/image_processing.py": ("__doc__",),
 }
 
 #: Modules that later slices added; the import rules must reach them.
@@ -103,6 +116,19 @@ SLICE_MODULES = (
     "adanet_tpu_torch.examples.tutorials.cifar10_cnn",
     "adanet_tpu_torch.examples.tutorials.mnist_simple_dnn",
     "adanet_tpu_torch.examples.tutorials.transfer_learning",
+    "adanet_tpu_torch.ops.native_augment",
+    "adanet_tpu_torch.research.improve_nas.image_processing",
+    "adanet_tpu_torch.research.improve_nas.cifar10",
+    "adanet_tpu_torch.research.improve_nas.cifar100",
+    "adanet_tpu_torch.models.resnet",
+    "adanet_tpu_torch.models.efficientnet",
+    "adanet_tpu_torch.research.imagenet_autoensemble.imagenet_data",
+    "adanet_tpu_torch.research.imagenet_autoensemble.trainer",
+    "adanet_tpu_torch.distributed.scheduler",
+    "adanet_tpu_torch.experimental",
+    "adanet_tpu_torch.experimental.storages",
+    "adanet_tpu_torch.experimental.model",
+    "adanet_tpu_torch.experimental.phases",
 )
 
 
@@ -211,6 +237,10 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
     from adanet_tpu_torch.serving import ModelPool
     from adanet_tpu_torch.utils.prefetch import DevicePrefetchIterator
     from adanet_tpu_torch import replay
+    from adanet_tpu_torch.distributed.scheduler import drain_callables
+    from adanet_tpu_torch.examples.tutorials import cifar10_cnn
+    from adanet_tpu_torch.experimental import Model, ParallelScheduler
+    from adanet_tpu_torch.research.imagenet_autoensemble import trainer as imagenet_trainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert resolve_device("cpu") == torch.device("cpu")
@@ -242,6 +272,18 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
                    "frozen": AutoEnsembleSubestimator(torch.nn.Linear(2, 10), prediction_only=True)},
             10, model_dir=str(tmp_path)),
         lambda: Estimator(head, generator, 10, model_dir=str(tmp_path), replay_config=replay.Config([0])),
+        # The twelfth slice: both trainers and the CIFAR tutorial on their
+        # providers, ModelFlow's Model and ParallelScheduler, and the
+        # work-queue drain's default pool.
+        lambda: trainer.main(["--dataset=cifar10", "--data_dir", str(tmp_path), "--num_cells=3",
+                              "--model_dir", str(tmp_path)]),
+        lambda: trainer.main(["--dataset=cifar100", "--data_dir", str(tmp_path), "--num_cells=3",
+                              "--model_dir", str(tmp_path)]),
+        lambda: cifar10_cnn.main(["--data_dir", str(tmp_path), "--model_dir", str(tmp_path)]),
+        lambda: imagenet_trainer.main(["--image_size=32", "--batch_size=8", "--model_dir", str(tmp_path)]),
+        lambda: Model(torch.nn.Linear(2, 1)),
+        lambda: ParallelScheduler(),
+        lambda: drain_callables([lambda: None], 1),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

@@ -1,7 +1,8 @@
 """The port's tutorials (`examples/tutorials/`) against the JAX package's.
 
 - Each tutorial's `main` end to end on the CPU at tiny settings, and
-  cifar10_cnn's `--data_dir` refused with a clear error.
+  cifar10_cnn's `--data_dir` naming the archive files it misses (the
+  tutorial on an archive: tests/test_torch_cifar.py).
 - Their data against the JAX tutorials' (equal arrays): boston_housing's
   synthetic stand-in and input_fn, mnist_simple_dnn's stand-in and idx
   reader, cifar10_cnn's synthetic provider.
@@ -102,7 +103,7 @@ def test_cifar10_cnn_tiny(tmp_path):
     metrics = cifar10_cnn.main(["--max_steps=4", "--iterations=2", "--batch_size=16", "--channels=4",
                                 "--model_dir=%s" % tmp_path, "--device=cpu"])
     assert np.isfinite(metrics["loss"]) and metrics["global_step"] == 4
-    with pytest.raises(ValueError, match="data_dir"):
+    with pytest.raises(FileNotFoundError, match="data_batch_1"):
         cifar10_cnn.main(["--data_dir=/nonexistent", "--device=cpu"])
 
 
