@@ -270,13 +270,19 @@ def _parse_manifest(data: bytes, path: str) -> CheckpointInfo:
     )
 
 
-def read_manifest(model_dir: str, quarantine: bool = True) -> Optional[CheckpointInfo]:
+def read_manifest(
+    model_dir: str, quarantine: bool = True, reconstruct: bool = True
+) -> Optional[CheckpointInfo]:
     """Reads the manifest, healing over a corrupt main copy.
 
     Order: `checkpoint.json` (checksum-verified) -> `checkpoint.json.prev`
     -> reconstruction from the architecture chain. A corrupt main
     manifest is quarantined unless `quarantine` is False (fsck's
-    report-only mode). Returns None only for a fresh model dir.
+    report-only mode). Without `reconstruct`, only a written manifest
+    counts, and a dir without one reads as None: a reader racing the
+    chief's bookkeeping would otherwise take `architecture-<t>.json`,
+    written first, as iteration t complete before its frozen payload
+    lands. Returns None only for a fresh model dir.
     """
     faults.trip("manifest.read")
     path = os.path.join(model_dir, MANIFEST)
@@ -301,7 +307,7 @@ def read_manifest(model_dir: str, quarantine: bool = True) -> Optional[Checkpoin
             _LOG.error("Previous manifest also corrupt (%s).", exc)
             if quarantine:
                 quarantine_file(model_dir, MANIFEST_PREV)
-    return _reconstruct_manifest(model_dir)
+    return _reconstruct_manifest(model_dir) if reconstruct else None
 
 
 def manifest_intact(model_dir: str) -> bool:

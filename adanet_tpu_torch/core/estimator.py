@@ -79,8 +79,26 @@ end; a builder with a `train_input_fn` (an AutoEnsemble candidate's
 bagging stream) trains on batches from its own iterator, opened each
 iteration through the same debug check and prefetch as the shared one
 and closed when the iteration ends, and such an iteration takes single
-steps whatever `iterations_per_loop` says. The artifact store, serving
-export and multi-host placement come with later slices.
+steps whatever `iterations_per_loop` says. The artifact store and
+serving export come with later slices.
+
+Placement and processes (`distributed/`): a `RoundRobinStrategy` trains
+each iteration through `distributed.executor.RoundRobinExecutor` (each
+subnetwork in its group, the mixture weights in the ensemble group on
+member copies synced every step). Several processes
+(`distributed.coordination.initialize`) train one search data-parallel
+by default: each feeds its local slice of every global batch from its
+own `input_fn`, losses and gradients are all-reduced
+(`Iteration.set_process_group`), so every process ends with the same
+parameters; the Evaluator and the reports run collectively, and the
+stop checks (SIGTERM, once every `_stop_check_interval` steps) agree
+through the process group's store, so that a signal to one process
+stops every process at the same step. Only the chief (process 0) writes
+anything (checkpoints, frozen payloads, reports, metrics files, the
+replay record) and keeps a heartbeat file; a worker waits on the
+manifest for the chief's bookkeeping (`worker_wait_timeout_secs`). A
+`RoundRobinStrategy` across processes (the multi-host executor) is not
+ported yet and raises.
 """
 
 from __future__ import annotations
@@ -111,11 +129,15 @@ from adanet_tpu_torch.core.iteration import Iteration, IterationBuilder, split_e
 from adanet_tpu_torch.core.report_accessor import ReportAccessor
 from adanet_tpu_torch.core.report_materializer import ReportMaterializer
 from adanet_tpu_torch.core.summary import ScopedSummary
+from adanet_tpu_torch.distributed import coordination
+from adanet_tpu_torch.distributed.executor import RoundRobinExecutor
+from adanet_tpu_torch.distributed.placement import ReplicationStrategy, RoundRobinStrategy
 from adanet_tpu_torch.ensemble.strategy import GrowStrategy
 from adanet_tpu_torch.ensemble.weighted import ComplexityRegularizedEnsembler, full_f32_matmul
 from adanet_tpu_torch.robustness import faults as faults_lib
 from adanet_tpu_torch.robustness import integrity
 from adanet_tpu_torch.robustness import retry as retry_lib
+from adanet_tpu_torch.robustness import watchdog as watchdog_lib
 from adanet_tpu_torch.utils import precision
 from adanet_tpu_torch.utils.batches import (
     EVAL_FETCH_WINDOW,
@@ -244,6 +266,11 @@ class Estimator:
         `evaluate_all_candidates` works after the winner is frozen.
       replay_config: a `replay.Config`: each iteration it records takes
         the recorded winner, and no Evaluator runs for it.
+      placement_strategy: None or a `ReplicationStrategy` (the fused
+        step; data-parallel across processes), or a `RoundRobinStrategy`
+        (one process: `RoundRobinExecutor`).
+      worker_wait_timeout_secs: how long a worker waits for the chief to
+        complete an iteration before `WorkerWaitTimeout`.
     """
 
     def __init__(
@@ -276,7 +303,16 @@ class Estimator:
         weight_key: Optional[str] = None,
         keep_candidate_states: bool = False,
         replay_config=None,
+        placement_strategy=None,
+        worker_wait_timeout_secs: float = 7200.0,
     ):
+        if placement_strategy is not None and not isinstance(
+            placement_strategy, (ReplicationStrategy, RoundRobinStrategy)
+        ):
+            raise ValueError(
+                "Unsupported placement strategy %r: use ReplicationStrategy or RoundRobinStrategy "
+                "(the elastic work queue is not ported yet)." % (placement_strategy,)
+            )
         if max_iteration_steps is None or max_iteration_steps <= 0:
             raise ValueError(
                 "max_iteration_steps must be a positive integer, got %r" % (max_iteration_steps,)
@@ -304,6 +340,13 @@ class Estimator:
         self._weight_key = weight_key
         self._keep_candidate_states = bool(keep_candidate_states)
         self._replay_config = replay_config
+        self._placement_strategy = placement_strategy
+        self._worker_wait_timeout_secs = float(worker_wait_timeout_secs)
+        # The data-parallel process group while train() runs across
+        # processes (None otherwise).
+        self._process_group = None
+        self._last_stop_check_step = 0
+        self._peer_lost: Optional[watchdog_lib.PeerLostError] = None
         # The Evaluator's values of the last selection, for the
         # candidate-metrics record (None without an Evaluator).
         self._last_selection_values: Optional[list] = None
@@ -377,10 +420,18 @@ class Estimator:
             if max_steps is not None:
                 raise ValueError("Set at most one of steps and max_steps.")
             max_steps = self.latest_global_step() + steps
+        world = coordination.process_count()
+        if world > 1 and isinstance(self._placement_strategy, RoundRobinStrategy):
+            raise ValueError(
+                "RoundRobinStrategy across %d processes needs the multi-host RoundRobin executor "
+                "(MultiHostRoundRobinExecutor), which is not ported yet; use the default placement "
+                "(data-parallel across processes) or one process." % world
+            )
         # Verify and heal before trusting any bytes: corrupt files are
         # quarantined and the manifest rolls back to the newest intact
-        # generation.
-        heal = integrity.fsck(self._model_dir, repair=True)
+        # generation (every process computes the same healed state; the
+        # chief alone repairs).
+        heal = integrity.fsck(self._model_dir, repair=coordination.is_chief())
         if heal.rolled_back_to_iteration is not None:
             log = _LOG.error if heal.verdict == "unrecoverable" else _LOG.warning
             log(
@@ -410,13 +461,25 @@ class Estimator:
             previous_handler = signal.signal(signal.SIGTERM, handler)
             handler_installed = True
         self._previous = None
+        self._peer_lost = None
+        self._process_group = torch.distributed.group.WORLD if world > 1 else None
+        heartbeat = None
+        if world > 1 and coordination.is_chief():
+            heartbeat = watchdog_lib.HeartbeatWriter(self._model_dir, role="chief").start()
         try:
             with full_f32_matmul():
                 self._train_loop(input_fn, max_steps, info)
-            # Search end: once more, for a resumed run that completed no
-            # iteration in this call.
-            self._write_replay_record()
+            if coordination.is_chief():
+                # Search end: once more, for a resumed run that completed
+                # no iteration in this call.
+                self._write_replay_record()
         finally:
+            # evaluate() and predict() after train() are local to each
+            # process: a process group left set would turn them into
+            # collectives that hang unless every process joins.
+            self._process_group = None
+            if heartbeat is not None:
+                heartbeat.stop()
             if handler_installed:
                 signal.signal(signal.SIGTERM, previous_handler if previous_handler is not None else signal.SIG_DFL)
             # A worker abandoned mid-stream would park on its queue, with
@@ -437,7 +500,7 @@ class Estimator:
         data_iter: Optional[Iterator] = None
         while True:
             t = info.iteration_number
-            if self._stop_requested:
+            if self._should_stop():
                 break
             if self._max_iterations is not None and t >= self._max_iterations:
                 _LOG.info("Reached max_iterations=%d.", self._max_iterations)
@@ -452,7 +515,14 @@ class Estimator:
             data_iter = _Prepended(batch, data_iter)
             iteration = self._build_iteration(t, sample_batch)
             state = self._init_or_restore_state(iteration, sample_batch, info)
+            executor = None
+            if isinstance(self._placement_strategy, RoundRobinStrategy):
+                executor = RoundRobinExecutor(iteration, self._placement_strategy)
+                state = executor.place(state)
+            train_step = executor.train_step if executor is not None else iteration.train_step
+            train_steps = executor.train_steps if executor is not None else iteration.train_steps
             steps_done = state.iteration_step
+            self._last_stop_check_step = steps_done
             _LOG.info(
                 "Starting iteration %d at iteration_step %d (global step %d): candidates=%s",
                 t, steps_done, info.global_step, iteration.candidate_names(),
@@ -470,7 +540,7 @@ class Estimator:
             extra_iters: Dict[str, Iterator] = {}
             while (
                 steps_done < self._max_iteration_steps
-                and not self._stop_requested
+                and not self._should_stop_at(steps_done)
                 and (max_steps is None or info.global_step < max_steps)
             ):
                 if self._profile_dir and profile_stop_at is None:
@@ -487,14 +557,14 @@ class Estimator:
                     extra_batches = {}
                     for name, fn in extra_input_fns.items():
                         extra_batches[name], extra_iters[name] = self._next_batch(fn, extra_iters.get(name))
-                    state, metrics = iteration.train_step(state, batch, extra_batches)
+                    state, metrics = train_step(state, batch, extra_batches)
                 else:
                     loop_size = min(self._iterations_per_loop, budget)
                     batches = []
                     for _ in range(loop_size):
                         batch, data_iter = self._next_batch(input_fn, data_iter)
                         batches.append(batch)
-                    state, metrics = iteration.train_steps(state, batches)
+                    state, metrics = train_steps(state, batches)
                 prev_steps_done = steps_done
                 steps_done += loop_size
                 info.global_step += loop_size
@@ -502,7 +572,11 @@ class Estimator:
                 if profile is not None and steps_done >= profile_stop_at:
                     self._stop_profile(profile, t)
                     profile = None
-                if self._log_every_steps and _crossed(prev_steps_done, steps_done, self._log_every_steps):
+                if (
+                    self._log_every_steps
+                    and _crossed(prev_steps_done, steps_done, self._log_every_steps)
+                    and coordination.is_chief()
+                ):
                     emas = iteration.ema_losses(state)
                     _LOG.info(
                         "iteration %d step %d/%d adanet_loss EMAs: %s",
@@ -510,8 +584,10 @@ class Estimator:
                         {k: round(v, 6) for k, v in emas.items()},
                     )
                     self._write_train_summaries(iteration, metrics, emas, state, info.global_step)
-                if self._save_checkpoint_steps and _crossed(
-                    prev_steps_done, steps_done, self._save_checkpoint_steps
+                if (
+                    self._save_checkpoint_steps
+                    and _crossed(prev_steps_done, steps_done, self._save_checkpoint_steps)
+                    and coordination.is_chief()
                 ):
                     self._save_iteration_state(info, t, state)
             if profile is not None:
@@ -520,17 +596,84 @@ class Estimator:
             # workers are closed now, not when train() returns.
             for extra_iter in extra_iters.values():
                 self._close_iter(extra_iter)
+            if executor is not None:
+                state = executor.gather(state)
+                dead = executor.dead_candidate_names()
+                if dead:
+                    # Faulted candidates join the NaN-quarantine path.
+                    for name in dead:
+                        state.candidates[name].dead = torch.ones_like(state.candidates[name].dead)
+                    _LOG.warning(
+                        "Iteration %d completing with quarantined candidates excluded from selection: %s",
+                        t, sorted(dead),
+                    )
             if steps_done < self._max_iteration_steps:
                 # Stopped inside the iteration (max_steps or SIGTERM):
                 # persist the state; a fresh process resumes from here.
-                self._save_iteration_state(info, t, state)
+                if coordination.is_chief():
+                    self._save_iteration_state(info, t, state)
                 if self._stop_requested:
                     _LOG.warning(
                         "Stopped by SIGTERM at global step %d (iteration %d, step %d); state checkpointed.",
                         info.global_step, t, steps_done,
                     )
                 break
-            self._previous = self._complete_iteration(iteration, state, sample_batch, info)
+            if self._process_group is not None:
+                # Data-parallel bookkeeping: every process selects (the
+                # Evaluator and the reports are collective) and freezes
+                # the same winner; the chief alone writes, and the workers
+                # then wait for its manifest.
+                self._previous = self._complete_iteration(
+                    iteration, state, sample_batch, info, write=coordination.is_chief()
+                )
+                if not coordination.is_chief():
+                    info = coordination.wait_for_iteration(
+                        self._model_dir, t + 1, timeout_secs=self._worker_wait_timeout_secs,
+                        heartbeat_timeout_secs=watchdog_lib.heartbeat_timeout_secs(),
+                    )
+            elif coordination.is_chief():
+                self._previous = self._complete_iteration(iteration, state, sample_batch, info)
+            else:
+                # A worker of its own process: the chief's bookkeeping
+                # decides; the next iteration rebuilds its winner from disk.
+                info = coordination.wait_for_iteration(
+                    self._model_dir, t + 1, timeout_secs=self._worker_wait_timeout_secs
+                )
+                self._previous = None
+
+    def _should_stop(self) -> bool:
+        """The stop decision, agreed across processes: a SIGTERM may land
+        between the checks of different processes, so every process puts
+        its flag into the store at the same boundaries and all stop if
+        any was signalled (a store round trip, never a device collective,
+        so that a dead peer raises instead of wedging the stop)."""
+        if self._process_group is None or self._peer_lost is not None:
+            return self._stop_requested
+        try:
+            flags = coordination.allgather_host_flag(int(self._stop_requested), label="stop")
+        except watchdog_lib.PeerLostError as exc:
+            _LOG.error("Peer lost at the stop agreement: %s", exc)
+            self._peer_lost = exc
+            return True
+        return bool(max(flags))
+
+    def _stop_check_interval(self) -> int:
+        """Steps between agreed stop checks inside an iteration: the
+        logging period (8 windows without logging), at least a window and
+        at most 64 windows, so that a SIGTERM's checkpoint stays prompt."""
+        interval = self._log_every_steps or 8 * self._iterations_per_loop
+        return max(self._iterations_per_loop, min(interval, 64 * self._iterations_per_loop))
+
+    def _should_stop_at(self, steps_done: int) -> bool:
+        """The in-loop stop check: the local flag every window in one
+        process; across processes the agreement, when `steps_done` crosses
+        the check interval (the same arithmetic on every process)."""
+        if self._process_group is None or self._peer_lost is not None:
+            return self._stop_requested
+        if steps_done - self._last_stop_check_step < self._stop_check_interval():
+            return False
+        self._last_stop_check_step = steps_done
+        return self._should_stop()
 
     @staticmethod
     def _log_quarantines(iteration, state, dead: set) -> None:
@@ -683,9 +826,11 @@ class Estimator:
         if previous is None or previous.iteration_number != iteration_number - 1:
             previous = self._rebuild_previous_ensemble(iteration_number, sample_batch)
         builders = self._generate_builders(iteration_number, previous)
-        return self._iteration_builder.build_iteration(
+        iteration = self._iteration_builder.build_iteration(
             iteration_number, builders, previous, input_shape=feature_shape(self._model_features(sample_batch[0]))
         )
+        iteration.set_process_group(self._process_group)
+        return iteration
 
     def _rebuild_previous_ensemble(self, iteration_number: int, sample_batch) -> Optional[FrozenEnsemble]:
         """Rebuilds the frozen winner of t-1 from disk: replays the
@@ -792,7 +937,10 @@ class Estimator:
             return 0
         exclude_first = self._force_grow and iteration.iteration_number > 0
         if self._evaluator:
-            values = self._evaluator.evaluate(iteration, state)
+            # Only a collective pass takes the keyword, so that an
+            # Evaluator subclass of the single-process signature works.
+            collective = {"collective": True} if iteration.process_group is not None else {}
+            values = self._evaluator.evaluate(iteration, state, **collective)
             self._last_selection_values = [float(v) for v in values]
             objective_fn = self._evaluator.objective_fn
             if exclude_first:
@@ -800,13 +948,15 @@ class Estimator:
             return int(objective_fn(values))
         return iteration.best_candidate_index(state, exclude_first=exclude_first)
 
-    def _complete_iteration(self, iteration, state, sample_batch, info) -> FrozenEnsemble:
+    def _complete_iteration(self, iteration, state, sample_batch, info, write: bool = True) -> FrozenEnsemble:
         """Selects and freezes the winner; writes
         `candidate-metrics-<t>.json`, every candidate's final state with
         `keep_candidate_states`, `architecture-<t>.json`, the frozen
         payload, the subnetworks' reports with a `report_materializer`,
         and the manifest of iteration t+1 (history, replay indices, the
-        generation bump), then drops the iteration's state file."""
+        generation bump), then drops the iteration's state file. Without
+        `write` (a data-parallel worker) only the in-memory results: the
+        selection and reports still run, collectively."""
         t = iteration.iteration_number
         best_index = self._get_best_ensemble_index(iteration, state)
         spec = iteration.ensemble_specs[best_index]
@@ -814,21 +964,25 @@ class Estimator:
         frozen = iteration.freeze_candidate(state, spec.name, sample_batch)
         frozen.architecture.add_replay_index(best_index)
         frozen.architecture.set_global_step(info.global_step)
-        self._write_candidate_metrics(iteration, state, best_index, info)
-        if self._keep_candidate_states:
+        if write:
+            self._write_candidate_metrics(iteration, state, best_index, info)
+        if write and self._keep_candidate_states:
             final_name = ckpt_lib.final_state_filename(t)
             info.digests[final_name] = ckpt_lib.save_payload(
                 self._model_dir, final_name, iteration_lib.state_payload(state)
             )
-        ckpt_lib.write_text(self._model_dir, ckpt_lib.architecture_filename(t), frozen.architecture.serialize())
-        frozen_name = ckpt_lib.frozen_filename(t)
-        info.digests[frozen_name] = ckpt_lib.save_payload(
-            self._model_dir, frozen_name, ckpt_lib.frozen_to_payload(frozen)
-        )
+        if write:
+            ckpt_lib.write_text(self._model_dir, ckpt_lib.architecture_filename(t), frozen.architecture.serialize())
+            frozen_name = ckpt_lib.frozen_filename(t)
+            info.digests[frozen_name] = ckpt_lib.save_payload(
+                self._model_dir, frozen_name, ckpt_lib.frozen_to_payload(frozen)
+            )
         if self._report_materializer:
             included = [ws.subnetwork.name for ws in frozen.weighted_subnetworks if ws.subnetwork.iteration_number == t]
-            reports = self._report_materializer.materialize_subnetwork_reports(iteration, state, included)
-            self._report_accessor.write_iteration_report(t, reports)
+            collective = {"collective": True} if iteration.process_group is not None else {}
+            reports = self._report_materializer.materialize_subnetwork_reports(iteration, state, included, **collective)
+            if write:
+                self._report_accessor.write_iteration_report(t, reports)
         stale_state = info.iteration_state_file
         info.iteration_number = t + 1
         info.iteration_state_file = None
@@ -836,11 +990,12 @@ class Estimator:
         info.history.append(
             {"iteration_number": t, "global_step": int(info.global_step), "generation": info.generation + 1}
         )
-        ckpt_lib.write_manifest(self._model_dir, info)
-        self._remove_state_file(stale_state)
-        # replay.json after every completed iteration, so that an
-        # interrupted search stays replayable up to here.
-        self._write_replay_record()
+        if write:
+            ckpt_lib.write_manifest(self._model_dir, info)
+            self._remove_state_file(stale_state)
+            # replay.json after every completed iteration, so that an
+            # interrupted search stays replayable up to here.
+            self._write_replay_record()
         if self._summary is not None:
             self._summary.close()
         return frozen

@@ -62,7 +62,15 @@ buffers that recompute moves are put back (the JAX step discards its
 mutated collections), so batch-norm statistics move once a step. The
 builder's summaries see the bagged forward. The recompute draws dropout
 from the engine's generator where the JAX step folds the step key with
-1000 + i. RoundRobin placement comes with a later slice.
+1000 + i.
+
+The step is built from two units, as the JAX package's:
+`subnetwork_update` (one subnetwork's forward, backward and guarded
+optimizer step) and `ensemble_update` (one candidate's combine, guarded
+mixture-weight step and EMA), which `distributed.executor.
+RoundRobinExecutor` also drives, each in its own group. Across processes
+(`set_process_group`) each unit all-reduces its loss and gradients, so
+that every process steps on the global batch's.
 """
 
 from __future__ import annotations
@@ -361,6 +369,13 @@ def _detached(out: Subnetwork) -> Subnetwork:
     return dataclasses.replace(out, last_layer=_cut(out.last_layer), logits=_cut(out.logits))
 
 
+def _rows(labels) -> int:
+    """Rows of a labels batch (a dict of labels by head: its first)."""
+    while isinstance(labels, Mapping):
+        labels = labels[sorted(labels)[0]]
+    return int(labels.shape[0])
+
+
 def _grads(loss, params):
     """d loss / d params, zeros for a parameter the loss does not reach."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -512,6 +527,8 @@ class Iteration:
         # cast to this dtype once, at the train step's boundary.
         self.step_compute_dtype = precision.resolve_dtype(step_compute_dtype)
         self._spec_by_name = {s.name: s for s in self.ensemble_specs}
+        # Data-parallel across processes when set (`set_process_group`).
+        self.process_group = None
 
     # ------------------------------------------------------------------ init
 
@@ -688,6 +705,107 @@ class Iteration:
             features = precision.cast_floats(features, self.step_compute_dtype)
         return features, weights, labels
 
+    def subnetwork_update(self, spec, st: SubnetworkTrainState, features, labels, loss_context=None,
+                          weights=None, generator=None):
+        """One subnetwork's update (the JAX `subnetwork_update`): its
+        training forward (dropout from `generator` when the module takes
+        one), the backward on its loss (the builder's
+        `build_subnetwork_loss` with `loss_context`, else the head's), and
+        its optimizer step under its own `_Guard`: a non-finite loss or
+        gradient, or a dead subnetwork, leaves everything the update may
+        change as it was, and a non-finite loss marks it dead. Across
+        processes the loss and the gradients are the global batch's
+        (`_global_means`). Returns (the forward's `Subnetwork`, the loss,
+        detached)."""
+        kwargs = {"generator": generator} if spec.takes_generator else {}
+        guard = _Guard(st.module, st.optimizer)
+        out = st.module(features, training=True, **kwargs)
+        loss = spec.builder.build_subnetwork_loss(out, labels, self.head, loss_context)
+        if loss is None:
+            loss = self.head.loss(out.logits, labels, weights)
+        params = list(st.module.parameters())
+        grads = _grads(loss, params)
+        loss = loss.detach()
+        if self.process_group is not None:
+            loss, *grads = self._global_means([loss] + grads, weights, labels)
+        finite = torch.isfinite(loss)
+        ok = finite & tree_finite(grads) & ~st.dead
+        _step(st.optimizer, params, grads)
+        guard.keep(ok)
+        st.step = st.step + ok.to(torch.int32)
+        st.dead = st.dead | ~finite
+        return out, loss
+
+    def ensemble_update(self, espec, ensemble_state: EnsembleTrainState, candidate_state, member_outs, labels,
+                        weights=None):
+        """One ensemble candidate's update (the JAX `ensemble_update`):
+        its mixture weights combine `member_outs` (K1 with
+        `use_fused_combine`), get the gradient of loss + complexity
+        regularization and step under their own `_Guard`; a candidate
+        without an optimizer (untrained, or a mean ensemble) only computes
+        its loss. Its loss EMA is updated unless `track_ema` is off.
+        Across processes the losses and gradients are the global batch's.
+        Returns (the candidate state, adanet loss, loss), losses
+        detached."""
+        est = ensemble_state
+        with torch.set_grad_enabled(est.optimizer is not None):
+            ens = espec.ensembler.build_ensemble(est.params, member_outs)
+            loss = self.head.loss(ens.logits, labels, weights)
+            adanet_loss = loss + _complexity_regularization(ens)
+        if est.optimizer is not None:
+            params = _params_list(est.params)
+            grads = _grads(adanet_loss, params)
+            adanet_loss, loss = adanet_loss.detach(), loss.detach()
+            if self.process_group is not None:
+                adanet_loss, loss, *grads = self._global_means([adanet_loss, loss] + grads, weights, labels)
+            guard = _Guard(None, est.optimizer)
+            _step(est.optimizer, params, grads)
+            guard.keep(torch.isfinite(adanet_loss) & tree_finite(grads))
+        else:
+            adanet_loss, loss = adanet_loss.detach(), loss.detach()
+            if self.process_group is not None:
+                adanet_loss, loss = self._global_means([adanet_loss, loss], weights, labels)
+        if espec.track_ema:
+            candidate_state = candidate_lib.update_candidate_state(
+                candidate_state, adanet_loss, self.adanet_loss_decay
+            )
+        return candidate_state, adanet_loss, loss
+
+    def _global_means(self, tensors, weights, labels):
+        """The global batch's values of `tensors`, each a mean (or a
+        mean's gradient) over this process's slice: one all-reduce of
+        each times the slice's denominator (its rows, or its example
+        weights' sum) beside the denominators, then divided by their sum;
+        so the slices may differ in size and weight. Every process gets
+        the same numbers."""
+        denominator = _rows(labels) if weights is None else torch.sum(torch.as_tensor(weights, dtype=torch.float32))
+        denominator = torch.as_tensor(denominator, dtype=torch.float32, device=self.device).reshape(1)
+        flat = torch.cat([t.reshape(-1).to(torch.float32) * denominator for t in tensors] + [denominator])
+        torch.distributed.all_reduce(flat, group=self.process_group)
+        parts = (flat[:-1] / flat[-1]).split([t.numel() for t in tensors])
+        return [part.view_as(t).to(t.dtype) for part, t in zip(parts, tensors)]
+
+    def set_process_group(self, process_group) -> None:
+        """Trains data-parallel over `process_group` (None: this process
+        alone): every process feeds its slice of each global batch, and
+        losses and gradients are all-reduced (`_global_means`). Batch
+        norm would need its statistics over the global batch too, which
+        is not ported: a subnetwork or frozen member with batch norm
+        raises."""
+        if process_group is not None:
+            modules = [spec.module for spec in self.subnetwork_specs] + [
+                fs.module for fs in self.frozen_subnetworks
+            ]
+            for module in modules:
+                norms = sorted({type(m).__name__ for m in module.modules() if "BatchNorm" in type(m).__name__})
+                if norms:
+                    raise ValueError(
+                        "Data-parallel training across processes computes batch-norm statistics per process, "
+                        "not over the global batch (%s in %s); train such models in one process."
+                        % (", ".join(norms), type(module).__name__)
+                    )
+        self.process_group = process_group
+
     def _train_step(self, state: IterationState, batch, extra_batches):
         features, weights, labels = self._step_inputs(batch)
         metrics: Dict[str, Any] = {}
@@ -701,11 +819,8 @@ class Iteration:
         #    trains on its own batch, with the teachers recomputed on its
         #    features so that distillation pairs matching examples.
         sub_outs = {}
-        sub_updates = {}
         for spec in self.subnetwork_specs:
             st = state.subnetworks[spec.name]
-            kwargs = {"generator": state.generator} if spec.takes_generator else {}
-            guard = _Guard(st.module, st.optimizer)
             if spec.name in extra_batches:
                 own_features, own_weights, own_labels = self._step_inputs(extra_batches[spec.name])
                 own_context = self.build_loss_context(
@@ -714,17 +829,12 @@ class Iteration:
                 )
             else:
                 own_features, own_weights, own_labels, own_context = features, weights, labels, context
-            out = st.module(own_features, training=True, **kwargs)
-            loss = spec.builder.build_subnetwork_loss(out, own_labels, self.head, own_context)
-            if loss is None:
-                loss = self.head.loss(out.logits, own_labels, own_weights)
-            params = list(st.module.parameters())
-            grads = _grads(loss, params)
-            finite = torch.isfinite(loss)
-            sub_updates[spec.name] = (st, params, grads, guard, finite & tree_finite(grads) & ~st.dead, finite)
+            out, loss = self.subnetwork_update(
+                spec, st, own_features, own_labels, own_context, weights=own_weights, generator=state.generator
+            )
             metrics.update(self.builder_summary_metrics(spec, out, own_features, own_labels))
             sub_outs[spec.name] = _detached(out)
-            metrics["subnetwork_loss/%s" % spec.name] = loss.detach()
+            metrics["subnetwork_loss/%s" % spec.name] = loss
         for spec in self.subnetwork_specs:
             if spec.name not in extra_batches:
                 continue
@@ -732,9 +842,7 @@ class Iteration:
             # with its parameters after this step's update (the JAX
             # step's recompute); the buffers this training-mode forward
             # moves are put back, so that its statistics move once a step.
-            st, params, grads, guard, ok, _ = sub_updates[spec.name]
-            _step(st.optimizer, params, grads)
-            guard.keep(ok)
+            st = state.subnetworks[spec.name]
             kwargs = {"generator": state.generator} if spec.takes_generator else {}
             buffers = list(st.module.buffers())
             kept = [b.clone() for b in buffers]
@@ -744,40 +852,16 @@ class Iteration:
                     buffer.copy_(value)
 
         # 3) Every ensemble candidate's mixture weights on loss +
-        #    complexity regularization, members as step 2 left them; a
-        #    candidate without an optimizer (untrained, or a mean
-        #    ensemble) only computes its loss.
-        ens_updates = []
+        #    complexity regularization, members as step 2's forwards saw
+        #    them (before this step's subnetwork updates, as the JAX step
+        #    reads them; a bagged member after its own).
         for espec in self.ensemble_specs:
-            est = state.ensembles[espec.name]
             member_outs = self.member_outputs(espec, sub_outs, frozen_outs)
-            with torch.set_grad_enabled(est.optimizer is not None):
-                ens = espec.ensembler.build_ensemble(est.params, member_outs)
-                loss = self.head.loss(ens.logits, labels, weights)
-                adanet_loss = loss + _complexity_regularization(ens)
-            if est.optimizer is not None:
-                params = _params_list(est.params)
-                grads = _grads(adanet_loss, params)
-                ens_updates.append((est, params, grads, torch.isfinite(adanet_loss) & tree_finite(grads)))
-            if espec.track_ema:
-                state.candidates[espec.name] = candidate_lib.update_candidate_state(
-                    state.candidates[espec.name], adanet_loss, self.adanet_loss_decay
-                )
-            metrics["adanet_loss/%s" % espec.name] = adanet_loss.detach()
-            metrics["ensemble_loss/%s" % espec.name] = loss.detach()
-
-        # 4) Every optimizer steps (a bagged one stepped above); what was
-        #    not finite is put back on the device.
-        for name, (st, params, grads, guard, ok, finite) in sub_updates.items():
-            if name not in extra_batches:
-                _step(st.optimizer, params, grads)
-                guard.keep(ok)
-            st.step = st.step + ok.to(torch.int32)
-            st.dead = st.dead | ~finite
-        for est, params, grads, ok in ens_updates:
-            guard = _Guard(None, est.optimizer)
-            _step(est.optimizer, params, grads)
-            guard.keep(ok)
+            state.candidates[espec.name], adanet_loss, loss = self.ensemble_update(
+                espec, state.ensembles[espec.name], state.candidates[espec.name], member_outs, labels, weights
+            )
+            metrics["adanet_loss/%s" % espec.name] = adanet_loss
+            metrics["ensemble_loss/%s" % espec.name] = loss
         state.iteration_step += 1
         return state, metrics
 

@@ -5,7 +5,9 @@ trained subnetwork's `Report` metric callables become Python numbers,
 averaged over a report dataset, in the `MaterializedReport`s that the
 next iteration's `Generator` reads. One no-grad pass a batch runs every
 subnetwork's forward, its report metrics and its head loss, and one host
-read a batch brings them all back.
+read a batch brings them all back. `collective`: a lockstep pass of
+every process of the iteration's process group, each on its slice of
+every batch, the sums all-reduced at the end (as the Evaluator's).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Callable, List, Optional, Sequence
 import torch
 
 from adanet_tpu_torch.core.iteration import split_example_weights
+from adanet_tpu_torch.distributed import mesh as mesh_lib
 from adanet_tpu_torch.ensemble.weighted import full_f32_matmul
 from adanet_tpu_torch.subnetwork.report import MaterializedReport, Report
 from adanet_tpu_torch.utils.batches import (
@@ -48,7 +51,7 @@ class ReportMaterializer:
         return self._steps
 
     def materialize_subnetwork_reports(
-        self, iteration, state, included_subnetwork_names: Sequence[str]
+        self, iteration, state, included_subnetwork_names: Sequence[str], collective: bool = False
     ) -> List[MaterializedReport]:
         """Every subnetwork's report metrics (and `loss`, its head loss)
         over the dataset, each marked `included_in_final_ensemble` when
@@ -76,9 +79,9 @@ class ReportMaterializer:
         accs = {name: WeightedMeanAccumulator() for name in reports}
         loss_accs = {name: WeightedMeanAccumulator() for name in reports}
         count = 0
-        for index, batch in enumerate(self._input_fn()):
-            if self._steps is not None and index >= self._steps:
-                break
+        for batch in mesh_lib.lockstep_batches(
+            self._input_fn, steps=self._steps, collective=collective, context="ReportMaterializer"
+        ):
             n_examples = batch_example_count(batch)
             n_weight = batch_metric_weight(batch, weight_key)
             for name, metrics in read_scalars(batch_metrics(batch)).items():
@@ -87,6 +90,9 @@ class ReportMaterializer:
             count += 1
         if count == 0:
             raise ValueError("Report input_fn yielded no batches.")
+        if collective:
+            for acc in list(accs.values()) + list(loss_accs.values()):
+                acc.all_reduce(iteration.process_group, iteration.device)
 
         included = set(included_subnetwork_names)
         return [

@@ -18,8 +18,9 @@ momentum=0.9)`, EfficientNet `optax.rmsprop(lr, decay=0.9, eps=1e-3,
 initial_scale=1.0, momentum=0.9)` (the published epsilon and a warm-
 started accumulator: with nu at 0 and a tiny eps the first updates are
 about 1e4 times the gradient), each under `clip_by_global_norm` when
-`--clip_gradients` > 0. `--placement=round_robin` raises: RoundRobin
-placement comes with the port's distributed placement (ROADMAP item 8).
+`--clip_gradients` > 0. `--placement=round_robin` trains through
+`distributed.RoundRobinStrategy` (each candidate in its group, the
+mixture weights in the ensemble group; on the CPU with `--device=cpu`).
 
 Example (synthetic, small candidates):
     python -m adanet_tpu_torch.research.imagenet_autoensemble.trainer \\
@@ -34,8 +35,10 @@ import json
 import logging
 import sys
 
+from adanet_tpu_torch._device import resolve_device
 from adanet_tpu_torch.autoensemble import AutoEnsembleEstimator, AutoEnsembleSubestimator
 from adanet_tpu_torch.core.heads import MultiClassHead
+from adanet_tpu_torch.distributed.placement import RoundRobinStrategy
 from adanet_tpu_torch.ensemble.strategy import GrowStrategy
 from adanet_tpu_torch.ensemble.weighted import ComplexityRegularizedEnsembler, MixtureWeightType
 from adanet_tpu_torch.models.efficientnet import EfficientNet
@@ -125,13 +128,12 @@ def candidate_pool(flags, num_classes: int, image_size: int):
 
 
 def build_estimator(flags, provider, model_dir: str):
-    if flags.placement == "round_robin":
-        raise ValueError(
-            "--placement=round_robin needs RoundRobin candidate placement, which the port does not have yet "
-            "(ROADMAP item 8, distributed placement); use --placement=replication"
-        )
-    if flags.placement != "replication":
+    if flags.placement not in ("replication", "round_robin"):
         raise ValueError("Unknown placement %r" % flags.placement)
+    placement = None
+    if flags.placement == "round_robin":
+        device = resolve_device(flags.device)
+        placement = RoundRobinStrategy([device] if device.type == "cpu" else None)
 
     def sgd(params):
         return optimizer.Chain(params, optimizer.Rule("sgd", optimizer.constant_schedule(0.01)))
@@ -153,6 +155,7 @@ def build_estimator(flags, provider, model_dir: str):
         model_dir=model_dir or None,
         random_seed=flags.seed,
         device=flags.device,
+        placement_strategy=placement,
     )
 
 

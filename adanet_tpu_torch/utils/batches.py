@@ -127,6 +127,17 @@ class WeightedMeanAccumulator:
         self._examples += float(example_count)
         self._batches += 1
 
+    def all_reduce(self, process_group, device) -> None:
+        """Sums the totals and the weights over the processes of
+        `process_group` (one all-reduce, in f64 on `device`), so that
+        every process's `means` are the global batches' means. Every
+        process must hold the same metric names."""
+        keys = sorted(self._totals)
+        flat = torch.tensor([self._totals[k] for k in keys] + [self._examples], dtype=torch.float64, device=device)
+        torch.distributed.all_reduce(flat, group=process_group)
+        values = flat.tolist()
+        self._totals, self._examples = dict(zip(keys, values[:-1])), values[-1]
+
     def means(self) -> Dict[str, float]:
         if self._examples == 0:
             raise ValueError("No examples accumulated.")

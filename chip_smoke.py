@@ -89,13 +89,13 @@
    CIFAR at the improve_nas `Hparams()` defaults (aux head, drop-path
    0.6, label smoothing, weight decay, clipping, bf16, K2 on), ADAPTIVE
    distillation, momentum with a cosine schedule (`fn_with_name`), batch
-   32 of fake 32 x 32 x 3 images, 2 iterations x 20 steps through
+   32 of fake 32 x 32 x 3 images, 2 iterations x 14 steps through
    `Estimator.train` with the `Generator`, then `evaluate`; launch counts
    zeroed just before and read just after must be exact (K2: 200 a
    member forward; K1: one an ensemble update, the teacher's, one an
    eval batch), every loss finite, both architectures written. Prints
    `train_nasnet:` (ms a step by the host clock and CUDA events over
-   steps 24-33, device busy and idle share, kernels, K2 launches and
+   steps 18-22, device busy and idle share, kernels, K2 launches and
    K2's forward and `_FusedSepConv` backward device ms a step over 3
    traced steps, peak memory, the card line).
 14. `nasnet_gate`: the flagship-family gate (tests/test_convergence.py:
@@ -114,8 +114,8 @@
    every (shape, batch, dtype) phases 13-15 launch, and the trainer CLI
    on the card at a small size.
 16. `resume_nasnet`, after phase 13 (its configuration, 2 iterations x
-   10 steps, a checkpoint every 5, one fixed batch): a search stopped by
-   max_steps at global step 13 is rebuilt and restored by a fresh
+   6 steps, a checkpoint every 3, one fixed batch): a search stopped by
+   max_steps at global step 8 is rebuilt and restored by a fresh
    Estimator, every tensor of the state bitwise equal to the live one
    (the CUDA generator's state included); two uninterrupted runs and
    the stopped one resumed: the same architecture files byte for byte,
@@ -124,12 +124,12 @@
    (zeroed just before its train(), read after its evaluate()); the
    trainer CLI in a subprocess, SIGTERMed inside iteration 1, exits 0
    with a mid-iteration checkpoint and a second run resumes it to the
-   end. Prints `resume_nasnet:` (bytes of `ckpt-13.pt` and `frozen-0.pt`,
+   end (2 x 10 steps). Prints `resume_nasnet:` (bytes of `ckpt-8.pt` and `frozen-0.pt`,
    ms a save split into device-to-host, serialise, digest and write
    with fsync, ms a restore, a save's share of a step, the deviations,
    the phase's seconds, the card line).
 17. `windows_vs_steps`: the gate model (3 cells, 8 filters, bf16, K2
-   on) over 2 iterations x 16 steps in windows of 8 with device prefetch
+   on) over 2 iterations x 8 steps in windows of 8 with device prefetch
    (W), against two runs of single steps without prefetch (A, B): W's
    `frozen-1.pt` bitwise equal to A's if B's is, else within twice B's
    deviation; equal launch counts; ms a step of each. This phase and
@@ -219,9 +219,9 @@
 30. `cifar_trainer`: the improve_nas trainer CLI (`trainer.main`, K2 and
    K1 on) on synthetic archives in the published layouts written here
    (CIFAR-10: 5 x 10,000 training images; CIFAR-100: 50,000, fine
-   labels; each test file 2,048 images, cut from 10,000 for the time
-   limit) at its full width (NASNet-A 6@768, batch 32), 2 x 20 and
-   2 x 10 steps and the evaluation over the test images: the native augment library loaded and its output bitwise
+   labels; each test file 1,024 images, cut from 10,000 for the time
+   limit) at its full width (NASNet-A 6@768, batch 32), 2 x 10 and
+   2 x 5 steps and the evaluation over the test images: the native augment library loaded and its output bitwise
    numpy's on a batch of the archive, K1 and K2 launches exact (zeroed
    just before, read just after), finite metrics. `cifar_trainer:` prints
    each archive's write and load seconds, augment ms a batch (native,
@@ -231,7 +231,7 @@
    defaults (ResNet-50 width 64 + EfficientNet-B0, 224 x 224, batch 64,
    replication, K1 on) on its fake data, 2 x 10 steps: K1 exact, finite
    metrics, each subnetwork's training loss falling within its
-   iteration, `--placement=round_robin` raising; ResNet-18 (width 8) and
+   iteration (each step's kept for phase 33); ResNet-18 (width 8) and
    B0 with small inputs, f32, card against CPU from the same weights
    within 1e-5. Prints ms a step, a window's and a traced step's numbers (device
    busy, idle share, kernels), peak memory, the metrics. K1 is then held
@@ -243,6 +243,40 @@
    eval losses within rtol 1e-5; a weighted-ensembler search on the card
    and the CPU within 1e-5. Phases 30-32's command time is printed on
    `cifar_imagenet_modelflow_phases:`.
+33. Placement (`placement_phases:` prints the group's command time).
+   `imagenet_round_robin`: phase 31's CLI with `--placement=round_robin`
+   (RoundRobinExecutor: each subnetwork in its group, the mixture
+   weights in the ensemble group on eval-mode forwards of member copies
+   synced every step; every group on the card): K1 exact, finite
+   metrics, falling training losses, each step's training losses within
+   IMAGENET_RR_LOSS_BOUND of phase 31's; ms a step, a window and a
+   traced step, peak memory.
+34. `round_robin_search`: phase 11's search under `RoundRobinStrategy()`:
+   accuracy >= 0.88 and above 0.76, K1 exact, the subnetworks within
+   1e-5 of phase 11's wherever both trained the same builders from the
+   same winner; the fused-divergence bound of tests/test_distributed.py
+   on the card (`round_robin_divergence`).
+35. `round_robin_gate`: tests/test_imagenet_pipeline.py's ImageNet
+   convergence gate under RoundRobin (image 32, ResNet-18 width 8 + B0,
+   60 steps, batch 32): accuracy >= 0.5, K1 exact.
+36. `spmd_two_process`: tests/torch_spmd_runner.py's search in two
+   processes on the card (gloo, each feeding half of every batch, with
+   a collective Evaluator and ReportMaterializer): the ranks' winners
+   bitwise equal, within rtol 2e-4, atol 1e-5 of a one-process oracle
+   on the card, each rank's K1 launches exact; one NCCL all-reduce of
+   world size 1. 37. `chief_worker`: tests/torch_distributed_runner.py's
+   chief and worker on the card sharing a model dir, and a lone worker's
+   WorkerWaitTimeout inside train(); their processes start together with
+   phase 36's, while phase 35 trains. K1 is then held at [1|2, 32, 8], [1|2, 8, 1] and [1|2,
+   16, 1] (`check_placement_combines`).
+
+Cut for the placement phases' time (PR 13): `train_nasnet` 2 x 20 ->
+2 x 14 steps (its timed window 10 -> 5 steps), `resume_nasnet` 2 x 10 ->
+2 x 6 steps (checkpoints every 5 -> 3, the stop at 13 -> 8) and its
+SIGTERMed trainer 2 x 50 -> 2 x 10, `windows_vs_steps` 2 x 16 -> 2 x 8,
+`cifar_trainer` 2 x 20 -> 2 x 10 (CIFAR-10) and 2 x 10 -> 2 x 5
+(CIFAR-100) steps and its test files 2,048 -> 1,024 images, the
+SIGTERMed trainer 2 x 10. No gate and no kernel check was cut.
 
 Prints the per-shape K2 and K3 timings, the served latency and
 throughput, the `train:`, `train_nasnet:`, `resume_nasnet:`,
@@ -257,7 +291,11 @@ launches on the NASNet training paths, `train_launches`; both with
 `cnn_launches`, `bagging_launches` (0), `transfer_launches`,
 `boston_launches` and `replay_launches`; K1's and K2's with
 `cifar10_launches` and `cifar100_launches`, K1's with
-`imagenet_ae_launches`),
+`imagenet_ae_launches`, `imagenet_round_robin_launches`,
+`round_robin_search_launches`, `round_robin_gate_launches` and
+`spmd_two_process_launches` (one a rank)), the `imagenet_round_robin:`,
+`round_robin_search:`, `round_robin_gate:`, `spmd_two_process:` and
+`chief_worker:` lines,
 and as its last line `{"ok": true, "device": {...}}`. Any failure raises
 and exits non-zero.
 """
@@ -365,18 +403,18 @@ HEADS_BATCH = 4096
 # defaults (drop-path over the run's 40 steps, as the trainer sets
 # total_training_steps), ADAPTIVE distillation, momentum with a cosine
 # schedule, batch 32 (trainer.py's --batch_size), fake 32 x 32 x 3 images.
-NASNET_BATCH, NASNET_STEPS, NASNET_ITERATIONS, NASNET_EXAMPLES = 32, 20, 2, 256
-NASNET_WINDOW, NASNET_TRACED = 10, 3
+NASNET_BATCH, NASNET_STEPS, NASNET_ITERATIONS, NASNET_EXAMPLES = 32, 14, 2, 256
+NASNET_WINDOW, NASNET_TRACED = 5, 3
 # resume_nasnet: train_nasnet's configuration, 2 iterations of
 # RESUME_STEPS with a checkpoint every RESUME_SAVE_EVERY steps, stopped at
 # global step RESUME_STOP (inside iteration 1); saves and restores timed
 # RESUME_SAVES times (medians), steps over a window of RESUME_WINDOW.
-RESUME_STEPS, RESUME_SAVE_EVERY, RESUME_STOP, RESUME_SAVES, RESUME_WINDOW = 10, 5, 13, 3, 3
+RESUME_STEPS, RESUME_SAVE_EVERY, RESUME_STOP, RESUME_SAVES, RESUME_WINDOW = 6, 3, 8, 3, 3
 # The trainer CLI's small size (trainer_on_card), and the steps of its
 # SIGTERM run (two iterations of half as many; the SIGTERM lands at
 # iteration 1's start, so its first step ends the run).
 TRAINER_SMALL = ["--dataset=fake", "--num_cells=3", "--num_conv_filters=4", "--batch_size=16"]
-TRAINER_SIGTERM_STEPS = 100
+TRAINER_SIGTERM_STEPS = 20
 # The flagship-family gate (tests/test_convergence.py:119-157): 3 cells,
 # 8 filters, on the digits; adam 1e-3.
 GATE_TRAIN, GATE_TEST, GATE_STEPS = 8192, 2048, 300
@@ -396,17 +434,18 @@ MOBILE_PREDICT_ROWS = (32, 32, 7)
 MOBILE_TIMED_WINDOW, MOBILE_TRACED_WINDOW = 2, 3
 # windows_vs_steps: the gate model, 2 iterations x WINDOWS_STEPS, windows
 # of 8 with device prefetch against single steps without.
-WINDOWS_STEPS = 16
+WINDOWS_STEPS = 8
 # cifar_trainer: the improve_nas trainer CLI on synthetic archives in the
 # published layouts (CIFAR-10: 5 x 10,000 training images; CIFAR-100:
 # 50,000 with fine labels) at its full width (NASNet-A 6@768), batch 32,
 # 2 iterations of CIFAR10_STEPS // 2 steps (of CIFAR100_STEPS // 2 on
-# CIFAR-100); the augment timing's repeats. The test files hold 2,048
-# images of the published 10,000: the trainer evaluates all of them, and
-# the full 312 batches, twice, cost the script up to 150 s of its time
-# limit on a slow host.
-CIFAR_TRAIN, CIFAR_TEST, CIFAR_BATCH, CIFAR_ITERATIONS = 50000, 2048, 32, 2
-CIFAR10_STEPS, CIFAR100_STEPS, AUGMENT_REPEATS = 40, 20, 50
+# CIFAR-100); the augment timing's repeats. The test files hold 1,024
+# images of the published 10,000 (2,048 until the placement phases
+# needed the time): the trainer evaluates all of them, and the full 312
+# batches, twice, cost the script up to 150 s of its time limit on a
+# slow host.
+CIFAR_TRAIN, CIFAR_TEST, CIFAR_BATCH, CIFAR_ITERATIONS = 50000, 1024, 32, 2
+CIFAR10_STEPS, CIFAR100_STEPS, AUGMENT_REPEATS = 20, 10, 50
 # imagenet_autoensemble: the ImageNet trainer at its defaults (ResNet-50
 # width 64 + EfficientNet-B0, 224 x 224, batch 64, replication) on its fake
 # data (8 classes), 2 iterations x 10 steps; card/CPU forwards of ResNet-18
@@ -415,6 +454,20 @@ IMAGENET_STEPS, IMAGENET_ITERATIONS, IMAGENET_BATCH, IMAGENET_CLASSES = 20, 2, 6
 # Its timed window and traced step in iteration 1 (pulls, `_StepClock`):
 # first timed step, first traced step, window, traced steps.
 IMAGENET_TIMED = (12, 17, 4, 1)
+# imagenet_round_robin: each step's subnetwork training losses against the
+# replication run's, in parts of max(1, |loss|). Two replication runs were
+# bitwise equal on the H100 (PERF.md, PR 13), and RoundRobin trains the
+# subnetworks with the same kernels in the same order; the bound leaves
+# room for a host whose cuDNN picks nondeterministic algorithms (NASNet
+# runs part there, PERF.md section 7) and stays far below the 25% the
+# losses fall in 10 steps, so a training divergence would show.
+IMAGENET_RR_LOSS_BOUND = 1e-2
+# round_robin_gate: tests/test_imagenet_pipeline.py::test_imagenet_autoensemble_convergence_gate
+# (image 32, ResNet-18 width 8 + B0, 60 steps of batch 32, resnet_lr 0.05,
+# 256 synthetic images from seed 11, RoundRobin): accuracy >= 0.5.
+RR_GATE_STEPS, RR_GATE_BATCH, RR_GATE_EXAMPLES, RR_GATE_ACCURACY = 60, 32, 256, 0.5
+# process_phases: each subprocess's time limit, seconds.
+PROCESS_TIMEOUT = 300
 # modelflow: tests/test_experimental.py::test_parallel_scheduler_matches_sequential
 # (three MLPs, 3 epochs, mean ensembles under Grow and All) with three
 # workers on the card's pool, and one weighted-ensembler search, card/CPU.
@@ -1717,12 +1770,31 @@ class _StepClock:
             self.profile.stop()
 
 
-def train_search(model_dir):
+def _probing(estimator_cls, probes):
+    """An Estimator class that records, as each iteration completes,
+    every subnetwork's variables (`t<t>/<name>/<key>`, on the CPU) and
+    the winner's name (`winner/<t>`)."""
+
+    class Probing(estimator_cls):
+        def _complete_iteration(self, iteration, state, *args, **kwargs):
+            t = iteration.iteration_number
+            for name, st in state.subnetworks.items():
+                for key, value in st.module.state_dict().items():
+                    probes["t%d/%s/%s" % (t, name, key)] = value.detach().cpu().clone()
+            frozen = super()._complete_iteration(iteration, state, *args, **kwargs)
+            probes["winner/%d" % t] = frozen.name
+            return frozen
+
+    return Probing
+
+
+def train_search(model_dir, probes=None):
     """The search path: `Estimator.train` and `Estimator.evaluate` at the
     gate's configuration on the card, launch counts zeroed just before
     and read just after. A window of the search's own iteration 1 is
     timed, and a few later steps traced, through its input_fn
-    (`_StepClock`). Returns (launch counts, the `train:` numbers)."""
+    (`_StepClock`); each iteration's subnetworks go into `probes`
+    (`_probing`). Returns (launch counts, the `train:` numbers)."""
     import torch
 
     from adanet_tpu_torch import ops
@@ -1734,7 +1806,7 @@ def train_search(model_dir):
     xtr, ytr = make_dataset(TRAIN_EXAMPLES, seed=7)
     xte, yte = make_dataset(EVAL_EXAMPLES, seed=8)
     search_dir = os.path.join(model_dir, "search")
-    estimator = Estimator(
+    estimator = _probing(Estimator, {} if probes is None else probes)(
         head, generator, max_iteration_steps=TRAIN_STEPS, max_iterations=TRAIN_ITERATIONS,
         ensemblers=[ensembler], model_dir=search_dir, log_every_steps=0, device="cuda",
     )
@@ -3285,7 +3357,7 @@ def train_nasnet_mobile(model_dir, seed):
 
 def windows_vs_steps(model_dir):
     """Windows leave results as they are, on the card: the gate's NASNet
-    model (3 cells, 8 filters, bf16, K2 on) over 2 iterations x 16 steps
+    model (3 cells, 8 filters, bf16, K2 on) over 2 iterations x 8 steps
     with `iterations_per_loop=8` and device prefetch (W), against two runs
     of single steps without prefetch (A, B). W's `frozen-1.pt` equals
     A's bitwise if B's does, else deviates from it by at most twice B's
@@ -4316,7 +4388,7 @@ def _finite_metrics(what, metrics, steps):
 def cifar_trainer(model_dir):
     """The improve_nas trainer CLI on CIFAR-10 and CIFAR-100 archives in the
     published layouts, at its full width (NASNet-A 6@768, batch 32, K2 and
-    K1 on, its defaults), 2 x 20 and 2 x 10 steps, then its evaluation over
+    K1 on, its defaults), 2 x 10 and 2 x 5 steps, then its evaluation over
     the CIFAR_TEST test images: the native augment library loaded, its output
     bitwise numpy's, K1 and K2 launches exact, finite metrics. Prints the
     archive load seconds, augment ms a batch (native, numpy), ms a step,
@@ -4430,41 +4502,20 @@ def imagenet_autoensemble(model_dir, gen):
     width 64 + EfficientNet-B0, 224 x 224, batch 64, replication, K1 on)
     on its fake data, 2 x 10 steps: K1 exact (one a candidate a step, two
     at t = 0 and three at t = 1, and one a test batch), finite metrics,
-    each subnetwork's training loss falling within its iteration;
-    `--placement=round_robin` raises; the families' card/CPU forwards
-    (`_family_vs_cpu`). Prints ms a step (over iteration 1, and over a
-    window of it by the host clock and CUDA events), a traced step's
-    device busy ms, idle share and kernels, peak memory, the metrics."""
+    each subnetwork's training loss falling within its iteration; the
+    families' card/CPU forwards (`_family_vs_cpu`). Prints ms a step (over
+    iteration 1, and over a window of it by the host clock and CUDA
+    events), a traced step's device busy ms, idle share and kernels, peak
+    memory, the metrics. Returns (counts, the line's numbers, each step's
+    training losses)."""
     from adanet_tpu_torch.research.imagenet_autoensemble import trainer
 
     t_phase = time.perf_counter()
-    marks, clocks = [], []
-    make_provider = trainer._provider
-
-    class Timed:
-        """The trainer's provider, its training stream through `_StepClock`:
-        steps 12-15 of iteration 1 timed, step 17 traced."""
-
-        def __init__(self, flags):
-            self._provider = make_provider(flags)
-            self.num_classes = self._provider.num_classes
-
-        def get_input_fn(self, partition="train"):
-            input_fn = self._provider.get_input_fn(partition)
-            if partition != "train":
-                return input_fn
-            clocks.append(_StepClock(input_fn, first=IMAGENET_TIMED[0], traced=IMAGENET_TIMED[1],
-                                     window=IMAGENET_TIMED[2], traced_steps=IMAGENET_TIMED[3]))
-            return clocks[-1]
-
-    trainer._provider = Timed
-    losses = []
-    try:
+    marks, clocks, losses = [], [], []
+    with _timed_provider(trainer, clocks):
         metrics, counts, secs, peak = _run_cli(trainer, [
             "--dataset=fake", "--boosting_iterations=%d" % IMAGENET_ITERATIONS, "--train_steps=%d" % IMAGENET_STEPS,
             "--device=cuda", "--model_dir=%s" % os.path.join(model_dir, "imagenet_ae")], marks, losses)
-    finally:
-        trainer._provider = make_provider
     _finite_metrics("imagenet_autoensemble", metrics, IMAGENET_STEPS)
     # Training mode: every subnetwork's loss falls within its iteration
     # (the evaluation reads the batch norms' running statistics, which
@@ -4487,19 +4538,40 @@ def imagenet_autoensemble(model_dir, gen):
     if counts != expected or len(marks) != IMAGENET_STEPS or flags.batch_size != IMAGENET_BATCH:
         raise AssertionError("imagenet_autoensemble: %d steps, launches %s, expected %s"
                              % (len(marks), counts, expected))
-    try:
-        trainer.build_estimator(trainer.parse_args(["--placement=round_robin"]), None, "")
-        raise AssertionError("imagenet_autoensemble: --placement=round_robin did not raise")
-    except ValueError as exc:
-        round_robin = str(exc)
     out = dict(steps=IMAGENET_STEPS, cli_secs=secs, **_last_iteration_ms(marks), timed=window,
                max_memory_allocated_bytes=peak,
                metrics={k: v for k, v in metrics.items()}, train_losses=train_losses,
                k1_launches=counts["combine"], test_batches=test_batches,
-               round_robin_raised=round_robin, families_vs_cpu=_family_vs_cpu(gen),
-               phase_secs=time.perf_counter() - t_phase, card=card_line())
+               families_vs_cpu=_family_vs_cpu(gen), phase_secs=time.perf_counter() - t_phase, card=card_line())
     print("imagenet_autoensemble: " + json.dumps(out))
-    return counts, out
+    return counts, out, losses
+
+
+@contextlib.contextmanager
+def _timed_provider(trainer, clocks):
+    """The ImageNet trainer's provider with its training stream through
+    `_StepClock` (appended to `clocks`): steps 12-15 of iteration 1 timed,
+    step 17 traced."""
+    make_provider = trainer._provider
+
+    class Timed:
+        def __init__(self, flags):
+            self._provider = make_provider(flags)
+            self.num_classes = self._provider.num_classes
+
+        def get_input_fn(self, partition="train"):
+            input_fn = self._provider.get_input_fn(partition)
+            if partition != "train":
+                return input_fn
+            clocks.append(_StepClock(input_fn, first=IMAGENET_TIMED[0], traced=IMAGENET_TIMED[1],
+                                     window=IMAGENET_TIMED[2], traced_steps=IMAGENET_TIMED[3]))
+            return clocks[-1]
+
+    trainer._provider = Timed
+    try:
+        yield
+    finally:
+        trainer._provider = make_provider
 
 
 def _modelflow_search(device, scheduler=None, weighted=False):
@@ -4583,6 +4655,403 @@ def modelflow(model_dir):
     return out
 
 
+@contextlib.contextmanager
+def _executor_step_times(marks, losses):
+    """`RoundRobinExecutor`'s windows of one step (the Estimator's at
+    `iterations_per_loop=1`) appending (iteration, host clock, CUDA
+    event) to `marks` and (iteration, the subnetworks' training losses)
+    to `losses` as each returns (the executor's counterpart of
+    `_step_times`)."""
+    import torch
+
+    from adanet_tpu_torch.distributed import executor as executor_lib
+
+    original = executor_lib.RoundRobinExecutor.train_steps
+
+    def timed(self, state, batches):
+        batches = list(batches)
+        if len(batches) != 1:
+            raise AssertionError("imagenet_round_robin: a window of %d steps" % len(batches))
+        out = original(self, state, batches)
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        t = self.iteration.iteration_number
+        marks.append((t, time.perf_counter(), event))
+        losses.append((t, {k.split("/", 1)[1]: v for k, v in out[1].items() if k.startswith("subnetwork_loss/")}))
+        return out
+
+    executor_lib.RoundRobinExecutor.train_steps = timed
+    try:
+        yield
+    finally:
+        executor_lib.RoundRobinExecutor.train_steps = original
+
+
+def _loss_series(losses):
+    """{"t<t>/<subnetwork>": [each step's training loss]}, read from the
+    card once."""
+    import torch
+
+    series = collections.defaultdict(list)
+    for t, step in losses:
+        for name, value in step.items():
+            series["t%d/%s" % (t, name)].append(value)
+    return {key: torch.stack(values).float().tolist() for key, values in series.items()}
+
+
+def imagenet_round_robin(model_dir, replication_losses):
+    """The ImageNet AutoEnsemble trainer CLI at its defaults with
+    `--placement=round_robin` (ResNet-50 width 64 + EfficientNet-B0,
+    224 x 224, batch 64, fake data, 2 x 10 steps): K1 exact (the ensemble
+    group's updates are replication's, one a candidate a step, and one a
+    test batch), finite metrics, each subnetwork's training loss falling
+    within its iteration, and each step's training loss within
+    IMAGENET_RR_LOSS_BOUND x max(1, |loss|) of the replication run's
+    (`imagenet_autoensemble`, the same batches and draws). Prints ms a
+    step, a window's and a traced step's numbers, peak memory."""
+    from adanet_tpu_torch.research.imagenet_autoensemble import trainer
+
+    t_phase = time.perf_counter()
+    marks, clocks, losses = [], [], []
+    with _timed_provider(trainer, clocks), _executor_step_times(marks, losses):
+        metrics, counts, secs, peak = _run_cli(trainer, [
+            "--dataset=fake", "--boosting_iterations=%d" % IMAGENET_ITERATIONS, "--train_steps=%d" % IMAGENET_STEPS,
+            "--device=cuda", "--placement=round_robin",
+            "--model_dir=%s" % os.path.join(model_dir, "imagenet_rr")], [], None)
+    _finite_metrics("imagenet_round_robin", metrics, IMAGENET_STEPS)
+    train_losses = loss_summary(losses)
+    if len(train_losses) != 4 or not all(v["least"] < v["first"] for v in train_losses.values()):
+        raise AssertionError("imagenet_round_robin: training losses %s" % train_losses)
+    rr, replication = _loss_series(losses), _loss_series(replication_losses)
+    if sorted(rr) != sorted(replication) or any(len(rr[k]) != len(replication[k]) for k in rr):
+        raise AssertionError("imagenet_round_robin: steps %s against replication's %s" % (
+            {k: len(v) for k, v in rr.items()}, {k: len(v) for k, v in replication.items()}))
+    deviation = max(abs(a - b) / max(1.0, abs(b)) for k in rr for a, b in zip(rr[k], replication[k]))
+    if not deviation <= IMAGENET_RR_LOSS_BOUND:
+        raise AssertionError("imagenet_round_robin: training losses %.3g from replication's, bound %.3g"
+                             % (deviation, IMAGENET_RR_LOSS_BOUND))
+    (clock,) = clocks
+    (host0, event0), (host1, event1) = clock.marks
+    host_ms = (host1 - host0) / clock.window * 1e3
+    window = dict(window_steps=[clock._first, clock._first + clock.window - 1], window_host_ms_per_step=host_ms,
+                  window_event_ms_per_step=event0.elapsed_time(event1) / clock.window,
+                  **traced_step(clock.profile, host_ms, clock.traced_steps))
+    test_batches = max(IMAGENET_BATCH, max(128, 4 * IMAGENET_BATCH) // 4) // IMAGENET_BATCH
+    per_iteration = IMAGENET_STEPS // IMAGENET_ITERATIONS
+    expected = _counts(per_iteration * sum(_grow_candidates(2, IMAGENET_ITERATIONS)) + test_batches)
+    if counts != expected or len(marks) != IMAGENET_STEPS:
+        raise AssertionError("imagenet_round_robin: %d steps, launches %s, expected %s"
+                             % (len(marks), counts, expected))
+    out = dict(steps=IMAGENET_STEPS, cli_secs=secs, **_last_iteration_ms(marks), timed=window,
+               max_memory_allocated_bytes=peak, metrics=metrics, train_losses=train_losses,
+               loss_deviation_from_replication=deviation, bound=IMAGENET_RR_LOSS_BOUND,
+               k1_launches=counts["combine"], phase_secs=time.perf_counter() - t_phase, card=card_line())
+    print("imagenet_round_robin: " + json.dumps(out))
+    return counts, out
+
+
+def _linear_builders():
+    """tests/helpers.py's DNNBuilder("a", 1) and ("b", 2), through the
+    port's test helper (tests/torch_port_common.py)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_port_common import dnn_builder, linear_dataset
+
+    return [dnn_builder("a", 1), dnn_builder("b", 2)], linear_dataset
+
+
+def round_robin_divergence():
+    """tests/test_distributed.py::test_round_robin_fused_divergence_bounded
+    on the card: the fused step and the RoundRobin executor from one init
+    over 30 epochs of the linear dataset; subnetwork losses within rtol
+    1e-3 at every step, each candidate's EMA within 0.10 x |EMA| + 0.005
+    of the fused one, the same selection. Returns the largest gaps."""
+    import torch
+
+    from adanet_tpu_torch.core.heads import RegressionHead
+    from adanet_tpu_torch.core.iteration import IterationBuilder
+    from adanet_tpu_torch.distributed import RoundRobinExecutor, RoundRobinStrategy
+    from adanet_tpu_torch.ensemble import ComplexityRegularizedEnsembler, GrowStrategy
+
+    def build():
+        builders, linear_dataset = _linear_builders()
+        factory = IterationBuilder(RegressionHead(), [ComplexityRegularizedEnsembler(
+            optimizer=lambda p: torch.optim.SGD(p, lr=0.05))], [GrowStrategy()], device="cuda")
+        return factory.build_iteration(0, builders, None, input_shape=(2,)), linear_dataset
+
+    it_fused, linear_dataset = build()
+    sample = next(linear_dataset()())
+    st_fused = it_fused.init_state(torch.Generator().manual_seed(0), sample)
+    it_rr, _ = build()
+    executor = RoundRobinExecutor(it_rr, RoundRobinStrategy())
+    st_rr = executor.init_state(torch.Generator().manual_seed(0), sample)
+    sub_gap = 0.0
+    for _ in range(30):
+        for batch in linear_dataset()():
+            st_fused, m_fused = it_fused.train_step(st_fused, batch)
+            st_rr, m_rr = executor.train_step(st_rr, batch)
+            for spec in it_fused.subnetwork_specs:
+                key = "subnetwork_loss/%s" % spec.name
+                a, b = float(m_fused[key]), float(m_rr[key])
+                sub_gap = max(sub_gap, abs(a - b) / max(abs(a), 1e-30))
+    ema_fused, ema_rr = it_fused.ema_losses(st_fused), it_rr.ema_losses(st_rr)
+    gaps = {name: abs(value - ema_rr[name]) for name, value in ema_fused.items()}
+    if not (sub_gap <= 1e-3 and all(gaps[n] < 0.10 * abs(v) + 0.005 for n, v in ema_fused.items())
+            and it_fused.best_candidate_index(st_fused) == it_rr.best_candidate_index(st_rr)):
+        raise AssertionError("round_robin divergence: subnetwork %.3g, EMAs %s against %s"
+                             % (sub_gap, ema_rr, ema_fused))
+    return dict(subnetwork_loss_rel_gap=sub_gap, ema_gaps=gaps, emas_fused=ema_fused)
+
+
+def round_robin_search(model_dir, fused_probes):
+    """The tier-1 gate's search (`train_search`'s configuration) under
+    `RoundRobinStrategy()`: accuracy >= 0.88 and above 0.76, K1 exact
+    (one a candidate a step in the ensemble group, one a test batch), the
+    subnetworks' variables at each iteration's end within 1e-5 x max(1,
+    |value|) of the fused search's (`train_search`'s probes) wherever the
+    two searches trained the same builders from the same winner, and the
+    fused-divergence bound on the card (`round_robin_divergence`). Prints
+    ms a step, a window and traced steps of iteration 1."""
+    from adanet_tpu_torch.core.estimator import Estimator
+    from adanet_tpu_torch.distributed import RoundRobinStrategy
+    from adanet_tpu_torch.examples.synthetic_digits import input_fn, make_dataset
+
+    t_phase = time.perf_counter()
+    head, generator, ensembler = search_parts()
+    xtr, ytr = make_dataset(TRAIN_EXAMPLES, seed=7)
+    xte, yte = make_dataset(EVAL_EXAMPLES, seed=8)
+    directory = os.path.join(model_dir, "round_robin_search")
+    probes = {}
+    estimator = _probing(Estimator, probes)(
+        head, generator, max_iteration_steps=TRAIN_STEPS, max_iterations=TRAIN_ITERATIONS, ensemblers=[ensembler],
+        model_dir=directory, log_every_steps=0, device="cuda", placement_strategy=RoundRobinStrategy())
+    metrics, counts, stats = _timed_search(estimator, input_fn(xtr, ytr, TRAIN_BATCH), input_fn(xte, yte, TRAIN_BATCH),
+                                           TRAIN_STEPS, TRAIN_ITERATIONS)
+    candidates = _grow_candidates(2, TRAIN_ITERATIONS)
+    _check_k1("round_robin_search", counts, TRAIN_STEPS, candidates, -(-EVAL_EXAMPLES // TRAIN_BATCH), directory)
+    if not (metrics["accuracy"] >= GATE_ACCURACY and metrics["accuracy"] > LINEAR_BASELINE_ACCURACY):
+        raise AssertionError("round_robin_search: accuracy %s below the gate %s" % (metrics, GATE_ACCURACY))
+    compared, worst = [], 0.0
+    for t in range(TRAIN_ITERATIONS):
+        keys = sorted(k for k in probes if k.startswith("t%d/" % t))
+        if t and probes["winner/%d" % (t - 1)] != fused_probes["winner/%d" % (t - 1)]:
+            break
+        if keys != sorted(k for k in fused_probes if k.startswith("t%d/" % t)):
+            raise AssertionError("round_robin_search: subnetworks %s against the fused search's" % keys)
+        for key in keys:
+            want = fused_probes[key]
+            worst = max(worst, float(((probes[key] - want).abs() / want.abs().clamp(min=1.0)).max()))
+        compared.append(t)
+    if not compared or not worst <= 1e-5:
+        raise AssertionError("round_robin_search: subnetworks %.3g from the fused search's (iterations %s)"
+                             % (worst, compared))
+    out = dict(accuracy=metrics["accuracy"], loss=metrics["loss"], best_ensemble=metrics["best_ensemble"],
+               winners=[probes["winner/%d" % t] for t in range(TRAIN_ITERATIONS)],
+               fused_winners=[fused_probes["winner/%d" % t] for t in range(TRAIN_ITERATIONS)],
+               subnetworks_vs_fused=worst, iterations_compared=compared, candidates=candidates,
+               k1_launches=counts["combine"], **stats, divergence=round_robin_divergence(),
+               phase_secs=time.perf_counter() - t_phase, card=card_line())
+    print("round_robin_search: " + json.dumps(out))
+    return counts, out
+
+
+def round_robin_gate(model_dir):
+    """tests/test_imagenet_pipeline.py::test_imagenet_autoensemble_convergence_gate
+    on the card (its configuration under RoundRobin: image 32, ResNet-18
+    width 8 + EfficientNet-B0, 60 steps of batch 32, resnet_lr 0.05, 256
+    synthetic images from seed 11): accuracy >= 0.5, K1 exact."""
+    import torch
+
+    from adanet_tpu_torch import ops
+    from adanet_tpu_torch.research.imagenet_autoensemble import trainer
+    from adanet_tpu_torch.research.imagenet_autoensemble.imagenet_data import SyntheticProvider
+
+    t_phase = time.perf_counter()
+    flags = trainer.parse_args([
+        "--dataset=fake", "--image_size=32", "--placement=round_robin", "--resnet_depth=18", "--resnet_width=8",
+        "--efficientnet_variant=b0", "--candidates=resnet50,efficientnet_b0", "--boosting_iterations=1",
+        "--train_steps=%d" % RR_GATE_STEPS, "--batch_size=%d" % RR_GATE_BATCH, "--resnet_lr=0.05", "--device=cuda"])
+    provider = SyntheticProvider(num_classes=IMAGENET_CLASSES, num_examples=RR_GATE_EXAMPLES,
+                                 batch_size=RR_GATE_BATCH, image_size=32, seed=11)
+    estimator = trainer.build_estimator(flags, provider, os.path.join(model_dir, "round_robin_gate"))
+    ops.reset_launch_counts()
+    estimator.train(provider.get_input_fn("train"), max_steps=RR_GATE_STEPS)
+    metrics = estimator.evaluate(provider.get_input_fn("test"))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    test_batches = sum(1 for _ in provider.get_input_fn("test")())
+    expected = _counts(RR_GATE_STEPS * 2 + test_batches)
+    if counts != expected or metrics["global_step"] != RR_GATE_STEPS:
+        raise AssertionError("round_robin_gate: launches %s, expected %s; %s" % (counts, expected, metrics))
+    if not (math.isfinite(metrics["average_loss"]) and metrics["accuracy"] >= RR_GATE_ACCURACY):
+        raise AssertionError("round_robin_gate: %s below %s" % (metrics, RR_GATE_ACCURACY))
+    out = dict(accuracy=metrics["accuracy"], average_loss=metrics["average_loss"],
+               best_ensemble=metrics["best_ensemble"], k1_launches=counts["combine"],
+               phase_secs=time.perf_counter() - t_phase, card=card_line())
+    print("round_robin_gate: " + json.dumps(out))
+    return counts, out
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _finish(procs, what):
+    """Each (name, process)'s output; a process still running at its
+    timeout is killed, with every other one, and the phase fails."""
+    outs = {}
+    try:
+        for name, proc in procs:
+            out, _ = proc.communicate(timeout=PROCESS_TIMEOUT)
+            outs[name] = out.decode()
+            if proc.returncode != 0:
+                raise AssertionError("%s: %s exited %d:\n%s" % (what, name, proc.returncode, outs[name][-3000:]))
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return outs
+
+
+def nccl_all_reduce():
+    """One NCCL all-reduce in a process group of world size 1 on the card
+    (NCCL refuses two ranks on one card; across cards it waits for a
+    machine with two). Returns the group's backend."""
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method="tcp://localhost:%d" % _free_port(), world_size=1, rank=0)
+    try:
+        t = torch.arange(4, dtype=torch.float32, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        if t.tolist() != [0.0, 1.0, 2.0, 3.0]:
+            raise AssertionError("nccl all_reduce gave %s" % t.tolist())
+        return dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+
+
+def start_processes(model_dir):
+    """Starts `process_phases`' five processes together: the two ranks of
+    tests/torch_spmd_runner.py's search on the card (gloo), and
+    tests/torch_distributed_runner.py's chief, worker and lone worker.
+    Returns (their (name, process) pairs, the start time)."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    spmd_runner = os.path.join(tests, "torch_spmd_runner.py")
+    role_runner = os.path.join(tests, "torch_distributed_runner.py")
+    os.makedirs(os.path.join(model_dir, "spmd"))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    port = str(_free_port())
+
+    def spawn(args):
+        return subprocess.Popen([sys.executable] + args, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+    t0 = time.perf_counter()
+    procs = [("rank %d" % rank, spawn([spmd_runner, "spmd", os.path.join(model_dir, "spmd"), str(rank), port, "2",
+                                       "cuda", "gloo"])) for rank in range(2)]
+    shared_dir = os.path.join(model_dir, "chief_worker")
+    procs += [("chief", spawn([role_runner, shared_dir, "0", "train", "cuda"])),
+              ("worker", spawn([role_runner, shared_dir, "1", "train", "cuda"])),
+              ("lone worker", spawn([role_runner, os.path.join(model_dir, "abandoned"), "1", "timeout", "cuda"]))]
+    return procs, t0
+
+
+def process_phases(model_dir, started):
+    """`spmd_two_process` and `chief_worker`, on the processes that
+    `start_processes` started: tests/torch_spmd_runner.py's search in two
+    processes on the card (gloo, each feeding half of every batch, a
+    collective Evaluator and ReportMaterializer), whose final winners
+    must be bitwise equal and within rtol 2e-4, atol 1e-5 of a
+    one-process oracle on the card on the whole batches, with each
+    process's K1 launches exact (one a candidate a step and a candidate
+    an Evaluator batch); the NCCL all-reduce of world size 1;
+    tests/torch_distributed_runner.py's chief and worker on the card
+    sharing a model dir (both end at iteration 2), and a lone worker's
+    `WorkerWaitTimeout` inside `train()`. Returns (each rank's launch
+    counts, the two lines' numbers)."""
+    import numpy as np
+    import torch
+
+    from adanet_tpu_torch import ops
+
+    procs, t_phase = started
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    spmd_dir, shared_dir = os.path.join(model_dir, "spmd"), os.path.join(model_dir, "chief_worker")
+    try:
+        backend = nccl_all_reduce()
+        sys.path.insert(0, tests)
+        from torch_spmd_runner import oracle_probes
+
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        oracle = oracle_probes(os.path.join(model_dir, "spmd_oracle"), "cuda")
+        torch.cuda.synchronize()
+        oracle_secs = time.perf_counter() - t0
+        oracle_counts = ops.launch_counts()
+    finally:
+        outs = _finish(procs, "process_phases")
+    processes_secs = time.perf_counter() - t_phase
+    # 2 x 6 steps over 2 and 3 candidates, and the Evaluator's 4 batches
+    # over them at each iteration's end.
+    expected = _counts(6 * 2 + 6 * 3 + 4 * (2 + 3))
+    launches = []
+    for rank in range(2):
+        line = [l for l in outs["rank %d" % rank].splitlines() if l.startswith("SPMD ROLE %d DONE" % rank)]
+        if not line:
+            raise AssertionError("spmd rank %d:\n%s" % (rank, outs["rank %d" % rank][-3000:]))
+        launches.append(json.loads(line[-1].split(" launches ", 1)[1]))
+    # A fresh process may launch K0 once, the self-test of its first
+    # kernel load.
+    if [dict(c, copy=0) for c in launches] != [expected, expected] or oracle_counts != expected:
+        raise AssertionError("spmd_two_process: launches %s, oracle %s, expected %s"
+                             % (launches, oracle_counts, expected))
+    probes = [np.load(os.path.join(spmd_dir, "probe_%d.npz" % rank)) for rank in range(2)]
+    if sorted(probes[0].files) != sorted(oracle) or sorted(probes[1].files) != sorted(oracle):
+        raise AssertionError("spmd_two_process: probes %s against the oracle's %s" % (probes[0].files, sorted(oracle)))
+    worst = 0.0
+    for key, value in oracle.items():
+        if not np.array_equal(probes[0][key], probes[1][key]):
+            raise AssertionError("spmd_two_process: the ranks differ at %s" % key)
+        np.testing.assert_allclose(probes[0][key], value, rtol=2e-4, atol=1e-5, err_msg=key)
+        worst = max(worst, float(np.max(np.abs(probes[0][key] - value))))
+    spmd = dict(ranks_bitwise_equal=True, max_abs_vs_oracle=worst, leaves=len(oracle), k1_launches=launches,
+                oracle_k1_launches=oracle_counts["combine"], oracle_secs=oracle_secs, nccl_world_1_backend=backend,
+                card=card_line())
+    print("spmd_two_process: " + json.dumps(spmd))
+    for name, marker in (("chief", "ROLE 0 DONE"), ("worker", "ROLE 1 DONE"),
+                         ("lone worker", "ROLE 1 TIMED OUT CLEANLY")):
+        if marker not in outs[name]:
+            raise AssertionError("chief_worker: %s:\n%s" % (name, outs[name][-3000:]))
+    with open(os.path.join(shared_dir, "checkpoint.json")) as f:
+        manifest = f.read()
+    chief_worker = dict(roles_done=["chief", "worker"], lone_worker="WorkerWaitTimeout",
+                        manifest_iteration=json.loads(manifest).get("iteration_number"),
+                        secs=processes_secs, card=card_line())
+    if chief_worker["manifest_iteration"] != 2:
+        raise AssertionError("chief_worker: manifest %s" % manifest[:500])
+    print("chief_worker: " + json.dumps(chief_worker))
+    return launches, dict(spmd=spmd, chief_worker=chief_worker, phase_secs=time.perf_counter() - t_phase)
+
+
+def check_placement_combines(gen):
+    """K1 at the shapes the placement paths add (`check_search_combine`):
+    the RoundRobin gate's [1|2, 32, 8] and the data-parallel search's
+    [1|2, 8, 1] (a rank's slice) and [1|2, 16, 1] (the oracle); the
+    ImageNet trainer's [1|2, 64, 8] and the search's [1|2, 128, 10] are
+    held by `check_slice_combines` and `check_combine`. Returns the worst
+    forward or gradient error."""
+    worst = 0.0
+    for batch, classes in ((RR_GATE_BATCH, IMAGENET_CLASSES), (8, 1), (16, 1)):
+        for n in SEARCH_COMBINE_MEMBERS:
+            worst = max(worst, *check_search_combine(n, False, gen, batch=batch, classes=classes))
+    return worst
+
+
 def trainer_on_card():
     """The trainer CLI on the card, on fake data, at a small size."""
     from adanet_tpu_torch.research.improve_nas import trainer
@@ -4657,7 +5126,8 @@ def main(argv=None):
         clock.mark("kernel_timing")
         check_sepconv_grads(sep_shapes, rng)
         clock.mark("sepconv_grads")
-        train_counts, _ = train_search(model_dir)
+        fused_probes = {}
+        train_counts, _ = train_search(model_dir, fused_probes)
         clock.mark("train_search")
         train_vs_cpu()
         clock.mark("train_vs_cpu")
@@ -4681,12 +5151,27 @@ def main(argv=None):
         clock.mark("gates_autoensemble_replay_phases")
         t_slice = time.perf_counter()
         cifar_counts, _ = cifar_trainer(model_dir)
-        imagenet_counts, _ = imagenet_autoensemble(model_dir, rng)
+        imagenet_counts, _, imagenet_losses = imagenet_autoensemble(model_dir, rng)
         modelflow(model_dir)
         errors["combine"] = max(errors["combine"], check_slice_combines(rng))
         print("cifar_imagenet_modelflow_phases: " + json.dumps({"secs": time.perf_counter() - t_slice,
                                                                  "card": card_line()}))
         clock.mark("cifar_imagenet_modelflow_phases")
+        t_placement = time.perf_counter()
+        rr_imagenet_counts, _ = imagenet_round_robin(model_dir, imagenet_losses)
+        rr_search_counts, _ = round_robin_search(model_dir, fused_probes)
+        # The processes start up while the gate trains.
+        started = start_processes(model_dir)
+        try:
+            rr_gate_counts, _ = round_robin_gate(model_dir)
+        except BaseException:
+            for _, proc in started[0]:
+                proc.kill()
+            raise
+        spmd_launches, _ = process_phases(model_dir, started)
+        errors["combine"] = max(errors["combine"], check_placement_combines(rng))
+        print("placement_phases: " + json.dumps({"secs": time.perf_counter() - t_placement, "card": card_line()}))
+        clock.mark("placement_phases")
         nasnet_counts, _ = train_nasnet(model_dir)
         clock.mark("train_nasnet")
         with deterministic_cudnn():
@@ -4766,6 +5251,10 @@ def main(argv=None):
             kernels[-1]["cifar10_launches"] = cifar_counts["cifar10"]["combine"]
             kernels[-1]["cifar100_launches"] = cifar_counts["cifar100"]["combine"]
             kernels[-1]["imagenet_ae_launches"] = imagenet_counts["combine"]
+            kernels[-1]["imagenet_round_robin_launches"] = rr_imagenet_counts["combine"]
+            kernels[-1]["round_robin_search_launches"] = rr_search_counts["combine"]
+            kernels[-1]["round_robin_gate_launches"] = rr_gate_counts["combine"]
+            kernels[-1]["spmd_two_process_launches"] = [c["combine"] for c in spmd_launches]
         if name == "sepconv":
             kernels[-1]["train_launches"] = nasnet_counts["sepconv"]
             kernels[-1]["nasnet_gate_launches"] = gate_counts["sepconv"]

@@ -10,9 +10,10 @@
   published ones and the Flax modules' exactly.
 - The trainer's flags and defaults are the JAX trainer's (read from its
   source: importing it would define absl flags that collide with the
-  improve_nas trainer's); `--placement=round_robin` raises; a tiny run
-  on the CPU (32 x 32 images, ResNet-18 width 8 + B0) has finite
-  metrics.
+  improve_nas trainer's); a tiny run on the CPU (32 x 32 images,
+  ResNet-18 width 8 + B0) has finite metrics, under replication and
+  under `--placement=round_robin` (a `RoundRobinStrategy` on the CPU,
+  every file of the search written).
 - The optimizers against optax over 10 steps at 1e-6: `optax.sgd(lr,
   momentum=0.9)` and `optax.rmsprop(lr, decay=0.9, eps=1e-3,
   initial_scale=1.0, momentum=0.9)`, each under `clip_by_global_norm`,
@@ -159,14 +160,28 @@ def test_candidate_pool_full_size_structure():
         trainer.candidate_pool(trainer.parse_args(["--candidates=vgg"]), 8, 32)
 
 
-def test_round_robin_raises(tmp_path):
+def test_round_robin_runs_tiny_on_the_cpu(tmp_path, capsys):
+    from adanet_tpu_torch.distributed import RoundRobinStrategy
+
     flags = trainer.parse_args(["--placement=round_robin", "--image_size=32", "--resnet_depth=18",
                                 "--resnet_width=8", "--batch_size=8", "--device=cpu"])
     provider = imagenet_data.SyntheticProvider(num_classes=8, num_examples=32, batch_size=8, image_size=32)
-    with pytest.raises(ValueError, match="round_robin.*item 8"):
-        trainer.build_estimator(flags, provider, str(tmp_path / "m"))
-    with pytest.raises(ValueError, match="round_robin"):
-        trainer.main(["--placement=round_robin", "--device=cpu", "--image_size=32", "--batch_size=8"])
+    strategy = trainer.build_estimator(flags, provider, str(tmp_path / "m"))._placement_strategy
+    assert isinstance(strategy, RoundRobinStrategy) and strategy.devices == [torch.device("cpu")]
+    argv = ["--dataset=fake", "--image_size=32", "--resnet_depth=18", "--resnet_width=8", "--boosting_iterations=2",
+            "--train_steps=4", "--batch_size=16", "--device=cpu", "--placement=round_robin",
+            "--model_dir", str(tmp_path / "rr")]
+    assert trainer.main(argv) == 0
+    metrics = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert metrics["global_step"] == 4
+    assert np.isfinite(metrics["loss"]) and 0.0 <= metrics["accuracy"] <= 1.0
+    # The ensemble group reads the members in eval mode, on batch-norm
+    # running statistics two steps old, so either iteration's ensemble
+    # may win here.
+    assert metrics["best_ensemble"].startswith(("t0_", "t1_"))
+    for name in ("architecture-0.json", "architecture-1.json", "frozen-0.pt", "frozen-1.pt", "checkpoint.json",
+                 "replay.json", "candidate-metrics-1.json"):
+        assert os.path.exists(tmp_path / "rr" / name), name
 
 
 def test_trainer_runs_tiny_on_the_cpu(tmp_path, capsys):

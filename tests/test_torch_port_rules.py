@@ -56,6 +56,8 @@ COPIES = {
     "adanet_tpu_torch/research/imagenet_autoensemble/imagenet_data.py":
         "research/imagenet_autoensemble/imagenet_data.py",
     "adanet_tpu_torch/experimental/storages.py": "adanet_tpu/experimental/storages.py",
+    # The thirteenth slice: the collective deadlines and the heartbeat.
+    "adanet_tpu_torch/robustness/watchdog.py": "adanet_tpu/robustness/watchdog.py",
 }
 
 #: Top-level definitions a copy replaces on purpose ("__doc__": the
@@ -71,6 +73,8 @@ REPLACED = {
     "adanet_tpu_torch/ops/native_augment.py": ("__doc__", "_SRC", "_SO", "_build"),
     # The docstring names the port's source and the card.
     "adanet_tpu_torch/research/improve_nas/image_processing.py": ("__doc__",),
+    # The docstring names the port's transports (store waits, gloo, NCCL).
+    "adanet_tpu_torch/robustness/watchdog.py": ("__doc__",),
 }
 
 #: Modules that later slices added; the import rules must reach them.
@@ -129,6 +133,11 @@ SLICE_MODULES = (
     "adanet_tpu_torch.experimental.storages",
     "adanet_tpu_torch.experimental.model",
     "adanet_tpu_torch.experimental.phases",
+    "adanet_tpu_torch.robustness.watchdog",
+    "adanet_tpu_torch.distributed.coordination",
+    "adanet_tpu_torch.distributed.mesh",
+    "adanet_tpu_torch.distributed.placement",
+    "adanet_tpu_torch.distributed.executor",
 )
 
 
@@ -241,6 +250,7 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
     from adanet_tpu_torch.examples.tutorials import cifar10_cnn
     from adanet_tpu_torch.experimental import Model, ParallelScheduler
     from adanet_tpu_torch.research.imagenet_autoensemble import trainer as imagenet_trainer
+    from adanet_tpu_torch.distributed import RoundRobinStrategy, coordination, data_parallel_mesh
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert resolve_device("cpu") == torch.device("cpu")
@@ -284,6 +294,14 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
         lambda: Model(torch.nn.Linear(2, 1)),
         lambda: ParallelScheduler(),
         lambda: drain_callables([lambda: None], 1),
+        # The thirteenth slice: RoundRobin placement (the strategy and the
+        # trainer's flag), the data-parallel group and the process group.
+        lambda: RoundRobinStrategy(),
+        lambda: data_parallel_mesh(),
+        lambda: coordination.initialize(device="cuda"),
+        lambda: coordination.initialize("localhost:1", 2, 0, device="cuda"),
+        lambda: imagenet_trainer.main(["--image_size=32", "--batch_size=8", "--placement=round_robin",
+                                       "--model_dir", str(tmp_path)]),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
