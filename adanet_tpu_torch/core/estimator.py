@@ -96,9 +96,32 @@ through the process group's store, so that a signal to one process
 stops every process at the same step. Only the chief (process 0) writes
 anything (checkpoints, frozen payloads, reports, metrics files, the
 replay record) and keeps a heartbeat file; a worker waits on the
-manifest for the chief's bookkeeping (`worker_wait_timeout_secs`). A
-`RoundRobinStrategy` across processes (the multi-host executor) is not
-ported yet and raises.
+manifest for the chief's bookkeeping (`worker_wait_timeout_secs`).
+
+A `RoundRobinStrategy` across processes trains through
+`distributed.multihost.MultiHostRoundRobinExecutor`: each process trains
+the candidate groups it owns on its own batches, members sync through
+the process group's store, and the chief alone keeps the books. A peer
+that stops answering is declared lost (`_peer_lost`): its candidates are
+quarantined, the iteration finishes with the survivors, the agreements
+become process-local, and the search stops at that iteration's end,
+resumable from the checkpoint (the flight recorder dumps `peer_lost`).
+
+An `ElasticWorkQueueStrategy` trains each iteration by draining a
+lease-based work queue (`distributed.scheduler.ElasticWorkQueueExecutor`,
+`_drain_elastic_iteration`), in one process or several. Every process
+feeds the identical full stream, read by absolute step through
+`_BatchLog`, so that a unit re-issued after a worker's death replays its
+batches; a dead worker costs one lease TTL. Speculation
+(`speculate_steps`) pre-trains the next iteration's candidates against
+the likely winner on the chief and grafts the windows in when the winner
+holds (never beside a `report_materializer`; a failure of speculation is
+logged, never raised).
+
+Under several processes every process agrees on a mid-iteration
+restore (`_init_or_restore_state`): if any process's read of the state
+file fails, all roll back to the iteration's start, and only the chief
+quarantines the file and writes the manifest.
 """
 
 from __future__ import annotations
@@ -131,9 +154,11 @@ from adanet_tpu_torch.core.report_materializer import ReportMaterializer
 from adanet_tpu_torch.core.summary import ScopedSummary
 from adanet_tpu_torch.distributed import coordination
 from adanet_tpu_torch.distributed.executor import RoundRobinExecutor
-from adanet_tpu_torch.distributed.placement import ReplicationStrategy, RoundRobinStrategy
+from adanet_tpu_torch.distributed.placement import ElasticWorkQueueStrategy, ReplicationStrategy, RoundRobinStrategy
 from adanet_tpu_torch.ensemble.strategy import GrowStrategy
 from adanet_tpu_torch.ensemble.weighted import ComplexityRegularizedEnsembler, full_f32_matmul
+from adanet_tpu_torch.observability import flightrec as flightrec_lib
+from adanet_tpu_torch.observability import spans as spans_lib
 from adanet_tpu_torch.robustness import faults as faults_lib
 from adanet_tpu_torch.robustness import integrity
 from adanet_tpu_torch.robustness import retry as retry_lib
@@ -203,6 +228,100 @@ def _checked(source):
         yield batch
 
 
+class _BatchLog:
+    """Deterministic absolute-index access to a training stream.
+
+    The elastic scheduler's data contract: the batch for global step g
+    is a pure function of g, so a work unit re-issued to a survivor (or
+    re-executed after a restart) replays the exact batches its first
+    execution consumed. Backed by the usual `input_fn` iterator —
+    re-invoked on exhaustion, exactly like `Estimator._next_batch` — with
+    a cache of the indices the current iteration may still re-issue
+    (`forget_below` trims it at iteration boundaries).
+    """
+
+    def __init__(self, make_iter, check=None, close_iter=None):
+        self._make_iter = make_iter
+        self._check = check
+        self._close_iter = close_iter
+        self._iter = None
+        self._next_index = 0
+        self._cache: Dict[int, Any] = {}
+
+    def _reset(self):
+        """Releases the live iterator — a long search crosses many epoch
+        boundaries and must not retain a dead prefetcher (and its parked
+        worker thread) per boundary."""
+        if self._iter is not None and self._close_iter is not None:
+            self._close_iter(self._iter)
+        self._iter = None
+
+    def _swap_iter(self):
+        self._reset()
+        self._iter = self._make_iter()
+
+    def batch_at(self, index: int):
+        if index in self._cache:
+            return self._cache[index]
+        if index < self._next_index:
+            # An evicted prefix: restart the stream and replay —
+            # input_fn streams are deterministic from the top, the same
+            # property checkpoint resume already relies on.
+            self._reset()
+            self._next_index = 0
+        while self._next_index <= index:
+            self._cache[self._next_index] = self._pull()
+            self._next_index += 1
+        return self._cache[index]
+
+    def _next_wrapping(self):
+        """One raw pull, re-opening the stream at epoch end."""
+        try:
+            return next(self._iter)
+        except StopIteration:
+            self._swap_iter()
+            try:
+                return next(self._iter)
+            except StopIteration:
+                raise ValueError("input_fn yielded no batches.")
+
+    def _pull(self):
+        """The batch at stream position `self._next_index`.
+
+        A transient failure closes the pipeline; the next attempt
+        re-opens it and deterministically replays to the current
+        position (wrap-aware: a position past one epoch re-walks the
+        epochs exactly as the original pulls did). The replay runs
+        INSIDE the bounded retry, so a second hiccup mid-replay consumes
+        the next attempt instead of escaping the loop.
+        """
+        position = self._next_index
+        for attempt in range(3):
+            try:
+                faults_lib.trip("data.pull")
+                if self._iter is None:
+                    self._swap_iter()
+                    for _ in range(position):
+                        self._next_wrapping()
+                batch = self._next_wrapping()
+                if self._check is not None:
+                    self._check(batch)
+                return batch
+            except Exception as exc:
+                if attempt == 2 or not retry_lib.is_transient(exc):
+                    raise
+                _LOG.warning(
+                    "Transient data-source failure in the elastic batch log (attempt %d/3): %s; re-opening the "
+                    "pipeline.", attempt + 1, exc,
+                )
+                self._reset()
+        raise AssertionError("unreachable")  # pragma: no cover
+
+    def forget_below(self, index: int) -> None:
+        for key in [k for k in self._cache if k < index]:
+            del self._cache[key]
+
+
 class Estimator:
     """Drives the AdaNet search: train candidates, select, freeze, grow.
 
@@ -267,8 +386,10 @@ class Estimator:
       replay_config: a `replay.Config`: each iteration it records takes
         the recorded winner, and no Evaluator runs for it.
       placement_strategy: None or a `ReplicationStrategy` (the fused
-        step; data-parallel across processes), or a `RoundRobinStrategy`
-        (one process: `RoundRobinExecutor`).
+        step; data-parallel across processes), a `RoundRobinStrategy`
+        (`RoundRobinExecutor` in one process,
+        `MultiHostRoundRobinExecutor` across processes), or an
+        `ElasticWorkQueueStrategy` (the work queue's drain).
       worker_wait_timeout_secs: how long a worker waits for the chief to
         complete an iteration before `WorkerWaitTimeout`.
     """
@@ -307,11 +428,11 @@ class Estimator:
         worker_wait_timeout_secs: float = 7200.0,
     ):
         if placement_strategy is not None and not isinstance(
-            placement_strategy, (ReplicationStrategy, RoundRobinStrategy)
+            placement_strategy, (ReplicationStrategy, RoundRobinStrategy, ElasticWorkQueueStrategy)
         ):
             raise ValueError(
-                "Unsupported placement strategy %r: use ReplicationStrategy or RoundRobinStrategy "
-                "(the elastic work queue is not ported yet)." % (placement_strategy,)
+                "Unsupported placement strategy %r: use ReplicationStrategy, RoundRobinStrategy or "
+                "ElasticWorkQueueStrategy." % (placement_strategy,)
             )
         if max_iteration_steps is None or max_iteration_steps <= 0:
             raise ValueError(
@@ -345,6 +466,14 @@ class Estimator:
         # The data-parallel process group while train() runs across
         # processes (None otherwise).
         self._process_group = None
+        # Whether the stop checks agree across processes (every placement
+        # across processes but the elastic queue, whose units re-issue).
+        self._collective = False
+        # The elastic drive's per-train() batch log and speculation stash,
+        # and a count of drains (each drain's queue namespace).
+        self._elastic_batches: Optional[_BatchLog] = None
+        self._speculation: Optional[dict] = None
+        self._elastic_epoch = 0
         self._last_stop_check_step = 0
         self._peer_lost: Optional[watchdog_lib.PeerLostError] = None
         # The Evaluator's values of the last selection, for the
@@ -421,12 +550,6 @@ class Estimator:
                 raise ValueError("Set at most one of steps and max_steps.")
             max_steps = self.latest_global_step() + steps
         world = coordination.process_count()
-        if world > 1 and isinstance(self._placement_strategy, RoundRobinStrategy):
-            raise ValueError(
-                "RoundRobinStrategy across %d processes needs the multi-host RoundRobin executor "
-                "(MultiHostRoundRobinExecutor), which is not ported yet; use the default placement "
-                "(data-parallel across processes) or one process." % world
-            )
         # Verify and heal before trusting any bytes: corrupt files are
         # quarantined and the manifest rolls back to the newest intact
         # generation (every process computes the same healed state; the
@@ -462,13 +585,24 @@ class Estimator:
             handler_installed = True
         self._previous = None
         self._peer_lost = None
-        self._process_group = torch.distributed.group.WORLD if world > 1 else None
+        elastic = isinstance(self._placement_strategy, ElasticWorkQueueStrategy)
+        # Data-parallel across processes only under the default placement:
+        # RoundRobin groups and elastic units train on their own.
+        data_parallel = world > 1 and not isinstance(
+            self._placement_strategy, (RoundRobinStrategy, ElasticWorkQueueStrategy)
+        )
+        self._process_group = torch.distributed.group.WORLD if data_parallel else None
+        self._collective = world > 1 and not elastic
+        self._elastic_batches = None
+        self._speculation = None
         heartbeat = None
         if world > 1 and coordination.is_chief():
             heartbeat = watchdog_lib.HeartbeatWriter(self._model_dir, role="chief").start()
         try:
             with full_f32_matmul():
                 self._train_loop(input_fn, max_steps, info)
+            if self._peer_lost is not None:
+                flightrec_lib.dump_installed("peer_lost", extra={"error": str(self._peer_lost)})
             if coordination.is_chief():
                 # Search end: once more, for a resumed run that completed
                 # no iteration in this call.
@@ -484,6 +618,9 @@ class Estimator:
                 signal.signal(signal.SIGTERM, previous_handler if previous_handler is not None else signal.SIG_DFL)
             # A worker abandoned mid-stream would park on its queue, with
             # its batches, until the process exits.
+            if self._elastic_batches is not None:
+                self._elastic_batches._reset()
+                self._elastic_batches = None
             self._close_prefetchers()
             self._previous = None
             if self._summary is not None:
@@ -516,9 +653,21 @@ class Estimator:
             iteration = self._build_iteration(t, sample_batch)
             state = self._init_or_restore_state(iteration, sample_batch, info)
             executor = None
-            if isinstance(self._placement_strategy, RoundRobinStrategy):
-                executor = RoundRobinExecutor(iteration, self._placement_strategy)
+            elastic = isinstance(self._placement_strategy, ElasticWorkQueueStrategy)
+            if elastic:
+                from adanet_tpu_torch.distributed.scheduler import ElasticWorkQueueExecutor
+
+                executor = ElasticWorkQueueExecutor(iteration, self._placement_strategy)
+            elif isinstance(self._placement_strategy, RoundRobinStrategy):
+                if coordination.process_count() > 1:
+                    from adanet_tpu_torch.distributed.multihost import MultiHostRoundRobinExecutor
+
+                    executor = MultiHostRoundRobinExecutor(iteration, self._placement_strategy)
+                else:
+                    executor = RoundRobinExecutor(iteration, self._placement_strategy)
+            if executor is not None:
                 state = executor.place(state)
+            multihost = executor is not None and executor.is_multihost
             train_step = executor.train_step if executor is not None else iteration.train_step
             train_steps = executor.train_steps if executor is not None else iteration.train_steps
             steps_done = state.iteration_step
@@ -538,8 +687,15 @@ class Estimator:
                 if getattr(spec.builder, "train_input_fn", None) is not None
             }
             extra_iters: Dict[str, Iterator] = {}
+            if elastic:
+                # The queue's drain replaces the lockstep round.
+                with spans_lib.tracer().span("iteration.drain", correlation={"iteration": t}):
+                    state, steps_done = self._drain_elastic_iteration(
+                        executor, iteration, state, info, t, steps_done, max_steps, input_fn
+                    )
             while (
-                steps_done < self._max_iteration_steps
+                not elastic
+                and steps_done < self._max_iteration_steps
                 and not self._should_stop_at(steps_done)
                 and (max_steps is None or info.global_step < max_steps)
             ):
@@ -568,6 +724,10 @@ class Estimator:
                 prev_steps_done = steps_done
                 steps_done += loop_size
                 info.global_step += loop_size
+                if multihost and self._peer_lost is None and executor.lost_peers:
+                    # A peer was declared dead mid-iteration: finish the
+                    # iteration with the survivors, then stop at its end.
+                    self._peer_lost = executor.peer_lost_error
                 self._log_quarantines(iteration, state, dead)
                 if profile is not None and steps_done >= profile_stop_at:
                     self._stop_profile(profile, t)
@@ -584,12 +744,24 @@ class Estimator:
                         {k: round(v, 6) for k, v in emas.items()},
                     )
                     self._write_train_summaries(iteration, metrics, emas, state, info.global_step)
-                if (
-                    self._save_checkpoint_steps
-                    and _crossed(prev_steps_done, steps_done, self._save_checkpoint_steps)
-                    and coordination.is_chief()
-                ):
-                    self._save_iteration_state(info, t, state)
+                if self._save_checkpoint_steps and _crossed(prev_steps_done, steps_done, self._save_checkpoint_steps):
+                    if multihost:
+                        if executor.lost_peers:
+                            # Unreachable groups would be checkpointed at
+                            # their initial parameters, without their dead
+                            # marks (forced at the iteration's end): keep
+                            # the previous checkpoint.
+                            _LOG.warning(
+                                "Skipping mid-iteration checkpoint at global step %d: a peer is lost.",
+                                info.global_step,
+                            )
+                        else:
+                            # Every process joins the gather; the chief writes.
+                            host_state = executor.gather(state)
+                            if coordination.is_chief():
+                                self._save_iteration_state(info, t, host_state)
+                    elif coordination.is_chief():
+                        self._save_iteration_state(info, t, state)
             if profile is not None:
                 self._stop_profile(profile, t)
             # The bagged streams end with their iteration: their prefetch
@@ -607,6 +779,8 @@ class Estimator:
                         "Iteration %d completing with quarantined candidates excluded from selection: %s",
                         t, sorted(dead),
                     )
+                if multihost and executor.lost_peers:
+                    self._peer_lost = self._peer_lost or executor.peer_lost_error
             if steps_done < self._max_iteration_steps:
                 # Stopped inside the iteration (max_steps or SIGTERM):
                 # persist the state; a fresh process resumes from here.
@@ -617,6 +791,18 @@ class Estimator:
                         "Stopped by SIGTERM at global step %d (iteration %d, step %d); state checkpointed.",
                         info.global_step, t, steps_done,
                     )
+                break
+            if self._peer_lost is not None and self._process_group is None:
+                # Degraded mode: the chief keeps the books on its own (the
+                # lost groups' candidates are quarantined) and the search
+                # stops at this boundary; a restart re-forms the cluster
+                # and resumes from the durable state.
+                if coordination.is_chief():
+                    self._previous = self._complete_iteration(iteration, state, sample_batch, info)
+                _LOG.error(
+                    "Stopping the search after iteration %d (%s). All surviving candidates finished and the "
+                    "checkpoint is durable; restart to re-form the cluster and resume.", t, self._peer_lost,
+                )
                 break
             if self._process_group is not None:
                 # Data-parallel bookkeeping: every process selects (the
@@ -637,7 +823,10 @@ class Estimator:
                 # A worker of its own process: the chief's bookkeeping
                 # decides; the next iteration rebuilds its winner from disk.
                 info = coordination.wait_for_iteration(
-                    self._model_dir, t + 1, timeout_secs=self._worker_wait_timeout_secs
+                    self._model_dir, t + 1, timeout_secs=self._worker_wait_timeout_secs,
+                    heartbeat_timeout_secs=(
+                        watchdog_lib.heartbeat_timeout_secs() if coordination.process_count() > 1 else None
+                    ),
                 )
                 self._previous = None
 
@@ -647,7 +836,7 @@ class Estimator:
         its flag into the store at the same boundaries and all stop if
         any was signalled (a store round trip, never a device collective,
         so that a dead peer raises instead of wedging the stop)."""
-        if self._process_group is None or self._peer_lost is not None:
+        if not self._collective or self._peer_lost is not None:
             return self._stop_requested
         try:
             flags = coordination.allgather_host_flag(int(self._stop_requested), label="stop")
@@ -668,12 +857,131 @@ class Estimator:
         """The in-loop stop check: the local flag every window in one
         process; across processes the agreement, when `steps_done` crosses
         the check interval (the same arithmetic on every process)."""
-        if self._process_group is None or self._peer_lost is not None:
+        if not self._collective or self._peer_lost is not None:
             return self._stop_requested
         if steps_done - self._last_stop_check_step < self._stop_check_interval():
             return False
         self._last_stop_check_step = steps_done
         return self._should_stop()
+
+    # ------------------------------------------------- elastic work queue
+
+    def _drain_elastic_iteration(self, executor, iteration, state, info, t, steps_done, max_steps, input_fn):
+        """One iteration as a work-queue drain (`distributed/scheduler.py`).
+
+        Returns the state and the updated iteration-local step count;
+        `info.global_step` advances by the ensemble steps the drain
+        completed, the lockstep accounting. On workers the returned state
+        is the entry state: the books are the chief's, and workers wait
+        on the manifest."""
+        strategy = self._placement_strategy
+        target = self._max_iteration_steps
+        if max_steps is not None:
+            target = min(target, steps_done + max(0, max_steps - info.global_step))
+        if self._elastic_batches is None:
+            self._elastic_batches = _BatchLog(lambda: self._make_train_iter(input_fn), close_iter=self._close_iter)
+        batch_log = self._elastic_batches
+        first_global = info.global_step - steps_done
+        batch_log.forget_below(first_global)
+        self._elastic_epoch += 1
+        namespace = "adanet/wq/e%d/t%d/s%d" % (self._elastic_epoch, t, steps_done)
+        warm = self._take_speculation(t, iteration.previous_ensemble)
+        result = executor.run_iteration(
+            state,
+            batch_log.batch_at,
+            first_global_step=first_global,
+            target_steps=target,
+            queue_namespace=namespace,
+            should_stop=lambda: self._stop_requested,
+            warm_states=warm,
+            forget_below=batch_log.forget_below,
+        )
+        if result.state is not None:
+            state = result.state
+        steps_done += result.steps_trained
+        info.global_step += result.steps_trained
+        if self._log_every_steps and result.steps_trained and coordination.is_chief():
+            emas = iteration.ema_losses(state)
+            _LOG.info(
+                "iteration %d step %d/%d (elastic drain: %d dispatched, %d reused) adanet_loss EMAs: %s",
+                t, steps_done, self._max_iteration_steps, result.dispatched_steps, result.reused_steps,
+                {k: round(v, 6) for k, v in emas.items()},
+            )
+        if (
+            result.completed
+            and coordination.is_chief()
+            and strategy.speculate_steps > 0
+            and steps_done >= self._max_iteration_steps
+            and (self._max_iterations is None or t + 1 < self._max_iterations)
+            and (max_steps is None or info.global_step < max_steps)
+        ):
+            self._speculate_next_iteration(t, iteration, state, batch_log, info.global_step)
+        return state, steps_done
+
+    def _take_speculation(self, t, previous):
+        """Warm window states for iteration `t`, or None.
+
+        The speculative winner must MATCH the actually selected previous
+        ensemble; on a flip (an Evaluator, `force_grow`, or replay chose
+        differently) the warm states are discarded — they were trained
+        against the wrong teacher."""
+        spec, self._speculation = self._speculation, None
+        if spec is None or previous is None or spec["iteration"] != t:
+            return None
+        if spec["previous_name"] != previous.name:
+            _LOG.info(
+                "Discarding speculative warm start for iteration %d: winner flipped (%s -> %s).",
+                t, spec["previous_name"], previous.name,
+            )
+            return None
+        return spec["states"]
+
+    def _speculate_next_iteration(self, t, iteration, state, batch_log, next_global_step):
+        """Pre-trains iteration t+1's candidates against the LIKELY
+        winner (EMA argmin), subnetworks only, stashing per-window warm
+        states keyed by the speculated winner (chief-local, in memory).
+        Off beside a `report_materializer` (t+1's generator would read
+        reports the bookkeeping has not written yet); a failure is
+        logged and never raised."""
+        from adanet_tpu_torch.distributed.scheduler import ElasticWorkQueueExecutor, InMemoryKV
+
+        strategy = self._placement_strategy
+        spec_target = strategy.speculate_steps // strategy.window_steps * strategy.window_steps
+        spec_target = min(spec_target, self._max_iteration_steps)
+        if spec_target <= 0 or self._report_materializer is not None:
+            return
+        try:
+            likely = iteration.best_candidate_index(state)
+        except FloatingPointError:
+            return  # every candidate dead: nothing to speculate against
+        likely_name = iteration.candidate_names()[likely]
+        sample = batch_log.batch_at(next_global_step)
+        try:
+            frozen_guess = iteration.freeze_candidate(state, likely_name, sample)
+            builders = self._generate_builders(t + 1, frozen_guess)
+            next_iteration = self._iteration_builder.build_iteration(
+                t + 1, builders, frozen_guess, input_shape=feature_shape(self._model_features(sample[0]))
+            )
+            spec_state = next_iteration.init_state(self._iteration_generator(t + 1), sample)
+            spec_executor = ElasticWorkQueueExecutor(next_iteration, strategy, kv=InMemoryKV())
+            result = spec_executor.run_iteration(
+                spec_state,
+                batch_log.batch_at,
+                first_global_step=next_global_step,
+                target_steps=spec_target,
+                queue_namespace="adanet/wq/spec/t%d" % (t + 1),
+                subnetworks_only=True,
+            )
+        except Exception as exc:
+            # Speculation is an optimization; it must never take the
+            # real search down with it.
+            _LOG.warning("Speculative training for iteration %d failed (continuing without warm start): %s",
+                         t + 1, exc)
+            return
+        self._speculation = {"iteration": t + 1, "previous_name": frozen_guess.name,
+                             "states": result.window_states}
+        _LOG.info("Speculatively trained %d steps of iteration %d's %d candidates against likely winner %r.",
+                  result.dispatched_steps, t + 1, len(next_iteration.subnetwork_specs), frozen_guess.name)
 
     @staticmethod
     def _log_quarantines(iteration, state, dead: set) -> None:
@@ -884,18 +1192,34 @@ class Estimator:
         state = iteration.init_state(self._iteration_generator(iteration.iteration_number), sample_batch)
         if not info.iteration_state_file:
             return state
+        payload = None
         try:
             payload = ckpt_lib.restore_payload(self._model_dir, info.iteration_state_file)
         except (ckpt_lib.CheckpointCorruptionError, OSError) as exc:
+            # OSError covers the multi-process race where the chief's heal
+            # just quarantined the file out from under this process.
             _LOG.error(
                 "Mid-iteration state corrupt at restore time (%s); rolling back to the start of iteration %d.",
                 exc, info.iteration_number,
             )
+        failed = payload is None
+        if training and coordination.process_count() > 1:
+            # The verdict is collective: one process rolling back alone
+            # (only its read hit the rot) would train from a fresh init
+            # at another global step than its peers. All roll back if
+            # any failed.
+            try:
+                failed = bool(max(coordination.allgather_host_flag(int(failed), label="restore agreement")))
+            except watchdog_lib.PeerLostError as exc:
+                _LOG.error("Peer lost at the restore agreement: %s", exc)
+                self._peer_lost = exc  # degrade; the local verdict stands
+        if failed:
             stale = info.iteration_state_file
             info.iteration_state_file = None
             info.global_step = integrity.end_step_of(info, self._model_dir, info.iteration_number)
-            ckpt_lib.quarantine_file(self._model_dir, stale)
-            ckpt_lib.write_manifest(self._model_dir, info)
+            if coordination.is_chief():
+                ckpt_lib.quarantine_file(self._model_dir, stale)
+                ckpt_lib.write_manifest(self._model_dir, info)
             return state
         iteration_lib.restore_state(state, payload, restore_generator=training)
         _LOG.info("Restored mid-iteration state from %s", info.iteration_state_file)

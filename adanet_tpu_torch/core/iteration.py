@@ -302,6 +302,60 @@ def state_payload(state: "IterationState") -> Dict[str, Any]:
     )
 
 
+def subnetwork_snapshot(st: SubnetworkTrainState) -> Dict[str, Any]:
+    """One subnetwork's training state as CPU copies (`checkpoint.plain`,
+    one copy to the host): its module's and optimizer's `state_dict`s,
+    `step` and `dead`. The elastic executor's unit inputs and outputs,
+    and what a multi-host gather moves."""
+    return ckpt_lib.plain({"module": st.module.state_dict(), "optimizer": st.optimizer.state_dict(),
+                           "step": st.step, "dead": st.dead})
+
+
+def load_subnetwork_snapshot(st: SubnetworkTrainState, snapshot) -> None:
+    """Loads a `subnetwork_snapshot` onto `st` (copies, on `st`'s devices)."""
+    st.module.load_state_dict(snapshot["module"])
+    st.optimizer.load_state_dict(snapshot["optimizer"])
+    st.step = snapshot["step"].to(st.step.device, copy=True)
+    st.dead = snapshot["dead"].to(st.dead.device, copy=True)
+
+
+def ensembles_snapshot(state: "IterationState") -> Dict[str, Any]:
+    """Every ensemble candidate's mixture weights, their optimizer's
+    `state_dict` and its EMA state, as CPU copies."""
+    return ckpt_lib.plain({
+        "ensembles": {
+            name: {"params": _params_list(est.params),
+                   "optimizer": None if est.optimizer is None else est.optimizer.state_dict()}
+            for name, est in state.ensembles.items()
+        },
+        "candidates": {name: dataclasses.asdict(cs) for name, cs in state.candidates.items()},
+    })
+
+
+def load_ensembles_snapshot(state: "IterationState", snapshot) -> None:
+    """Loads an `ensembles_snapshot` onto `state` (weights copied in
+    place, so that their optimizers keep them)."""
+    with torch.no_grad():
+        for name, est in state.ensembles.items():
+            saved = snapshot["ensembles"][name]
+            for param, value in zip(_params_list(est.params), saved["params"]):
+                param.copy_(value)
+            if est.optimizer is not None:
+                est.optimizer.load_state_dict(saved["optimizer"])
+    for name, cs in state.candidates.items():
+        device = cs.ema_biased.device
+        state.candidates[name] = candidate_lib.CandidateState(
+            **{key: value.to(device, copy=True) for key, value in snapshot["candidates"][name].items()}
+        )
+
+
+def batch_norm_layers(module: nn.Module) -> List[str]:
+    """The names of the batch-norm layer types in `module` (they cannot
+    train data-parallel across processes: their statistics would be per
+    process)."""
+    return sorted({type(m).__name__ for m in module.modules() if "BatchNorm" in type(m).__name__})
+
+
 def _check_names(what: str, saved, rebuilt) -> None:
     if list(saved) != list(rebuilt):
         raise ValueError(
@@ -797,7 +851,7 @@ class Iteration:
                 fs.module for fs in self.frozen_subnetworks
             ]
             for module in modules:
-                norms = sorted({type(m).__name__ for m in module.modules() if "BatchNorm" in type(m).__name__})
+                norms = batch_norm_layers(module)
                 if norms:
                     raise ValueError(
                         "Data-parallel training across processes computes batch-norm statistics per process, "

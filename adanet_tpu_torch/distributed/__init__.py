@@ -1,9 +1,10 @@
 """Distributed execution of the port: device groups (`mesh.py`),
 placement strategies (`placement.py`), the in-process RoundRobin
-executor (`executor.py`), process roles and the chief/worker handshake
-(`coordination.py`), and the lease-based work queue and callable drain
-behind ModelFlow's `ParallelScheduler` (`scheduler.py`). The multi-host
-RoundRobin executor and the elastic work queue are not ported yet."""
+executor (`executor.py`), RoundRobin across processes (`multihost.py`),
+process roles and the chief/worker handshake (`coordination.py`), and
+the lease-based work queue: its stores, its tree codec, the callable
+drain behind ModelFlow's `ParallelScheduler` and the elastic executor
+(`scheduler.py`)."""
 
 from adanet_tpu_torch.distributed.coordination import (  # noqa: F401
     WorkerWaitTimeout,
@@ -27,18 +28,30 @@ from adanet_tpu_torch.distributed.mesh import (  # noqa: F401
     replicate_state,
     shard_batch,
 )
+from adanet_tpu_torch.distributed.multihost import (  # noqa: F401
+    MultiHostRoundRobinExecutor,
+    multihost_candidate_groups,
+)
 from adanet_tpu_torch.distributed.placement import (  # noqa: F401
+    ElasticWorkQueueStrategy,
     PlacementStrategy,
     ReplicationStrategy,
     RoundRobinStrategy,
 )
 from adanet_tpu_torch.distributed.scheduler import (  # noqa: F401
+    CoordinationKV,
+    ElasticRunResult,
+    ElasticWorkQueueExecutor,
+    FileKV,
     InMemoryKV,
     LeaseLostError,
     LeaseRenewer,
     WorkQueue,
     WorkQueueConfig,
     WorkUnit,
+    coordination_kv,
+    decode_tree,
     drain_callables,
+    encode_tree,
     plan_windows,
 )

@@ -22,12 +22,18 @@ bookkeeping phase; they poll the checkpoint manifest until the chief
 advances the iteration (`wait_for_iteration`), with a countdown after
 which they give up (`WorkerWaitTimeout`), and a stale chief heartbeat
 (`robustness.watchdog.HeartbeatWriter`) raises `PeerLostError` sooner.
+
+The store lives in the chief's process, so `leave` ends a process group
+together (workers flag, the chief waits for the flags), and `shutdown`
+never hangs: after a peer loss (`mark_peer_lost`) it drops the group
+without its teardown, otherwise it bounds the teardown.
 """
 
 from __future__ import annotations
 
 import datetime
 import logging
+import threading
 import time
 from typing import List, Optional
 
@@ -79,10 +85,58 @@ def initialize(
     return device
 
 
-def shutdown() -> None:
-    """Leaves the process group, if this process joined one."""
-    if dist.is_available() and dist.is_initialized():
-        dist.destroy_process_group()
+_peer_lost = [False]
+
+
+def mark_peer_lost() -> None:
+    """Records that a peer of this process was declared lost: `shutdown`
+    then leaves the process group without tearing it down."""
+    _peer_lost[0] = True
+
+
+def shutdown(timeout_secs: float = 30.0) -> None:
+    """Leaves the process group, if this process joined one, and never
+    hangs: after a peer loss (`mark_peer_lost`) the group is dropped
+    without its teardown, whose handshakes a dead peer could block;
+    otherwise the teardown runs on a daemon thread bounded by
+    `timeout_secs`, after which it is abandoned with a warning."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    if _peer_lost[0]:
+        _LOG.warning("Leaving the process group without its teardown: a peer was lost.")
+        return
+    done = threading.Event()
+
+    def teardown():
+        try:
+            dist.destroy_process_group()
+        finally:
+            done.set()
+
+    threading.Thread(target=teardown, name="process-group-teardown", daemon=True).start()
+    if not done.wait(timeout_secs):
+        _LOG.warning("The process group's teardown did not finish within %.0fs; abandoned.", timeout_secs)
+
+
+def leave(timeout_secs: float = 60.0) -> None:
+    """Leaves the process group together. The store lives in the chief's
+    process, so a worker's last store operation must not meet a chief
+    that already left: each worker flags through the store that it is
+    leaving and goes; the chief waits for every flag, bounded by
+    `timeout_secs` (a dead worker never flags), then goes. Then
+    `shutdown`."""
+    world = process_count()
+    if world > 1:
+        store = dist.distributed_c10d._get_default_store()
+        rank = dist.get_rank()
+        if rank != 0:
+            store.set("adanet_leave/%d" % rank, "1")
+        else:
+            try:
+                store.wait(["adanet_leave/%d" % r for r in range(1, world)], datetime.timedelta(seconds=timeout_secs))
+            except RuntimeError as exc:
+                _LOG.warning("Leaving without every worker's flag within %.0fs: %s", timeout_secs, exc)
+    shutdown()
 
 
 _process_index_override: Optional[int] = None

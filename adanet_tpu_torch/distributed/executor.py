@@ -28,11 +28,14 @@ holds the bound.
 In one process every group must be on the iteration's device (on one
 card, every group is the card); groups across several cards in one
 process are not ported. Candidate groups across processes are the
-multi-host executor's (`MultiHostRoundRobinExecutor`), not ported yet.
+multi-host executor's (`multihost.MultiHostRoundRobinExecutor`), which
+trains through the same methods: `_trains` picks the groups a process
+owns and `_group_scope` sets a group's process group.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import logging
@@ -78,6 +81,9 @@ class RoundRobinExecutor:
         iteration's device.
       sync_every: steps between the member copies' syncs (1: every step).
     """
+
+    #: Whether the executor spans processes (`MultiHostRoundRobinExecutor`).
+    is_multihost = False
 
     def __init__(self, iteration: Iteration, strategy: Optional[RoundRobinStrategy] = None, sync_every: int = 1):
         if sync_every < 1:
@@ -175,6 +181,18 @@ class RoundRobinExecutor:
 
     # ------------------------------------------------------------------ train
 
+    def _trains(self, name: str) -> bool:
+        """Whether this process trains subnetwork `name` (in one process:
+        every subnetwork)."""
+        del name
+        return True
+
+    def _group_scope(self, name: Optional[str]):
+        """A context for one group's update (`name` None: the ensemble
+        group); in one process nothing."""
+        del name
+        return contextlib.nullcontext()
+
     def _subnetwork_step(self, spec, st, features, labels, weights, context, generator):
         """One subnetwork group's step: `Iteration.subnetwork_update`.
         Returns (loss, the builder's summary metrics)."""
@@ -188,8 +206,8 @@ class RoundRobinExecutor:
         step's order (so that their draws are the fused step's)."""
         it = self.iteration
         for spec in it.subnetwork_specs:
-            if spec.name in self._dead_subnetworks:
-                continue  # quarantined: frozen at its last good step
+            if spec.name in self._dead_subnetworks or not self._trains(spec.name):
+                continue  # quarantined (frozen at its last good step), or another process's
             features, weights, labels = extra_inputs.get(spec.name, inputs)
             context = None
             if self._needs_context[spec.name]:
@@ -201,9 +219,10 @@ class RoundRobinExecutor:
                 frozen, prev_params = self._teachers
                 context = it.build_loss_context(prev_params, it.frozen_outputs(frozen, features))
             try:
-                loss, extra = self._sub_steps[spec.name](
-                    state.subnetworks[spec.name], features, labels, weights, context, state.generator
-                )
+                with self._group_scope(spec.name):
+                    loss, extra = self._sub_steps[spec.name](
+                        state.subnetworks[spec.name], features, labels, weights, context, state.generator
+                    )
             except CANDIDATE_FAULTS as exc:
                 self._mark_subnetwork_dead(spec.name, exc)
                 continue
@@ -243,9 +262,10 @@ class RoundRobinExecutor:
         frozen_outs = it.frozen_outputs(state.frozen, features)
         for espec in it.ensemble_specs:
             member_outs = it.member_outputs(espec, sub_outs, frozen_outs)
-            state.candidates[espec.name], adanet_loss, loss = it.ensemble_update(
-                espec, state.ensembles[espec.name], state.candidates[espec.name], member_outs, labels, weights
-            )
+            with self._group_scope(None):
+                state.candidates[espec.name], adanet_loss, loss = it.ensemble_update(
+                    espec, state.ensembles[espec.name], state.candidates[espec.name], member_outs, labels, weights
+                )
             metrics["adanet_loss/%s" % espec.name] = adanet_loss
             metrics["ensemble_loss/%s" % espec.name] = loss
 

@@ -103,7 +103,7 @@
    with K2 and K1 on: accuracy >= 0.88 and above 0.76, exact counts.
 15. `nasnet_train_vs_cpu`: the gate model in f32 with the
    `DynamicGenerator` (widths that are not multiples of 8) on the card
-   and on the CPU, 2 iterations x 4 steps with the trainer's momentum
+   and on the CPU, 2 iterations x 2 steps with the trainer's momentum
    and one training step of each architecture. `replayed` (K2 off, the
    CPU's relu and max-pool switches taken on the card): losses and
    mixture weights within atol 1e-4 x max(1, |value|), the same
@@ -212,16 +212,16 @@
    call, equal architecture files, K1 exact.
 28. `tutorials`: adanet_objective at its slow test's settings (lambda 0
    grows a deeper member, lambda 1 keeps 1-layer ones), mnist_simple_dnn
-   and cifar10_cnn at 300 steps. 29. `predict_debug`: predict and
+   and cifar10_cnn at 150 steps. 29. `predict_debug`: predict and
    TPUEstimator.predict under debug=True raise on a NaN feature.
    Phases 24-29's command time is printed on
    `gates_autoensemble_replay_phases:`.
 30. `cifar_trainer`: the improve_nas trainer CLI (`trainer.main`, K2 and
    K1 on) on synthetic archives in the published layouts written here
    (CIFAR-10: 5 x 10,000 training images; CIFAR-100: 50,000, fine
-   labels; each test file 1,024 images, cut from 10,000 for the time
-   limit) at its full width (NASNet-A 6@768, batch 32), 2 x 10 and
-   2 x 5 steps and the evaluation over the test images: the native augment library loaded and its output bitwise
+   labels; each test file 512 images, cut from 10,000 for the time
+   limit) at its full width (NASNet-A 6@768, batch 32), 2 x 5 and
+   2 x 3 steps and the evaluation over the test images: the native augment library loaded and its output bitwise
    numpy's on a batch of the archive, K1 and K2 launches exact (zeroed
    just before, read just after), finite metrics. `cifar_trainer:` prints
    each archive's write and load seconds, augment ms a batch (native,
@@ -269,6 +269,36 @@
    WorkerWaitTimeout inside train(); their processes start together with
    phase 36's, while phase 35 trains. K1 is then held at [1|2, 32, 8], [1|2, 8, 1] and [1|2,
    16, 1] (`check_placement_combines`).
+38-41. Distributed placement, part two (`elastic_multihost_phases:`
+   prints the group's command time). Phase 38 trains alone in this
+   process; then phases 39-41's processes start together, four chains
+   on threads (`start_elastic_multihost`). 38. `elastic_search`: phase 11's
+   search under `ElasticWorkQueueStrategy(window_steps=8,
+   speculate_steps=8)` (the lease-based work queue's drain, one process):
+   accuracy >= 0.88 and above 0.76, K1 exact (one a candidate a step and
+   one a test batch), the speculation's K1 launches 0 and its 16 steps
+   grafted in; ms a step beside phase 11's, each drain's dispatched and
+   reused steps. 39. `multihost_round_robin`: the ImageNet trainer's
+   `build_estimator` at its defaults with `--placement=round_robin` in
+   two processes on the card (gloo; owners [[0], [1], [0]], members
+   synced through the store every step), both feeding the same batches,
+   2 x 5 steps: iteration 0's training losses within
+   IMAGENET_RR_LOSS_BOUND of phase 33's at the same steps, K1 exact on
+   the chief (none on process 1), finite metrics; ms a step (host clock,
+   CUDA events), ms and bytes a member sync, peak memory and the store's
+   retained bytes a process. 40. `elastic_two_process`: phase 38's search
+   in two processes over the process group's store, the selection and
+   every frozen parameter bitwise phase 38's, the worker having run
+   units; again with the worker SIGKILLed at its second unit
+   (`workunit.execute`, lease TTL 2 s): the chief finishes alone, bitwise
+   the same. 41. `multihost_peer_death`: tests/torch_chaos_multihost_runner.py
+   on the card: a checkpoint torn on the card, then two processes resume
+   it under multi-host RoundRobin and the peer is SIGKILLed at its third
+   broadcast; the chief declares it lost (deadline 5 s), finishes the
+   iteration with the survivor, persists it (the torn file quarantined,
+   the dead candidate marked in the metrics file) and exits 0. Their K1
+   shapes ([1|2, 128, 10], [1|2, 64, 8]) are held by `check_combine` and
+   `check_slice_combines`; the peer-death search has no K1 (unfused).
 
 Cut for the placement phases' time (PR 13): `train_nasnet` 2 x 20 ->
 2 x 14 steps (its timed window 10 -> 5 steps), `resume_nasnet` 2 x 10 ->
@@ -277,6 +307,12 @@ SIGTERMed trainer 2 x 50 -> 2 x 10, `windows_vs_steps` 2 x 16 -> 2 x 8,
 `cifar_trainer` 2 x 20 -> 2 x 10 (CIFAR-10) and 2 x 10 -> 2 x 5
 (CIFAR-100) steps and its test files 2,048 -> 1,024 images, the
 SIGTERMed trainer 2 x 10. No gate and no kernel check was cut.
+
+Cut for the elastic and multi-host phases' time:
+`nasnet_train_vs_cpu` 2 x 4 -> 2 x 2 steps, `cifar_trainer` 2 x 10 -> 2 x
+5 (CIFAR-10) and 2 x 5 -> 2 x 3 (CIFAR-100) steps and its test files
+1,024 -> 512 images, `tutorials`' mnist_simple_dnn and cifar10_cnn 300 ->
+150 steps. No gate and no kernel check was cut.
 
 Prints the per-shape K2 and K3 timings, the served latency and
 throughput, the `train:`, `train_nasnet:`, `resume_nasnet:`,
@@ -293,9 +329,12 @@ launches on the NASNet training paths, `train_launches`; both with
 `cifar10_launches` and `cifar100_launches`, K1's with
 `imagenet_ae_launches`, `imagenet_round_robin_launches`,
 `round_robin_search_launches`, `round_robin_gate_launches` and
-`spmd_two_process_launches` (one a rank)), the `imagenet_round_robin:`,
-`round_robin_search:`, `round_robin_gate:`, `spmd_two_process:` and
-`chief_worker:` lines,
+`spmd_two_process_launches` (one a rank), `multihost_round_robin_launches`
+and `elastic_two_process_launches` (chief, worker), `elastic_search_launches`
+and `speculation_launches` (0)), the `imagenet_round_robin:`,
+`round_robin_search:`, `round_robin_gate:`, `spmd_two_process:`,
+`chief_worker:`, `elastic_search:`, `multihost_round_robin:`,
+`elastic_two_process:` and `multihost_peer_death:` lines,
 and as its last line `{"ok": true, "device": {...}}`. Any failure raises
 and exits non-zero.
 """
@@ -395,7 +434,7 @@ CNN_PARITY_BOUND = 5e-4
 # boston_housing's steps an iteration at their defaults, and the transfer
 # test digits; the reduced steps of mnist_simple_dnn and cifar10_cnn.
 BAGGING_TRAIN, BAGGING_TEST, BAGGING_STEPS = 2048, 1024, 150
-TRANSFER_STEPS, TRANSFER_TEST, BOSTON_STEPS, TUTORIAL_STEPS = 200, 1024, 200, 300
+TRANSFER_STEPS, TRANSFER_TEST, BOSTON_STEPS, TUTORIAL_STEPS = 200, 1024, 200, 150
 # The seeds of the CPU runs whose initial parameters are moved by 1e-7.
 MOVED_SEEDS = (5, 11, 17)
 HEADS_BATCH = 4096
@@ -420,7 +459,7 @@ TRAINER_SIGTERM_STEPS = 20
 GATE_TRAIN, GATE_TEST, GATE_STEPS = 8192, 2048, 300
 # nasnet_train_vs_cpu: the gate model (DynamicGenerator, f32, drop-path
 # off), steps per iteration and batch.
-NASNET_PARITY_STEPS, NASNET_PARITY_BATCH = 4, 32
+NASNET_PARITY_STEPS, NASNET_PARITY_BATCH = 2, 32
 # train_nasnet_mobile: NASNet-A Mobile (12 cells, 44 filters, the ImageNet
 # stem, 1001 classes; the improve_nas defaults otherwise, ADAPTIVE) on
 # 224 x 224 x 3 images drawn from --seed, batch 32, 2 iterations x 16
@@ -439,13 +478,13 @@ WINDOWS_STEPS = 8
 # published layouts (CIFAR-10: 5 x 10,000 training images; CIFAR-100:
 # 50,000 with fine labels) at its full width (NASNet-A 6@768), batch 32,
 # 2 iterations of CIFAR10_STEPS // 2 steps (of CIFAR100_STEPS // 2 on
-# CIFAR-100); the augment timing's repeats. The test files hold 1,024
-# images of the published 10,000 (2,048 until the placement phases
-# needed the time): the trainer evaluates all of them, and the full 312
-# batches, twice, cost the script up to 150 s of its time limit on a
-# slow host.
-CIFAR_TRAIN, CIFAR_TEST, CIFAR_BATCH, CIFAR_ITERATIONS = 50000, 1024, 32, 2
-CIFAR10_STEPS, CIFAR100_STEPS, AUGMENT_REPEATS = 20, 10, 50
+# CIFAR-100); the augment timing's repeats. The test files hold 512
+# images of the published 10,000 (2,048 until the placement phases, 1,024
+# until the elastic and multi-host phases needed the time): the trainer
+# evaluates all of them, and the full 312 batches, twice, cost the
+# script up to 150 s of its time limit on a slow host.
+CIFAR_TRAIN, CIFAR_TEST, CIFAR_BATCH, CIFAR_ITERATIONS = 50000, 512, 32, 2
+CIFAR10_STEPS, CIFAR100_STEPS, AUGMENT_REPEATS = 10, 6, 50
 # imagenet_autoensemble: the ImageNet trainer at its defaults (ResNet-50
 # width 64 + EfficientNet-B0, 224 x 224, batch 64, replication) on its fake
 # data (8 classes), 2 iterations x 10 steps; card/CPU forwards of ResNet-18
@@ -468,6 +507,12 @@ IMAGENET_RR_LOSS_BOUND = 1e-2
 RR_GATE_STEPS, RR_GATE_BATCH, RR_GATE_EXAMPLES, RR_GATE_ACCURACY = 60, 32, 256, 0.5
 # process_phases: each subprocess's time limit, seconds.
 PROCESS_TIMEOUT = 300
+# elastic_multihost_phases: the multi-host ImageNet run's steps
+# (2 iterations x 5); the elastic search's window (and speculation)
+# steps; the SIGKILL run's lease TTL, s; the peer-death run's collective
+# deadline, s.
+MHRR_STEPS, MHRR_ITERATIONS = 10, 2
+ELASTIC_WINDOW, ELASTIC_LEASE_TTL, CHAOS_DEADLINE = 8, 2, 5
 # modelflow: tests/test_experimental.py::test_parallel_scheduler_matches_sequential
 # (three MLPs, 3 epochs, mean ensembles under Grow and All) with three
 # workers on the card's pool, and one weighted-ensembler search, card/CPU.
@@ -4388,7 +4433,7 @@ def _finite_metrics(what, metrics, steps):
 def cifar_trainer(model_dir):
     """The improve_nas trainer CLI on CIFAR-10 and CIFAR-100 archives in the
     published layouts, at its full width (NASNet-A 6@768, batch 32, K2 and
-    K1 on, its defaults), 2 x 10 and 2 x 5 steps, then its evaluation over
+    K1 on, its defaults), 2 x 5 and 2 x 3 steps, then its evaluation over
     the CIFAR_TEST test images: the native augment library loaded, its output
     bitwise numpy's, K1 and K2 launches exact, finite metrics. Prints the
     archive load seconds, augment ms a batch (native, numpy), ms a step,
@@ -4747,7 +4792,7 @@ def imagenet_round_robin(model_dir, replication_losses):
                loss_deviation_from_replication=deviation, bound=IMAGENET_RR_LOSS_BOUND,
                k1_launches=counts["combine"], phase_secs=time.perf_counter() - t_phase, card=card_line())
     print("imagenet_round_robin: " + json.dumps(out))
-    return counts, out
+    return counts, out, losses
 
 
 def _linear_builders():
@@ -4899,15 +4944,17 @@ def _free_port():
         return sock.getsockname()[1]
 
 
-def _finish(procs, what):
-    """Each (name, process)'s output; a process still running at its
-    timeout is killed, with every other one, and the phase fails."""
+def _finish(procs, what, want_rcs=None):
+    """Each (name, process)'s output; a process that does not end with its
+    return code in `want_rcs` (0 by default), or is still running at its
+    timeout, fails the phase, and every process is stopped."""
+    want_rcs = want_rcs or {}
     outs = {}
     try:
         for name, proc in procs:
             out, _ = proc.communicate(timeout=PROCESS_TIMEOUT)
             outs[name] = out.decode()
-            if proc.returncode != 0:
+            if proc.returncode != want_rcs.get(name, 0):
                 raise AssertionError("%s: %s exited %d:\n%s" % (what, name, proc.returncode, outs[name][-3000:]))
     finally:
         for _, proc in procs:
@@ -5052,6 +5099,344 @@ def check_placement_combines(gen):
     return worst
 
 
+# ------------------------------------------------------ elastic and multi-host
+
+
+def _tests_dir():
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+
+
+def _spawn_runner(script, args, **env):
+    """A tests/ runner in its own process (stdout and stderr together)."""
+    environ = dict(os.environ)
+    environ.pop("ADANET_FAULTS", None)
+    root = os.path.dirname(os.path.abspath(__file__))
+    environ.update(OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join([root, _tests_dir(), environ.get("PYTHONPATH", "")]),
+                   **env)
+    return subprocess.Popen([sys.executable, os.path.join(_tests_dir(), script)] + [str(a) for a in args],
+                            env=environ, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+
+class _Chain:
+    """Runs groups of processes one after another on a thread: each step
+    is (label, start() -> [(name, process)], {name: return code})."""
+
+    def __init__(self, steps):
+        import threading
+
+        self.outs, self.secs, self.error, self._steps = {}, {}, None, steps
+        self._procs, self._stopped = [], False
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        try:
+            for label, start, rcs in self._steps:
+                if self._stopped:
+                    return
+                t0 = time.perf_counter()
+                self._procs = start()
+                self.outs[label] = _finish(self._procs, label, rcs)
+                self.secs[label] = time.perf_counter() - t0
+        except BaseException as exc:  # re-raised by join()
+            self.error = exc
+
+    def stop(self):
+        """Kills the running processes and starts no more."""
+        self._stopped = True
+        for _, proc in self._procs:
+            if proc.poll() is None:
+                proc.kill()
+        self._thread.join(timeout=60)
+
+    def join(self):
+        self._thread.join(timeout=4 * PROCESS_TIMEOUT)
+        if self._thread.is_alive():
+            raise AssertionError("elastic_multihost_phases: a process chain did not end")
+        if self.error is not None:
+            raise self.error
+        return self.outs
+
+
+def start_elastic_multihost(model_dir):
+    """Starts the group's processes, four chains on threads: the
+    multi-host ImageNet search (two ranks); the elastic search in two
+    processes; the same with the worker SIGKILLed at its second unit; a
+    checkpoint torn on the card, then the two-process resume whose peer
+    is SIGKILLed at its third broadcast."""
+    def world(script, args_of, n, env_of=lambda rank: {}):
+        port = _free_port()
+        return lambda: [("rank %d" % r, _spawn_runner(script, args_of(r, port), **env_of(r))) for r in range(n)]
+
+    mh_dir, wq_dir, kill_dir, chaos_dir = (os.path.join(model_dir, d) for d in (
+        "multihost", "elastic_two", "elastic_sigkill", "chaos"))
+    for d in (mh_dir, wq_dir, kill_dir):
+        os.makedirs(d)
+    # GC of the member syncs' keys: a lag of 3 broadcasts exceeds a sync
+    # round's 2, and keeps two ResNet-50 payloads (2 x ~100 MB) within the
+    # default 256 MiB budget.
+    imagenet_env = dict(MHRR_STEPS=str(MHRR_STEPS), MHRR_ITERATIONS=str(MHRR_ITERATIONS), ADANET_KV_GC_MIN_LAG="3")
+    multihost = _Chain([("multihost_round_robin", world(
+        "torch_multihost_rr_runner.py", lambda r, p: ["imagenet", mh_dir, r, 2, p, "cuda", "gloo"], 2,
+        lambda r: imagenet_env), {})])
+    digits = dict(TEST_SEARCH="digits", ADANET_TEST_EXIT_BARRIER="1")
+    killed = dict(TEST_SEARCH="digits", TEST_LEASE_TTL=str(ELASTIC_LEASE_TTL))
+    elastic = _Chain([
+        ("elastic_two_process", world("torch_elastic_wq_runner.py",
+                                      lambda r, p: [wq_dir, "two", r, p, 2, -1, "cuda", "gloo"], 2,
+                                      lambda r: digits), {}),
+    ])
+    sigkill = _Chain([
+        ("elastic_sigkill", world("torch_elastic_wq_runner.py",
+                                  lambda r, p: [kill_dir, "sigkill", r, p, 2, -1, "cuda", "gloo"], 2,
+                                  lambda r: dict(killed, **({"ADANET_FAULTS": "workunit.execute:kill:after=1"}
+                                                           if r else {}))), {"rank 1": -signal.SIGKILL}),
+    ])
+    timeouts = dict(ADANET_COLLECTIVE_TIMEOUT_SECS=str(CHAOS_DEADLINE), ADANET_HEARTBEAT_INTERVAL_SECS="1")
+    chaos = _Chain([
+        ("torn", lambda: [("writer", _spawn_runner("torch_chaos_ckpt_runner.py", [chaos_dir, "cuda"],
+                                                   ADANET_FAULTS="checkpoint.write:torn:after=2"))],
+         {"writer": -signal.SIGKILL}),
+        ("multihost_peer_death", world(
+            "torch_chaos_multihost_runner.py", lambda r, p: [chaos_dir, r, 2, p, "cuda", "gloo"], 2,
+            lambda r: dict(timeouts, **({"ADANET_FAULTS": "collective.entry:kill:after=2"} if r else {}))),
+         {"rank 1": -signal.SIGKILL}),
+    ])
+    return dict(multihost=multihost, elastic=elastic, sigkill=sigkill, chaos=chaos, t0=time.perf_counter(),
+                dirs=dict(multihost=mh_dir, two=wq_dir, sigkill=kill_dir, chaos=chaos_dir))
+
+
+def elastic_search(model_dir, lockstep):
+    """Phase 11's search (4096/1024 digits, simple_dnn 128 wide, fused
+    Adam, K1 on, 2 x 400) under `ElasticWorkQueueStrategy(window_steps=8,
+    speculate_steps=8)` in one process (tests/torch_elastic_wq_runner.py's
+    `digits_search`): accuracy >= 0.88 and above 0.76, K1 exact (one a
+    candidate a step, every ensemble window run by this process, and one
+    a test batch), the speculation's K1 launches 0 and its windows
+    grafted in. Prints ms a step beside `lockstep`'s (phase 11's numbers,
+    this run), each drain's dispatched and reused steps. Returns (counts,
+    the line's numbers, the frozen payloads' digest)."""
+    import torch
+
+    from adanet_tpu_torch import ops
+    from adanet_tpu_torch.core.estimator import Estimator
+    from adanet_tpu_torch.distributed.scheduler import ElasticWorkQueueExecutor
+
+    sys.path.insert(0, _tests_dir())
+    from torch_elastic_wq_runner import digits_search, frozen_digest, selection_sequence
+
+    t_phase = time.perf_counter()
+    directory = os.path.join(model_dir, "elastic_search")
+    drains, speculation = [], []
+    run_iteration, speculate = ElasticWorkQueueExecutor.run_iteration, Estimator._speculate_next_iteration
+
+    def counted(self, *args, **kwargs):
+        result = run_iteration(self, *args, **kwargs)
+        drains.append(dict(namespace=kwargs.get("queue_namespace"), dispatched=result.dispatched_steps,
+                           reused=result.reused_steps, steps=result.steps_trained))
+        return result
+
+    def counted_speculation(self, *args, **kwargs):
+        before = ops.launch_counts()["combine"]
+        t0 = time.perf_counter()
+        out = speculate(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        speculation.append(dict(launches=ops.launch_counts()["combine"] - before, secs=time.perf_counter() - t0))
+        return out
+
+    ElasticWorkQueueExecutor.run_iteration, Estimator._speculate_next_iteration = counted, counted_speculation
+    try:
+        estimator, train_fn, test_fn = digits_search(directory, "cuda")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        estimator.train(train_fn, max_steps=10**6)
+        torch.cuda.synchronize()
+        train_secs = time.perf_counter() - t0
+        metrics = estimator.evaluate(test_fn)
+        counts = ops.launch_counts()
+    finally:
+        ElasticWorkQueueExecutor.run_iteration, Estimator._speculate_next_iteration = run_iteration, speculate
+    steps = TRAIN_STEPS * TRAIN_ITERATIONS
+    candidates = _grow_candidates(2, TRAIN_ITERATIONS)
+    _check_k1("elastic_search", counts, TRAIN_STEPS, candidates, -(-EVAL_EXAMPLES // TRAIN_BATCH), directory)
+    if estimator.latest_global_step() != steps:
+        raise AssertionError("elastic_search: %d steps" % estimator.latest_global_step())
+    if not (metrics["accuracy"] >= GATE_ACCURACY and metrics["accuracy"] > LINEAR_BASELINE_ACCURACY):
+        raise AssertionError("elastic_search: accuracy %s below the gate %s" % (metrics, GATE_ACCURACY))
+    reused = sum(d["reused"] for d in drains)
+    if [s["launches"] for s in speculation] != [0] or reused != 2 * ELASTIC_WINDOW:
+        raise AssertionError("elastic_search: speculation %s, %d steps reused" % (speculation, reused))
+    out = dict(accuracy=metrics["accuracy"], loss=metrics["loss"], best_ensemble=metrics["best_ensemble"],
+               selection=selection_sequence(directory), k1_launches=counts["combine"],
+               speculation_k1_launches=speculation[0]["launches"], speculation_secs=speculation[0]["secs"],
+               drains=drains, dispatched_steps=sum(d["dispatched"] for d in drains if "spec" not in d["namespace"]),
+               reused_steps=reused, search_secs=train_secs, ms_per_step=train_secs / steps * 1e3,
+               lockstep_ms_per_step=lockstep["search_ms_per_step"], phase_secs=time.perf_counter() - t_phase,
+               card=card_line())
+    print("elastic_search: " + json.dumps(out))
+    return counts, out, frozen_digest(directory)
+
+
+def _done_record(out, marker):
+    """The JSON after `marker` on a runner's output line."""
+    line = [entry for entry in out.splitlines() if entry.startswith(marker)]
+    if not line:
+        raise AssertionError("no %r line:\n%s" % (marker, out[-3000:]))
+    return json.loads(line[-1][len(marker):].strip())
+
+
+def multihost_round_robin(started, rr_losses):
+    """The ImageNet AutoEnsemble's `build_estimator` at the trainer's
+    defaults (ResNet-50 w64 + EfficientNet-B0, 224 x 224, batch 64, fake
+    data, `--placement=round_robin`) in two processes on the card (gloo,
+    owners [[0], [1], [0]]: process 1 trains the first candidate,
+    EfficientNet-B0, the chief ResNet-50 and the ensembles; members sync
+    through the store every step), both feeding the same batches, 2 x 5 steps: each
+    subnetwork's training losses at iteration 0's steps within
+    IMAGENET_RR_LOSS_BOUND x max(1, |loss|) of the in-process
+    `imagenet_round_robin`'s at the same steps, K1 exact on the chief (one
+    a candidate a step; process 1, which owns no ensemble, none), finite
+    metrics. Prints ms a step (host clock and CUDA events, iteration 1
+    after its first step), ms and bytes a member sync, peak memory a
+    process."""
+    outs = started["multihost"].join()["multihost_round_robin"]
+    directory = started["dirs"]["multihost"]
+    ranks = []
+    for rank in range(2):
+        if "MHRR ROLE %d DONE" % rank not in outs["rank %d" % rank]:
+            raise AssertionError("multihost_round_robin: rank %d:\n%s" % (rank, outs["rank %d" % rank][-3000:]))
+        with open(os.path.join(directory, "imagenet_%d.json" % rank)) as f:
+            ranks.append(json.load(f))
+    chief, worker = ranks
+    per_iteration = MHRR_STEPS // MHRR_ITERATIONS
+    expected = _counts(per_iteration * sum(_grow_candidates(2, MHRR_ITERATIONS)))
+    # A fresh process may launch K0 once, the self-test of its first
+    # kernel load.
+    if dict(chief["launches"], copy=0) != expected or dict(worker["launches"], copy=0) != _counts(0):
+        raise AssertionError("multihost_round_robin: launches %s / %s, expected %s / none"
+                             % (chief["launches"], worker["launches"], expected))
+    _finite_metrics("multihost_round_robin", chief["metrics"], MHRR_STEPS)
+    in_process = _loss_series(rr_losses)
+    series = collections.defaultdict(list)
+    for t, step in chief["losses"]:
+        for name, value in step.items():
+            series["t%d/%s" % (t, name)].append(value)
+    compared = {key: values for key, values in series.items() if key.startswith("t0/")}
+    if sorted(compared) != sorted(k for k in in_process if k.startswith("t0/")) or any(
+            len(v) != per_iteration for v in compared.values()):
+        raise AssertionError("multihost_round_robin: losses %s against %s" % (dict(series), in_process))
+    deviation = max(abs(a - b) / max(1.0, abs(b)) for key, values in compared.items()
+                    for a, b in zip(values, in_process[key]))
+    if not deviation <= IMAGENET_RR_LOSS_BOUND or not all(math.isfinite(v) for vs in series.values() for v in vs):
+        raise AssertionError("multihost_round_robin: losses %.3g from the in-process run's, bound %.3g"
+                             % (deviation, IMAGENET_RR_LOSS_BOUND))
+    out = dict(owners=[[0], [1], [0]], steps=MHRR_STEPS, loss_deviation_from_in_process=deviation,
+               bound=IMAGENET_RR_LOSS_BOUND, k1_launches=[chief["launches"]["combine"], worker["launches"]["combine"]],
+               eval_k1_launches=chief["eval_launches"]["combine"], metrics=chief["metrics"])
+    for name, record in (("chief", chief), ("worker", worker)):
+        syncs = record["syncs"]
+        out[name] = dict(host_ms_per_step=record["host_ms_per_step"], event_ms_per_step=record["event_ms_per_step"],
+                         train_secs=record["train_secs"], syncs=syncs["syncs"],
+                         sync_ms=syncs["secs"] / max(1, syncs["syncs"]) * 1e3,
+                         sync_bytes=syncs["bytes"] / max(1, syncs["syncs"]),
+                         max_memory_allocated_bytes=record["max_memory_allocated_bytes"],
+                         store_bytes_retained_peak=record["store_bytes_retained_peak"])
+    out["secs"] = started["multihost"].secs["multihost_round_robin"]
+    out["card"] = card_line()
+    print("multihost_round_robin: " + json.dumps(out))
+    return out
+
+
+def elastic_two_process(started, digest, selection):
+    """`elastic_search`'s search in two processes on the card over the
+    process group's store (`CoordinationKV`, gloo): the selection and
+    every frozen parameter bitwise `elastic_search`'s (`digest`), the
+    worker having run units; then again with the worker SIGKILLed at its
+    second unit (`workunit.execute` armed to kill, lease TTL 2 s): the
+    chief finishes alone, bitwise the same. K1 on the chief one a
+    candidate a step, none on the worker (ensemble windows are the
+    chief's). Returns (each rank's K1 launches, the line's numbers)."""
+    outs = dict(started["elastic"].join(), **started["sigkill"].join())
+    secs = dict(started["elastic"].secs, **started["sigkill"].secs)
+    expected = _counts(TRAIN_STEPS * sum(_grow_candidates(2, TRAIN_ITERATIONS)))
+    runs = {}
+    for label, tag, killed in (("elastic_two_process", "two", False), ("elastic_sigkill", "sigkill", True)):
+        directory = started["dirs"][tag]
+        with open(os.path.join(directory, "%s.json" % tag)) as f:
+            record = json.load(f)
+        chief = _done_record(outs[label]["rank 0"], "ELASTIC WQ ROLE 0 DONE")
+        worker = None if killed else _done_record(outs[label]["rank 1"], "ELASTIC WQ ROLE 1 DONE")
+        if (record["final_step"], record["final_iteration"]) != (TRAIN_STEPS * TRAIN_ITERATIONS, TRAIN_ITERATIONS):
+            raise AssertionError("%s: %s" % (label, record))
+        if record["frozen_digest"] != digest or record["selection"] != selection:
+            raise AssertionError("%s: frozen digest %s, selection %s against elastic_search's %s, %s"
+                                 % (label, record["frozen_digest"], record["selection"], digest, selection))
+        if dict(chief["launches"], copy=0) != expected or (
+                worker is not None and dict(worker["launches"], copy=0) != _counts(0)):
+            raise AssertionError("%s: launches %s / %s, expected %s / none" % (
+                label, chief["launches"], worker and worker["launches"], expected))
+        worker_steps = None if worker is None else sum(d[0] for d in worker["drains"])
+        if worker_steps == 0:
+            raise AssertionError("%s: the worker ran no unit" % label)
+        runs[label] = dict(accuracy=record["accuracy"], frozen_bitwise_elastic_search=True,
+                           chief_dispatched_steps=sum(d[0] for d in chief["drains"]),
+                           worker_dispatched_steps=worker_steps,
+                           k1_launches=[chief["launches"]["combine"]] + ([] if worker is None
+                                                                          else [worker["launches"]["combine"]]),
+                           secs=secs[label])
+    out = dict(runs, card=card_line())
+    print("elastic_two_process: " + json.dumps(out))
+    return runs["elastic_two_process"]["k1_launches"], out
+
+
+def multihost_peer_death(started):
+    """tests/torch_chaos_multihost_runner.py on the card: a model dir torn
+    mid-checkpoint on the card (`checkpoint.write:torn`), then two
+    processes resume it under multi-host RoundRobin and process 1 (owner
+    of "a") is SIGKILLed at its third broadcast (a member sync). The chief
+    must declare it lost within the deadline (CHAOS_DEADLINE s), finish
+    the iteration with "b", persist it, and exit 0; the torn file
+    quarantined, "a" dead in the metrics file."""
+    outs = started["chaos"].join()
+    directory = started["dirs"]["chaos"]
+    record = _done_record(outs["multihost_peer_death"]["rank 0"], "CHAOS CHIEF DONE")
+    with open(os.path.join(directory, "architecture-0.json")) as f:
+        members = [e["builder_name"] for e in json.load(f)["subnetworks"]]
+    metrics = _read_json(directory, "candidate-metrics-0.json")
+    dead = sorted(name for name, entry in metrics.items() if entry["dead"])
+    if not (record["peer_lost"] and record["iteration_number"] == 1 and members == ["2_layer_dnn"]
+            and dead == ["t0_1_layer_dnn_grow_complexity_regularized"]
+            and os.path.exists(os.path.join(directory, "ckpt-6.pt.corrupt"))
+            and not os.path.exists(os.path.join(directory, "ckpt-6.pt"))):
+        raise AssertionError("multihost_peer_death: %s, members %s, dead %s, files %s"
+                             % (record, members, dead, sorted(os.listdir(directory))))
+    out = dict(record, members=members, dead=dead, deadline_secs=CHAOS_DEADLINE,
+               torn_secs=started["chaos"].secs["torn"], secs=started["chaos"].secs["multihost_peer_death"],
+               card=card_line())
+    print("multihost_peer_death: " + json.dumps(out))
+    return out
+
+
+def elastic_multihost_phases(model_dir, lockstep, rr_losses):
+    """Phases 38-41: `elastic_search` alone in this process (so that its
+    ms a step compares with phase 11's), then the processes of phases
+    39-41, started together (`start_elastic_multihost`), and their
+    checks. Returns (elastic_search's K1 launches and its speculation's,
+    the chief's and worker's K1 launches of the multi-host and
+    two-process runs)."""
+    elastic_counts, elastic_out, digest = elastic_search(model_dir, lockstep)
+    started = start_elastic_multihost(model_dir)
+    try:
+        multihost = multihost_round_robin(started, rr_losses)
+        two_launches, _ = elastic_two_process(started, digest, elastic_out["selection"])
+        multihost_peer_death(started)
+    finally:
+        for chain in ("multihost", "elastic", "sigkill", "chaos"):
+            started[chain].stop()
+    return dict(elastic=elastic_counts["combine"], speculation=elastic_out["speculation_k1_launches"],
+                multihost=multihost["k1_launches"], two_process=two_launches)
+
+
 def trainer_on_card():
     """The trainer CLI on the card, on fake data, at a small size."""
     from adanet_tpu_torch.research.improve_nas import trainer
@@ -5127,7 +5512,7 @@ def main(argv=None):
         check_sepconv_grads(sep_shapes, rng)
         clock.mark("sepconv_grads")
         fused_probes = {}
-        train_counts, _ = train_search(model_dir, fused_probes)
+        train_counts, train_stats = train_search(model_dir, fused_probes)
         clock.mark("train_search")
         train_vs_cpu()
         clock.mark("train_vs_cpu")
@@ -5158,7 +5543,7 @@ def main(argv=None):
                                                                  "card": card_line()}))
         clock.mark("cifar_imagenet_modelflow_phases")
         t_placement = time.perf_counter()
-        rr_imagenet_counts, _ = imagenet_round_robin(model_dir, imagenet_losses)
+        rr_imagenet_counts, _, rr_imagenet_losses = imagenet_round_robin(model_dir, imagenet_losses)
         rr_search_counts, _ = round_robin_search(model_dir, fused_probes)
         # The processes start up while the gate trains.
         started = start_processes(model_dir)
@@ -5172,6 +5557,11 @@ def main(argv=None):
         errors["combine"] = max(errors["combine"], check_placement_combines(rng))
         print("placement_phases: " + json.dumps({"secs": time.perf_counter() - t_placement, "card": card_line()}))
         clock.mark("placement_phases")
+        t_elastic = time.perf_counter()
+        elastic_launches = elastic_multihost_phases(model_dir, train_stats, rr_imagenet_losses)
+        print("elastic_multihost_phases: " + json.dumps({"secs": time.perf_counter() - t_elastic,
+                                                          "card": card_line()}))
+        clock.mark("elastic_multihost_phases")
         nasnet_counts, _ = train_nasnet(model_dir)
         clock.mark("train_nasnet")
         with deterministic_cudnn():
@@ -5255,6 +5645,10 @@ def main(argv=None):
             kernels[-1]["round_robin_search_launches"] = rr_search_counts["combine"]
             kernels[-1]["round_robin_gate_launches"] = rr_gate_counts["combine"]
             kernels[-1]["spmd_two_process_launches"] = [c["combine"] for c in spmd_launches]
+            kernels[-1]["multihost_round_robin_launches"] = elastic_launches["multihost"]
+            kernels[-1]["elastic_search_launches"] = elastic_launches["elastic"]
+            kernels[-1]["elastic_two_process_launches"] = elastic_launches["two_process"]
+            kernels[-1]["speculation_launches"] = elastic_launches["speculation"]
         if name == "sepconv":
             kernels[-1]["train_launches"] = nasnet_counts["sepconv"]
             kernels[-1]["nasnet_gate_launches"] = gate_counts["sepconv"]

@@ -514,14 +514,6 @@ def test_bagging_under_round_robin(tmp_path):
         np.testing.assert_allclose(fused[key].numpy(), rr[key].numpy(), rtol=2e-4, atol=1e-5)
 
 
-def test_round_robin_across_processes_raises(tmp_path, monkeypatch):
-    """Candidate groups across processes are the multi-host executor's,
-    which is not ported: it raises before training."""
-    monkeypatch.setattr(coordination, "process_count", lambda: 2)
-    with pytest.raises(ValueError, match="MultiHostRoundRobinExecutor"):
-        _rr_estimator(tmp_path).train(linear_dataset(), max_steps=4)
-
-
 # -------------------------------------------------------- watchdog copies
 
 

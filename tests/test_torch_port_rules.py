@@ -138,6 +138,7 @@ SLICE_MODULES = (
     "adanet_tpu_torch.distributed.mesh",
     "adanet_tpu_torch.distributed.placement",
     "adanet_tpu_torch.distributed.executor",
+    "adanet_tpu_torch.distributed.multihost",
 )
 
 
@@ -230,6 +231,27 @@ def test_copied_modules_stay_in_sync(copy, original):
     assert got == want, "%s drifted from %s" % (copy, original)
 
 
+def _class_without_imports(path, name):
+    """`ast.dump` of the top-level class `name` of `path`, its import
+    statements left out (as `COPIES` compares modules)."""
+    for node in ast.parse(open(path).read(), path).body:
+        if isinstance(node, ast.ClassDef) and node.name == name:
+            for parent in ast.walk(node):
+                for field in ("body", "orelse", "finalbody"):
+                    block = getattr(parent, field, None)
+                    if isinstance(block, list):
+                        setattr(parent, field, [n for n in block if not isinstance(n, (ast.Import, ast.ImportFrom))])
+            return ast.dump(node)
+    raise AssertionError("no class %s in %s" % (name, path))
+
+
+def test_file_kv_is_the_jax_class():
+    """`FileKV` is jax-free in the JAX package and copied as it stands."""
+    got = _class_without_imports(os.path.join(PORT, "distributed", "scheduler.py"), "FileKV")
+    want = _class_without_imports(os.path.join(REPO, "adanet_tpu", "distributed", "scheduler.py"), "FileKV")
+    assert got == want
+
+
 def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
     from adanet_tpu_torch import AutoEnsembleEstimator, AutoEnsembleSubestimator, resolve_device
     from adanet_tpu_torch.core import TPUEstimator, export
@@ -251,7 +273,13 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
     from adanet_tpu_torch.experimental import Model, ParallelScheduler
     from adanet_tpu_torch.research.imagenet_autoensemble import trainer as imagenet_trainer
     from adanet_tpu_torch.distributed import RoundRobinStrategy, coordination, data_parallel_mesh
+    from adanet_tpu_torch.distributed import ElasticWorkQueueStrategy, MultiHostRoundRobinExecutor
 
+    # An iteration built on the CPU, before CUDA is hidden, for the
+    # executors that place onto devices of their own.
+    cpu_iteration = IterationBuilder(MultiClassHead(10), [ComplexityRegularizedEnsembler()], [GrowStrategy()],
+                                     device="cpu").build_iteration(0, simple_dnn.Generator().generate_candidates(
+                                         None, 0, [], []), None, input_shape=(4,))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert resolve_device("cpu") == torch.device("cpu")
     head, generator = MultiClassHead(10), simple_dnn.Generator()
@@ -302,6 +330,12 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
         lambda: coordination.initialize("localhost:1", 2, 0, device="cuda"),
         lambda: imagenet_trainer.main(["--image_size=32", "--batch_size=8", "--placement=round_robin",
                                        "--model_dir", str(tmp_path)]),
+        # The fourteenth slice: the elastic strategy (and the Estimator
+        # over it) and the multi-host executor's default placement.
+        lambda: ElasticWorkQueueStrategy(),
+        lambda: Estimator(head, generator, 10, model_dir=str(tmp_path),
+                          placement_strategy=ElasticWorkQueueStrategy(window_steps=8, speculate_steps=8)),
+        lambda: MultiHostRoundRobinExecutor(cpu_iteration),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

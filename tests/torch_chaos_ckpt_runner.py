@@ -8,7 +8,8 @@ final path, the on-disk result of a crash without atomic rename, and
 SIGKILLs the process. The manifest still points at the intact step-4
 checkpoint; the torn `ckpt-6.pt` is an orphan that the resume's fsck
 must quarantine. The parent test's uninterrupted run and its resume use
-`build_estimator` and `input_fn` from here.
+`build_estimator` and `input_fn` from here. A second argument names the
+device ("cpu" by default; `chip_smoke.py` tears a model dir on the card).
 """
 
 import sys
@@ -31,9 +32,10 @@ def sgd(params):
     return torch.optim.SGD(params, lr=0.05)
 
 
-def build_estimator(model_dir):
+def build_estimator(model_dir, device="cpu", **kwargs):
     """Builders "a" (one layer) and "b" (two), 6 steps an iteration, 2
-    iterations, a checkpoint every 2 steps."""
+    iterations, a checkpoint every 2 steps; `kwargs` go to the Estimator
+    (the multi-host chaos runner's placement)."""
     builders = [simple_dnn._DNNBuilder(sgd, 8, n, False, 0.0, 0) for n in (1, 2)]
     return Estimator(
         head=MultiClassHead(3),
@@ -44,7 +46,8 @@ def build_estimator(model_dir):
         model_dir=model_dir,
         log_every_steps=0,
         save_checkpoint_steps=2,
-        device="cpu",
+        device=device,
+        **kwargs,
     )
 
 
@@ -56,7 +59,7 @@ def input_fn():
 
 def main():
     torch.set_num_threads(1)
-    est = build_estimator(sys.argv[1])
+    est = build_estimator(sys.argv[1], device=sys.argv[2] if len(sys.argv) > 2 else "cpu")
     est.train(input_fn, max_steps=100)
     # The armed torn-write fault must have killed the process at step 6.
     print("UNEXPECTED COMPLETION", flush=True)

@@ -14,6 +14,12 @@ by default, BACKEND by the stated rule unless given) and:
   the caller can check that the processes agree bitwise and match a
   one-process oracle on the whole batches (`oracle_probes`), and prints
   its kernels' launch counts.
+- `bagging`: tests/spmd_bagging_runner.py's AutoEnsemble search (an
+  MLP with its own `train_input_fn`, a linear candidate, 6 steps), each
+  process feeding its half of BOTH streams; each writes
+  `bagging_<rank>.npz` with both candidates' trained parameters
+  (`bagging_probes`), for the caller to hold the processes bitwise
+  equal and against one process on the whole streams.
 - `sigterm`: train a long search until a SIGTERM to any one process;
   every process prints `STOPPED AT <steps>` (the steps it trained).
 - `lockstep-ok`, `lockstep-count`, `lockstep-shape`: a collective
@@ -132,6 +138,99 @@ def run_spmd(model_dir, rank, world, device):
     print("SPMD ROLE %d DONE launches %s" % (rank, json.dumps(ops.launch_counts())), flush=True)
 
 
+def bagged_batches():
+    """The bagged candidate's own global stream (a different resample),
+    tests/spmd_bagging_runner.py's."""
+    rng = np.random.RandomState(23)
+    batches = []
+    for _ in range(4):
+        x = rng.randn(GLOBAL_ROWS, 4).astype(np.float32)
+        y = (x @ np.full((4, 1), 0.5, np.float32)) - 0.2
+        batches.append(({"x": x}, y))
+    return batches
+
+
+def shared_batches():
+    """tests/spmd_bagging_runner.py's shared global batches."""
+    rng = np.random.RandomState(11)
+    batches = []
+    for _ in range(4):
+        x = rng.randn(GLOBAL_ROWS, 4).astype(np.float32)
+        y = (x @ np.ones((4, 1), np.float32)) + 0.1
+        batches.append(({"x": x}, y))
+    return batches
+
+
+def bagging_probes(model_dir, shared_fn, bagged_fn, device):
+    """Trains the bagging search; returns both candidates' trained
+    parameters at the iteration's end (`<candidate>/<name>`)."""
+    from torch import nn
+
+    from adanet_tpu_torch.autoensemble import AutoEnsembleEstimator, AutoEnsembleSubestimator
+
+    class Linear(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.dense = nn.Linear(4, 1)
+
+        def forward(self, features, training=False):
+            return self.dense(features["x"].float())
+
+    class MLP(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.hidden, self.logits = nn.Linear(4, 8), nn.Linear(8, 1)
+
+        def forward(self, features, training=False):
+            return self.logits(torch.relu(self.hidden(features["x"].float())))
+
+    probes = {}
+
+    class Probing(AutoEnsembleEstimator):
+        def _complete_iteration(self, iteration, state, *args, **kwargs):
+            for name, st in state.subnetworks.items():
+                for key, value in st.module.state_dict().items():
+                    probes["%s/%s" % (name, key)] = value.detach().cpu().numpy()
+            return super()._complete_iteration(iteration, state, *args, **kwargs)
+
+    def sgd(params):
+        return torch.optim.SGD(params, lr=0.05)
+
+    torch.manual_seed(0)
+    est = Probing(
+        head=RegressionHead(),
+        candidate_pool={
+            "bagged": AutoEnsembleSubestimator(MLP(), optimizer=sgd, train_input_fn=bagged_fn),
+            "plain": AutoEnsembleSubestimator(Linear(), optimizer=sgd),
+        },
+        max_iteration_steps=6,
+        ensemblers=[ComplexityRegularizedEnsembler(optimizer=sgd)],
+        max_iterations=1,
+        model_dir=model_dir,
+        log_every_steps=0,
+        device=device,
+    )
+    est.train(shared_fn, max_steps=6)
+    assert est.latest_iteration_number() == 1, est.latest_iteration_number()
+    return probes
+
+
+def run_bagging(model_dir, rank, world, device):
+    rows = GLOBAL_ROWS // world
+    lo, hi = rank * rows, (rank + 1) * rows
+
+    def local(batches):
+        def input_fn():
+            for features, labels in batches():
+                yield {"x": features["x"][lo:hi]}, labels[lo:hi]
+
+        return input_fn
+
+    probes = bagging_probes(model_dir, local(shared_batches), local(bagged_batches), device)
+    np.savez(os.path.join(model_dir, "bagging_%d.npz" % rank), **probes)
+    print("BAGGING ROLE %d DONE" % rank, flush=True)
+
+
 def run_sigterm(model_dir, rank, world, device):
     steps = [0]
 
@@ -214,6 +313,8 @@ def main(argv):
     try:
         if mode == "spmd":
             run_spmd(model_dir, rank, world, device)
+        elif mode == "bagging":
+            run_bagging(model_dir, rank, world, device)
         elif mode == "sigterm":
             run_sigterm(model_dir, rank, world, device)
         elif mode.startswith("lockstep-"):
