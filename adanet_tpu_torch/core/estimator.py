@@ -79,8 +79,21 @@ end; a builder with a `train_input_fn` (an AutoEnsemble candidate's
 bagging stream) trains on batches from its own iterator, opened each
 iteration through the same debug check and prefetch as the shared one
 and closed when the iteration ends, and such an iteration takes single
-steps whatever `iterations_per_loop` says. The artifact store and
-serving export come with later slices.
+steps whatever `iterations_per_loop` says.
+
+Export and serving (`core/export.py`, `serving/`): `export_saved_model`
+writes the winner's durable payload (`architecture.json`,
+`ensemble.pt`) and a hermetic `torch.export` program of its whole
+prediction function (`serving.pt2`), which a fresh process serves with
+no builder code; `export_subnetwork_logits` and
+`export_subnetwork_last_layer` add every member's outputs to `predict`
+and to that program. `export_serving` publishes each completed
+iteration as a generation under `<model_dir>/serving/gen-<t>/` (the
+chief, after the manifest; a failure is logged, never raised), by
+default with a calibrated cascade (`serving_cascade`): the cheapest
+member's program and its confidence threshold, calibrated on a
+reservoir of training feature batches. The artifact store
+(`artifact_store`, `store_spec_extra`) comes with a later slice.
 
 Placement and processes (`distributed/`): a `RoundRobinStrategy` trains
 each iteration through `distributed.executor.RoundRobinExecutor` (each
@@ -220,6 +233,23 @@ class _Prepended:
 
     def __next__(self):
         return self._first.pop() if self._first else next(self.source)
+
+
+def _host_tree(tree):
+    """`tree` with every tensor or array leaf copied to a host numpy array."""
+    if isinstance(tree, dict):
+        return {key: _host_tree(value) for key, value in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_tree(value) for value in tree)
+    if torch.is_tensor(tree):
+        return tree.detach().cpu().numpy()
+    return np.array(tree, copy=True)
+
+
+def _cpu_tree(tree):
+    if isinstance(tree, dict):
+        return {key: _cpu_tree(value) for key, value in tree.items()}
+    return tree.cpu()
 
 
 def _checked(source):
@@ -392,6 +422,20 @@ class Estimator:
         `ElasticWorkQueueStrategy` (the work queue's drain).
       worker_wait_timeout_secs: how long a worker waits for the chief to
         complete an iteration before `WorkerWaitTimeout`.
+      enable_summaries: write the train and eval summaries (with
+        `log_every_steps` > 0 for the train ones).
+      export_subnetwork_logits, export_subnetwork_last_layer: add each
+        member's logits (`subnetwork_logits/<i>`) and last layer
+        (`subnetwork_last_layer/<i>`) to the predictions of `predict` and
+        of the exported program.
+      export_serving: publish every completed iteration's winner as a
+        serving generation.
+      serving_cascade: publish each generation with a cascade of its
+        cheapest member, calibrated to `cascade_target_agreement` with the
+        full ensemble on the last `cascade_calibration_batches` sampled
+        training feature batches.
+      artifact_store, store_spec_extra: not ported yet (ROADMAP item 10,
+        part two); given, they raise.
     """
 
     def __init__(
@@ -426,7 +470,23 @@ class Estimator:
         replay_config=None,
         placement_strategy=None,
         worker_wait_timeout_secs: float = 7200.0,
+        enable_summaries: bool = True,
+        export_subnetwork_logits: bool = False,
+        export_subnetwork_last_layer: bool = False,
+        export_serving: bool = False,
+        serving_cascade: bool = True,
+        cascade_target_agreement: float = 0.995,
+        cascade_calibration_batches: int = 8,
+        artifact_store=None,
+        store_spec_extra: Optional[Dict[str, Any]] = None,
     ):
+        if artifact_store is not None or store_spec_extra is not None:
+            raise NotImplementedError(
+                "artifact_store and store_spec_extra are not ported yet (ROADMAP item 10, part two: the store "
+                "publication and replay of payloads)."
+            )
+        if cascade_calibration_batches < 1:
+            raise ValueError("cascade_calibration_batches must be >= 1.")
         if placement_strategy is not None and not isinstance(
             placement_strategy, (ReplicationStrategy, RoundRobinStrategy, ElasticWorkQueueStrategy)
         ):
@@ -492,6 +552,19 @@ class Estimator:
         self._stop_requested = False
         self._summary: Optional[ScopedSummary] = None
         self._step_compute_dtype = precision.resolve_dtype(step_compute_dtype)
+        self._enable_summaries = bool(enable_summaries)
+        self._export_subnetwork_logits = bool(export_subnetwork_logits)
+        self._export_subnetwork_last_layer = bool(export_subnetwork_last_layer)
+        # Serve while searching: the chief publishes every completed
+        # iteration's winner as a generation, by default with a cascade
+        # calibrated on a reservoir of host copies of sampled training
+        # feature batches (`_stash_calibration_batch`).
+        self._export_serving = bool(export_serving)
+        self._serving_cascade = bool(serving_cascade)
+        self._cascade_target_agreement = float(cascade_target_agreement)
+        self._cascade_calibration_batches = int(cascade_calibration_batches)
+        self._cascade_calibration: list = []
+        self._calibration_pulls = 0
         self._iteration_builder = self._make_iteration_builder(self._device)
         # The winner of the last iteration this train() call completed;
         # the first iteration of a call rebuilds its previous from disk.
@@ -503,7 +576,7 @@ class Estimator:
             ensemblers=self._ensemblers,
             ensemble_strategies=self._strategies,
             adanet_loss_decay=self._adanet_loss_decay,
-            collect_summaries=self._log_every_steps > 0,
+            collect_summaries=self._enable_summaries and self._log_every_steps > 0,
             device=device,
             step_compute_dtype=self._step_compute_dtype,
             weight_key=self._weight_key,
@@ -743,7 +816,8 @@ class Estimator:
                         t, steps_done, self._max_iteration_steps,
                         {k: round(v, 6) for k, v in emas.items()},
                     )
-                    self._write_train_summaries(iteration, metrics, emas, state, info.global_step)
+                    if self._enable_summaries:
+                        self._write_train_summaries(iteration, metrics, emas, state, info.global_step)
                 if self._save_checkpoint_steps and _crossed(prev_steps_done, steps_done, self._save_checkpoint_steps):
                     if multihost:
                         if executor.lost_peers:
@@ -1046,14 +1120,14 @@ class Estimator:
                 data_iter = self._make_train_iter(input_fn)
             try:
                 faults_lib.trip("data.pull")
-                return next(data_iter), data_iter
+                batch = next(data_iter)
             except StopIteration:
                 # The stream ended: its prefetcher goes before the next
                 # epoch's opens.
                 self._close_iter(data_iter)
                 data_iter = self._make_train_iter(input_fn)
                 try:
-                    return next(data_iter), data_iter
+                    batch = next(data_iter)
                 except StopIteration:
                     raise ValueError("input_fn yielded no batches.")
             except Exception as exc:
@@ -1066,7 +1140,36 @@ class Estimator:
                 if data_iter is not None:
                     self._close_iter(data_iter)
                 data_iter = None
+                continue
+            self._stash_calibration_batch(batch)
+            return batch, data_iter
         raise AssertionError("unreachable")  # pragma: no cover
+
+    #: Every Nth data pull feeds the cascade-calibration reservoir, sparse
+    #: enough that the host copy never shows on the step time.
+    _CALIBRATION_STRIDE = 16
+
+    def _stash_calibration_batch(self, batch) -> None:
+        """Feeds the publish-time cascade-calibration reservoir: the last
+        `cascade_calibration_batches` sampled feature batches, as host
+        copies (a device batch may be reused by the step). A no-op
+        unless serving export and the cascade are both on."""
+        if not (self._export_serving and self._serving_cascade):
+            return
+        self._calibration_pulls += 1
+        if (self._calibration_pulls - 1) % self._CALIBRATION_STRIDE:
+            return
+        try:
+            features = batch[0] if isinstance(batch, tuple) else batch
+            features = _host_tree(features)
+        except Exception:
+            _LOG.warning("Cascade calibration stash failed; publish-time calibration falls back to the sample "
+                         "batch.", exc_info=True)
+            return
+        self._cascade_calibration.append(features)
+        excess = len(self._cascade_calibration) - self._cascade_calibration_batches
+        if excess > 0:
+            del self._cascade_calibration[:excess]
 
     def _write_train_summaries(self, iteration, metrics, emas, state, step):
         """Per-candidate summaries under `<model_dir>/ensemble/<name>` and
@@ -1320,6 +1423,8 @@ class Estimator:
             # replay.json after every completed iteration, so that an
             # interrupted search stays replayable up to here.
             self._write_replay_record()
+            if self._export_serving:
+                self._publish_serving_generation(t, frozen, sample_batch)
         if self._summary is not None:
             self._summary.close()
         return frozen
@@ -1400,6 +1505,8 @@ class Estimator:
     def _write_eval_summaries(self, per_scope, global_step) -> None:
         """Per-candidate eval summaries under
         `<model_dir>/ensemble/<name>/eval`."""
+        if not self._enable_summaries:
+            return
         summary = ScopedSummary(self._model_dir)
         for name, metrics in per_scope.items():
             summary.scalars("ensemble", os.path.join(name, "eval"), metrics, global_step)
@@ -1588,5 +1695,146 @@ class Estimator:
             # feeds the model.
             features = self._model_features(features)
             with full_f32_matmul(), torch.no_grad():
-                predictions = self._head.predictions(forward(features).logits)
-            yield {key: value.cpu() for key, value in predictions.items()}
+                predictions = self._predictions_with_member_outputs(forward(features))
+            yield {key: _cpu_tree(value) for key, value in predictions.items()}
+
+    def _predictions_with_member_outputs(self, ensemble):
+        """The head's predictions, plus every member's outputs when the
+        `export_subnetwork_*` flags are set (for `predict` and the
+        exported program)."""
+        out = self._head.predictions(ensemble.logits)
+        members = getattr(ensemble, "subnetworks", None) or []
+        for i, member in enumerate(members):
+            if self._export_subnetwork_logits:
+                out["subnetwork_logits/%d" % i] = member.logits
+            if self._export_subnetwork_last_layer:
+                out["subnetwork_last_layer/%d" % i] = member.last_layer
+        return out
+
+    # ---------------------------------------------------------------- export
+
+    def export_saved_model(self, export_dir: str, sample_batch, serialize_program: bool = True) -> str:
+        """Exports the final frozen ensemble for serving.
+
+        Writes (a) the durable state, `architecture.json` and the frozen
+        payload `ensemble.pt` (reloadable with the same deterministic
+        generator), and (b) with `serialize_program`, a hermetic
+        `torch.export` program of the whole prediction function with the
+        parameters inside (`core/export.py`, `serving.pt2`), which a
+        process serves with no model code. `sample_batch` is (features,
+        labels) or features."""
+        info = ckpt_lib.read_manifest(self._model_dir)
+        if info is None or info.iteration_number == 0:
+            raise ValueError("Nothing to export; train first.")
+        features = sample_batch[0] if isinstance(sample_batch, tuple) else sample_batch
+        frozen = self._rebuild_previous_ensemble(info.iteration_number, (features, None))
+        os.makedirs(export_dir, exist_ok=True)
+        with open(os.path.join(export_dir, "architecture.json"), "w") as f:
+            f.write(frozen.architecture.serialize())
+        payload = ckpt_lib.frozen_to_payload(frozen)
+        payload["name"] = frozen.name
+        payload["iteration_number"] = frozen.iteration_number
+        ckpt_lib.save_payload(export_dir, "ensemble.pt", payload)
+        if serialize_program:
+            from adanet_tpu_torch.core import export as export_lib
+
+            export_lib.export_serving_program(
+                export_dir, self._frozen_predict_fn(frozen), features, device=self._device
+            )
+        return export_dir
+
+    def _frozen_predict_fn(self, frozen):
+        """`features -> predictions` of a frozen ensemble, its parameters
+        closed over: what `export_saved_model` and the per-iteration
+        publication export."""
+        ensembler = self._iteration_builder._ensembler_by_name(frozen.ensembler_name)
+
+        def predict_fn(features):
+            features, _ = split_example_weights(features, self._weight_key, require=False)
+            outs = frozen.member_outputs(features, training=False)
+            ensemble = ensembler.build_ensemble(frozen.ensembler_params, outs)
+            return self._predictions_with_member_outputs(ensemble)
+
+        return predict_fn
+
+    def _cheap_prefix_predict_fn(self, frozen, k: int = 1):
+        """`features -> predictions` of the ensemble's first (cheapest) `k`
+        members: a valid truncated ensemble, since members are frozen in
+        cost order and the mixture weights align with them. The
+        generation's auto-published cascade level 0."""
+        ensembler = self._iteration_builder._ensembler_by_name(frozen.ensembler_name)
+        params = frozen.ensembler_params
+        if isinstance(params, dict) and isinstance(params.get("weights"), (list, tuple)):
+            params = dict(params, weights=list(params["weights"])[:k])
+
+        def predict_fn(features):
+            features, _ = split_example_weights(features, self._weight_key, require=False)
+            outs = frozen.member_outputs(features, training=False)[:k]
+            ensemble = ensembler.build_ensemble(params, outs)
+            return self._head.predictions(ensemble.logits)
+
+        return predict_fn
+
+    def _auto_cascade_spec(self, frozen, sample_features):
+        """The generation's `CascadeSpec`, or None when a cascade cannot
+        help: one member, per-member outputs (the trees would not be
+        congruent), or a head without a categorical logits leaf.
+        Calibration runs on the training reservoir, the sample batch
+        standing in before the first stash."""
+        from adanet_tpu_torch.serving.fleet import cascade as cascade_lib
+
+        if len(frozen.weighted_subnetworks) < 2:
+            return None
+        if self._export_subnetwork_logits or self._export_subnetwork_last_layer:
+            return None
+        dimension = self._head.logits_dimension
+        if not isinstance(dimension, int) or dimension < 2:
+            return None
+        probe = self._head.predictions(torch.zeros((1, dimension)))
+        logits_key = "logits" if "logits" in probe else cascade_lib.DEFAULT_LOGITS_KEY
+        if logits_key not in probe:
+            return None
+        batches = list(self._cascade_calibration) or [sample_features]
+
+        def cat(*leaves):
+            if isinstance(leaves[0], dict):
+                return {key: cat(*(leaf[key] for leaf in leaves)) for key in leaves[0]}
+            return np.concatenate([np.asarray(leaf) for leaf in leaves], axis=0)
+
+        try:
+            calibration = cat(*batches)
+        except Exception:
+            calibration = sample_features
+        return cascade_lib.CascadeSpec(
+            predict_fn=self._cheap_prefix_predict_fn(frozen),
+            calibration_features=calibration,
+            logits_key=logits_key,
+            target_agreement=self._cascade_target_agreement,
+            source="member",
+        )
+
+    def _publish_serving_generation(self, t, frozen, sample_batch):
+        """The chief's failure-isolated serving export of iteration t,
+        after the manifest write (a published `gen-<t>` is always a
+        durably completed iteration), with the auto-derived cascade when
+        `serving_cascade`. A failure is logged and the search goes on;
+        serving stays on the previous generation."""
+        from adanet_tpu_torch.serving import publisher
+
+        try:
+            features = sample_batch[0] if isinstance(sample_batch, tuple) else sample_batch
+            features = _host_tree(features)
+            cascade = None
+            if self._serving_cascade:
+                try:
+                    cascade = self._auto_cascade_spec(frozen, features)
+                except Exception:
+                    _LOG.exception("Cascade spec derivation for generation %d failed; publishing without a "
+                                   "cascade.", t)
+            publisher.publish_generation(
+                self._model_dir, t, self._frozen_predict_fn(frozen), features, cascade=cascade,
+                device=self._device,
+            )
+        except Exception:
+            _LOG.exception("Serving export for generation %d failed; the search continues and serving stays on "
+                           "the previous generation.", t)

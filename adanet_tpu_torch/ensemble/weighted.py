@@ -60,6 +60,10 @@ class ComplexityRegularized(Ensemble):
     logits: Any
     complexity_regularization: Any
 
+    @property
+    def subnetworks(self):
+        return [ws.subnetwork for ws in self.weighted_subnetworks]
+
 
 def _sorted_keys(maybe_dict):
     return sorted(maybe_dict) if isinstance(maybe_dict, dict) else None

@@ -13,9 +13,16 @@ Each wrapper counts its launches in a plain integer attribute
 kernels; `fused_cell.device_kernels` counts those). K2 and K3 take their
 tiles from the store-persisted autotuner (`tuning.py`) when it has a
 winner.
+
+Importing this package registers K1 and K2 as the custom ops
+`adanet_tpu_torch::weighted_combine` and `adanet_tpu_torch::sep_conv`,
+which an exported program (`core/export.py`) calls: a process that
+serves such a program imports `adanet_tpu_torch.ops` and nothing else of
+the port.
 """
 
 from adanet_tpu_torch.ops import _build
+from adanet_tpu_torch.ops import ensemble_kernels, sepconv_kernels  # noqa: F401  (registers the custom ops)
 
 
 def launch_counters():

@@ -24,6 +24,17 @@ call then allocates the output, binds pointers and makes one C call.
 
 `combine_reference` is the plain PyTorch version. A wrapper takes it
 only for CPU tensors; a CUDA tensor launches the kernel or raises.
+
+Called on the fake tensors of a trace (`torch.export`), both entry
+points put the custom op `adanet_tpu_torch::weighted_combine` into the
+graph instead of launching: a `ctypes` call cannot run on fake tensors.
+The test is the tensor's type, not a process-wide flag, so a thread
+that serves while another exports still launches directly. The op's implementation is the wrapper itself, for every
+device, so a loaded program launches K1 through the same counter, plan
+and weight memo on a CUDA tensor and runs `combine_reference` on a CPU
+one; `register_fake` gives the [B, C] output in the logits' dtype. The
+op is for inference (programs are exported under `no_grad`); gradients
+keep going through the `autograd.Function`s below.
 Where a gradient is wanted, both entry points go through
 `torch.autograd.Function`s whose backward is the JAX `_bwd` in plain
 PyTorch (two products and a sum there too): one gradient per member in
@@ -35,9 +46,10 @@ from __future__ import annotations
 import array
 import ctypes
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from adanet_tpu_torch.ops import _build
 from adanet_tpu_torch.ops import sepconv_kernels as sk
@@ -229,6 +241,8 @@ def fused_weighted_combine(
     or bf16, weights and bias any float dtype; raises on anything else)."""
     if _wants_grad((stacked_logits, weights, bias)):
         return _CombineStacked.apply(stacked_logits, weights, bias)
+    if isinstance(stacked_logits, FakeTensor):
+        return weighted_combine([stacked_logits], [weights], bias, False)
     if not stacked_logits.is_cuda:
         if stacked_logits.device.type == "cpu":
             return combine_reference(stacked_logits, weights, bias)
@@ -256,6 +270,9 @@ def fused_weighted_combine_members(
         # Stacked under autograd, so that each member weight gets its share.
         w = weights if torch.is_tensor(weights) else _stack_f32(weights)
         return _CombineMembers.apply(w, bias, *member_logits)
+    if isinstance(member_logits[0], FakeTensor):
+        per_member = not torch.is_tensor(weights)
+        return weighted_combine(list(member_logits), list(weights) if per_member else [weights], bias, per_member)
     first = member_logits[0]
     if not first.is_cuda:
         if first.device.type == "cpu":
@@ -288,6 +305,25 @@ def _launch_members(member_logits, weights, bias, stream) -> torch.Tensor:
 
 
 fused_weighted_combine.launches = 0
+
+
+@torch.library.custom_op("adanet_tpu_torch::weighted_combine", mutates_args=())
+def weighted_combine(
+    logits: List[torch.Tensor], weights: List[torch.Tensor], bias: Optional[torch.Tensor], per_member: bool
+) -> torch.Tensor:
+    """K1 as a custom op, what a traced entry point records: `logits`
+    one stacked [N, B, C] tensor or N [B, C] members, `weights` one
+    stacked tensor or (`per_member`) one a member. Runs the wrapper."""
+    w = list(weights) if per_member else weights[0]
+    if len(logits) == 1 and logits[0].dim() == 3:
+        return fused_weighted_combine(logits[0], w, bias)
+    return fused_weighted_combine_members(list(logits), w, bias)
+
+
+@weighted_combine.register_fake
+def _weighted_combine_fake(logits, weights, bias, per_member):
+    first = logits[0]
+    return first.new_empty(first.shape[-2:])
 
 
 def _combine_backward(logits, weights, bias, g):

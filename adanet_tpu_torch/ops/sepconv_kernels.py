@@ -27,6 +27,11 @@ and so tiles any shape. Where a gradient is wanted the launch goes through
 `_FusedSepConv`, whose backward recomputes through `sep_conv_reference`
 under autograd (the JAX `_fused_bwd`, a `jax.vjp` of the reference);
 under `no_grad` or `inference_mode` the wrapper launches directly.
+Called on the fake tensors of a trace (`torch.export`), the wrapper puts
+the custom op `adanet_tpu_torch::sep_conv` into the graph instead: its implementation is the wrapper itself for every device (the
+kernel on a CUDA tensor, `sep_conv_reference` on a CPU one), and
+`register_fake` gives the NHWC output's shape. Programs are exported
+under `no_grad`; the op carries no gradient.
 
 Launch plan: `launch_plan` turns a signature (x shape, dtype, k, F,
 stride) and a pixel tile into the kernel's tile, grid and shared memory.
@@ -50,6 +55,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
 from adanet_tpu_torch.ops import _build, tuning
 
@@ -347,8 +353,11 @@ def fused_sep_conv(
     """K2 wrapper: relu -> depthwise(k x k, SAME, stride) -> pointwise.
 
     CPU tensors take `sep_conv_reference`; CUDA tensors (x bf16 or f32
-    NHWC, weights any float dtype) launch the kernel or raise.
+    NHWC, weights any float dtype) launch the kernel or raise; a traced
+    call records the custom op `sep_conv`.
     """
+    if isinstance(x, FakeTensor):
+        return sep_conv(x, dw, pw, int(stride))
     if not x.is_cuda:
         if x.device.type == "cpu":
             return sep_conv_reference(x, dw, pw, stride)
@@ -473,5 +482,17 @@ def _run(plan: LaunchPlan, x, dw, pw) -> torch.Tensor:
 
 
 fused_sep_conv.launches = 0
+
+
+@torch.library.custom_op("adanet_tpu_torch::sep_conv", mutates_args=())
+def sep_conv(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, stride: int) -> torch.Tensor:
+    """K2 as a custom op, what a traced `fused_sep_conv` records. Runs
+    the wrapper."""
+    return fused_sep_conv(x, dw, pw, stride)
+
+
+@sep_conv.register_fake
+def _sep_conv_fake(x, dw, pw, stride):
+    return x.new_empty((x.shape[0], -(-x.shape[1] // stride), -(-x.shape[2] // stride), pw.shape[0]))
 #: (tile_p, tile_f) of the last launch, as selected (tile_p AUTO: planned).
 fused_sep_conv.last_tiles = None

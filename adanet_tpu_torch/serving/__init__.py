@@ -24,4 +24,5 @@ from adanet_tpu_torch.serving.model_pool import (  # noqa: F401
     ModelPool,
     NoServableGeneration,
 )
+from adanet_tpu_torch.serving import publisher  # noqa: F401
 from adanet_tpu_torch.serving.publisher import publish_generation  # noqa: F401

@@ -7,16 +7,20 @@ Every flip is gated:
 
 1. **verify-on-load**: `publisher.verify_generation` checks every
    artifact against its SHA-256 digest and the manifest's self-checksum.
-2. **load + smoke**: the generation is rebuilt on the pool's device
-   (`core.export.load_serving_program`, which on the card first runs the
-   kernels' self-test) and executed once on a zeros sample built from the
-   exported signature; a load failure or non-finite outputs reject it.
+2. **load + smoke**: the generation's hermetic program (`serving.pt2`)
+   is loaded onto the pool's device (`core.export.load_serving_program`,
+   which on the card first runs the kernels' self-test) and executed once
+   on a zeros sample built from the exported signature; so is the
+   cascade's cheap program (`cascade.pt2`) when the signature has a
+   cascade record, whose outputs must have the full program's structure.
+   A load failure, non-finite outputs or an incongruent cascade reject
+   the generation.
 
 A generation that passes becomes the incumbent at once, by an atomic
 reference swap, so every request is answered by exactly one complete
 generation; a rejected one is logged and never retried, and the
 incumbent keeps serving. The canary window, quarantine renames and
-store leases come with a later slice.
+store leases come with ROADMAP item 10's second half.
 """
 
 from __future__ import annotations
@@ -54,6 +58,10 @@ class GenerationRecord:
     path: str
     program: Callable
     signature: Dict[str, Any]
+    #: The cascade's level-0 program and its calibration record
+    #: (`serving.fleet.cascade`), when the generation published one.
+    cascade_program: Optional[Callable] = None
+    cascade: Optional[Dict[str, Any]] = None
 
 
 def _build_sample(tree, batch: int = 1):
@@ -105,19 +113,42 @@ def gate_generation(path: str, device) -> GenerationRecord:
     if issues:
         raise GateError("verification failed: %s" % issues)
     t = publisher.read_iteration_number(path)
+    from adanet_tpu_torch.serving.fleet import cascade as cascade_lib
+
     try:
         faults.trip("serving.model_load")
-        program = export_lib.load_serving_program(path, device)
+        program = export_lib.load_serving_program(path, device=device)
         signature = export_lib.serving_signature(path)
+        cascade = signature.get(cascade_lib.SIGNATURE_KEY)
+        cascade_program = None
+        if cascade is not None:
+            cascade_program = export_lib.load_serving_program(
+                path, cascade.get("program", export_lib.CASCADE_FILE), device=device
+            )
     except Exception as exc:
         raise GateError("load failed: %s: %s" % (type(exc).__name__, exc)) from exc
     try:
-        outputs = program(_build_sample(signature.get("inputs", {})))
+        sample = _build_sample(signature.get("inputs", {}))
+        outputs = program(sample)
         if not outputs_finite(outputs):
             raise ValueError("non-finite outputs on the smoke sample")
+        if cascade_program is not None:
+            cheap = cascade_program(sample)
+            if not outputs_finite(cheap):
+                raise ValueError("non-finite cascade outputs on the smoke sample")
+            if _structure(cheap) != _structure(outputs):
+                raise ValueError("cascade outputs %s are not congruent with the program's %s"
+                                 % (_structure(cheap), _structure(outputs)))
     except Exception as exc:
         raise GateError("smoke execution failed: %s: %s" % (type(exc).__name__, exc)) from exc
-    return GenerationRecord(t, path, program, signature)
+    return GenerationRecord(t, path, program, signature, cascade_program, cascade)
+
+
+def _structure(outputs):
+    """The keys and per-row shapes of an output tree."""
+    if isinstance(outputs, dict):
+        return {key: _structure(value) for key, value in outputs.items()}
+    return tuple(outputs.shape[1:])
 
 
 class ModelPool:

@@ -1,20 +1,25 @@
 """Generation publication: atomic, digest-sealed serving exports.
 
-Port of adanet_tpu/serving/publisher.py for the port's generation
-format (`core/export.py`):
+Port of adanet_tpu/serving/publisher.py over the port's hermetic
+programs (`core/export.py`):
 
     <model_dir>/serving/gen-<t>/
-        architecture.json
-        params.npz
-        serving_signature.json
+        serving.pt2              the ensemble's `torch.export` program
+        serving_signature.json   its signature (and the cascade record)
+        cascade.pt2              the cheap member's program (a cascade)
         generation.json          {iteration_number, digests, checksum}
 
 The export lands in a hidden staging directory and is renamed into
 place, so a reader never observes a half-written generation.
 Publication is set-once per iteration. `generation.json` binds the
-SHA-256 digest of every artifact to the iteration number with a
-self-checksum, which `verify_generation` checks before a pool loads a
-generation. Cascade programs and store ref closures come later.
+SHA-256 digest of every artifact (the programs included) to the
+iteration number with a self-checksum, which `verify_generation` checks
+before a pool loads a generation. With a cascade
+(`serving.fleet.cascade.CascadeSpec`) the cheap member's program is
+exported beside the ensemble's and calibrated on the spec's held-out
+features inside the same staging directory, so program and policy land
+in one digest-sealed unit. Store ref closures (`store=`) come with
+ROADMAP item 10's second half.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import os
 import re
 import shutil
 import tempfile
-from typing import Any, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 _LOG = logging.getLogger("adanet_tpu_torch")
 
@@ -130,16 +135,24 @@ def read_iteration_number(gen_dir: str) -> int:
 def publish_generation(
     model_dir: str,
     iteration_number: int,
-    frozen,
-    ensembler,
-    head,
+    predict_fn: Callable,
     sample_features: Any,
+    store=None,
+    cascade=None,
+    device=None,
 ) -> Optional[str]:
-    """Exports and atomically publishes one serving generation.
+    """Exports and atomically publishes one serving generation of
+    `predict_fn(features) -> predictions` (its parameters on `device`,
+    the card by default), with `cascade`'s cheap program and calibration
+    when given.
 
     Returns the published directory, or None when this generation was
     already published (set-once).
     """
+    if store is not None:
+        raise NotImplementedError(
+            "publishing a generation to an artifact store is not ported yet (ROADMAP item 10, part two)"
+        )
     final = generation_dir(model_dir, iteration_number)
     if os.path.isdir(final):
         return None
@@ -149,7 +162,9 @@ def publish_generation(
 
     staging = tempfile.mkdtemp(prefix=".stage-gen-", dir=root)
     try:
-        export_lib.export_serving_program(staging, frozen, ensembler, head, sample_features)
+        export_lib.export_serving_program(staging, predict_fn, sample_features, device=device)
+        if cascade is not None:
+            _export_cascade(staging, predict_fn, sample_features, cascade, device)
         write_generation_manifest(staging, iteration_number)
         try:
             os.replace(staging, final)
@@ -164,3 +179,61 @@ def publish_generation(
         raise
     _LOG.info("Published serving generation %d at %s", iteration_number, final)
     return final
+
+
+def _export_cascade(staging: str, predict_fn: Callable, sample_features: Any, cascade, device) -> None:
+    """Exports and calibrates the cheap member inside the staging
+    directory, before the manifest and the rename, so the cascade rides
+    the same atomic publication as the full program. A calibration
+    failure aborts the whole publish: a generation never lands with a
+    program but no threshold, or the reverse."""
+    import numpy as np
+    import torch
+
+    from adanet_tpu_torch._device import resolve_device
+    from adanet_tpu_torch.core import export as export_lib
+    from adanet_tpu_torch.serving.fleet import cascade as cascade_lib
+    from adanet_tpu_torch.serving.model_pool import to_host
+
+    cheap_dir = tempfile.mkdtemp(prefix=".cascade-", dir=staging)
+    try:
+        export_lib.export_serving_program(cheap_dir, cascade.predict_fn, sample_features, device=device)
+        os.replace(os.path.join(cheap_dir, export_lib.SERVING_FILE),
+                   os.path.join(staging, export_lib.CASCADE_FILE))
+    finally:
+        shutil.rmtree(cheap_dir, ignore_errors=True)
+    dev = resolve_device(device)
+    features = export_lib._canonical(export_lib._map(lambda x: export_lib._tensor(x, dev),
+                                                     cascade.calibration_features))
+    with torch.inference_mode(), export_lib._serving_precision():
+        cheap_out = to_host(cascade.predict_fn(features))
+        full_out = to_host(predict_fn(features))
+
+    def leaf(outputs):
+        if isinstance(outputs, dict):
+            return np.asarray(outputs[cascade.logits_key])
+        return np.asarray(outputs)
+
+    record = cascade_lib.calibrate(
+        leaf(cheap_out),
+        leaf(full_out),
+        labels=cascade.calibration_labels,
+        target_agreement=cascade.target_agreement,
+        logits_key=cascade.logits_key,
+        source=getattr(cascade, "source", "member"),
+    )
+    record["program"] = export_lib.CASCADE_FILE
+    signature = export_lib.serving_signature(staging)
+    signature[cascade_lib.SIGNATURE_KEY] = record
+    with open(os.path.join(staging, export_lib.SIGNATURE_FILE), "w") as f:
+        json.dump(signature, f, indent=2, sort_keys=True)
+
+
+def read_digests(gen_dir: str) -> dict:
+    """The artifact digests a generation's manifest records ({} when it
+    is unreadable)."""
+    try:
+        with open(os.path.join(gen_dir, GENERATION_MANIFEST)) as f:
+            return dict(json.load(f).get("digests", {}))
+    except (OSError, ValueError):
+        return {}

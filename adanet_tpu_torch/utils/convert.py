@@ -314,3 +314,17 @@ def convert_model(variables: Mapping[str, Any], model) -> None:
     module holds Linear and Conv2d layers (`convert_module`), so that it
     trains on from those numbers instead of its own seeded init."""
     model.load_state_dict(convert_module(variables, model.module))
+
+
+def convert_transformer(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX transformer subnetwork's variables (`{"params": {"encoder":
+    {"embed", "pos_embed", "block_<i>": {"ln1", "attention": {"qkv",
+    "proj"}, "ln2", "mlp_in", "mlp_out"}, "ln_f"}, "logits"}}`, numpy
+    leaves) -> the `state_dict` of the port's
+    `models.transformer._TransformerSubnetworkModule`, whose parameters
+    keep the Flax names and layouts (`block_<i>` is `blocks.<i>`)."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(variables["params"]):
+        key = ".".join(re.sub(r"^block_(\d+)$", r"blocks.\1", part) for part in path)
+        out[key] = torch.from_numpy(np.array(value, dtype=np.float32, copy=True))
+    return out

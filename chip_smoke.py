@@ -30,8 +30,10 @@
    burst runs twice with an empty tuning store registered (no serving
    winners), so that the tuning lookup's cost shows: one store read per
    K2 signature in the first, none for a signature already planned.
-5. Compares one bucket, loaded at f32 compute, on the card against the
-   same generation loaded with device="cpu".
+   Then the pool's program, at 1, 7 and 32 rows, bitwise the in-process
+   predict of the same ensemble (built from the same seed here).
+5. Compares one bucket of the ensemble at f32 compute on the card
+   against the same ensemble on the CPU.
 6. Holds K3, the fused cell, against its plain version on the card, in
    f32 and bf16, at the two `cifar` autotuner cells (batch 64) and at
    every distinct cell signature of NASNet-A (6@768) CIFAR at bucket 32
@@ -300,6 +302,54 @@
    shapes ([1|2, 128, 10], [1|2, 64, 8]) are held by `check_combine` and
    `check_slice_combines`; the peer-death search has no K1 (unfused).
 
+42-48. Long context and export (`long_context_export_phases:` prints
+   the group's command time). 42. `ring_attention`: q, k, v [8, 2048, 4,
+   32] (the head shape of `TransformerConfig`'s defaults at sequence
+   2048), f32 and bf16, causal and not: ring attention over 8 shards in
+   this process against full attention, outputs and gradients (f32
+   within the JAX tests' 2e-4 and 1e-3; bf16 within twice full
+   attention's own bf16 distance from f32), ms and peak MB of each. 43.
+   `ring_two_process`: the same f32 causal inputs over two processes on
+   the card (gloo, blocks staged through the host; started after 42)
+   against 2 shards in this process: within 1e-6; ms and bytes
+   staged a step. 44. `long_context_search`: the tutorial at its
+   defaults (seq 512, batch 16, 2 x 30 steps, 8 shards): accuracy, loss,
+   best ensemble, ms a step, K1 exact; its first LONG_CONTEXT_CPU_STEPS
+   steps on the CPU within LONG_CONTEXT_LOSS_BOUND, and the same steps
+   at bf16 compute on the CPU (the control) outside it. 45.
+   `transformer_full_width`: `TransformerConfig()` (vocab 32,000, 2
+   layers, dim 128, seq 2048, bf16), batch 8, ring over 8 shards, 10
+   steps: ms a step, device ms, peak GB, K1 exact. 46. `export_programs`:
+   the long-context, simple_dnn (phase 11's) and a multi-head winner with
+   member outputs exported; each served by a fresh process that imports
+   only torch, numpy and `adanet_tpu_torch.ops` at 1, 7 and every bucket
+   (bitwise `predict`, K1 exact inside it), and on the CPU at 1 and 7
+   rows (EXPORT_CPU_BOUND); their processes run while 47 does. 47.
+   `serve_while_search`: phase 11's search at 3 x SWS_STEPS with
+   `export_serving` and the default cascade while a frontend serves the
+   same model dir: every request ok, >= 2 flips, the last generation's
+   answers bitwise the offline programs'; K1 exact (the search's, the
+   publications' sample and calibration calls, and one a served program
+   call for each K1 in that program); level-0 share and agreement. 48.
+   `serving_example`: the tutorial on the card (no K1: dict logits),
+   in a process of its own beside 46-47. Then K1 at every shape the
+   group launched it at (`check_group_combines`). Phases 42-45 have the
+   card to themselves.
+   The serving path (phases 4-5) publishes the hermetic program
+   (`serving.pt2`) from a process of its own (`--publish-only`, at a
+   lower priority), started after the kernel timings (phase 9) and
+   collected after phase 32 (phases 10-32 share the host with it); the
+   serving phase then follows. It prints `serve_nasnet_program:`
+   (export and gate seconds, the program's operations, p50 beside PR
+   6's).
+
+Cut for the long-context and export phases' time (PR 15):
+`nasnet_train_vs_cpu` 2 x 2 -> 2 x 1 steps, the SIGTERMed trainer 2 x 10
+-> 2 x 4 steps, `tutorials`' mnist_simple_dnn and cifar10_cnn 150 -> 100
+steps, `cifar_trainer` 2 x 5 -> 2 x 3 (CIFAR-10) and 2 x 3 -> 2 x 2
+(CIFAR-100) steps and its test files 512 -> 128 images. No gate and no
+kernel check was cut.
+
 Cut for the placement phases' time (PR 13): `train_nasnet` 2 x 20 ->
 2 x 14 steps (its timed window 10 -> 5 steps), `resume_nasnet` 2 x 10 ->
 2 x 6 steps (checkpoints every 5 -> 3, the stop at 13 -> 8) and its
@@ -342,6 +392,7 @@ and exits non-zero.
 import argparse
 import collections
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -360,6 +411,9 @@ SERIAL_ROWS = (1, 3, 8, 17, 32, 2, 5, 12, 30, 1)
 BURST_ROWS = (1, 7, 16, 32, 4, 24, 9, 2, 32, 13, 6, 19, 28, 3, 11, 32)
 MIXTURE = (0.6, 0.4)
 NUM_MEMBERS = 2
+# The served program against the in-process predict: 1 and 7 rows and
+# the largest bucket, bitwise.
+SERVED_CHECK_ROWS = (1, 7, max(BUCKETS))
 # K1 beyond serving: the NASNet ImageNet head's 1001 classes at sizes
 # whose 82 MB exceed the 50 MB L2, so that device memory bounds them:
 # (members, rows, classes, logits dtype).
@@ -434,7 +488,7 @@ CNN_PARITY_BOUND = 5e-4
 # boston_housing's steps an iteration at their defaults, and the transfer
 # test digits; the reduced steps of mnist_simple_dnn and cifar10_cnn.
 BAGGING_TRAIN, BAGGING_TEST, BAGGING_STEPS = 2048, 1024, 150
-TRANSFER_STEPS, TRANSFER_TEST, BOSTON_STEPS, TUTORIAL_STEPS = 200, 1024, 200, 150
+TRANSFER_STEPS, TRANSFER_TEST, BOSTON_STEPS, TUTORIAL_STEPS = 200, 1024, 200, 100
 # The seeds of the CPU runs whose initial parameters are moved by 1e-7.
 MOVED_SEEDS = (5, 11, 17)
 HEADS_BATCH = 4096
@@ -453,13 +507,13 @@ RESUME_STEPS, RESUME_SAVE_EVERY, RESUME_STOP, RESUME_SAVES, RESUME_WINDOW = 6, 3
 # SIGTERM run (two iterations of half as many; the SIGTERM lands at
 # iteration 1's start, so its first step ends the run).
 TRAINER_SMALL = ["--dataset=fake", "--num_cells=3", "--num_conv_filters=4", "--batch_size=16"]
-TRAINER_SIGTERM_STEPS = 20
+TRAINER_SIGTERM_STEPS = 8
 # The flagship-family gate (tests/test_convergence.py:119-157): 3 cells,
 # 8 filters, on the digits; adam 1e-3.
 GATE_TRAIN, GATE_TEST, GATE_STEPS = 8192, 2048, 300
 # nasnet_train_vs_cpu: the gate model (DynamicGenerator, f32, drop-path
 # off), steps per iteration and batch.
-NASNET_PARITY_STEPS, NASNET_PARITY_BATCH = 2, 32
+NASNET_PARITY_STEPS, NASNET_PARITY_BATCH = 1, 32
 # train_nasnet_mobile: NASNet-A Mobile (12 cells, 44 filters, the ImageNet
 # stem, 1001 classes; the improve_nas defaults otherwise, ADAPTIVE) on
 # 224 x 224 x 3 images drawn from --seed, batch 32, 2 iterations x 16
@@ -483,8 +537,8 @@ WINDOWS_STEPS = 8
 # until the elastic and multi-host phases needed the time): the trainer
 # evaluates all of them, and the full 312 batches, twice, cost the
 # script up to 150 s of its time limit on a slow host.
-CIFAR_TRAIN, CIFAR_TEST, CIFAR_BATCH, CIFAR_ITERATIONS = 50000, 512, 32, 2
-CIFAR10_STEPS, CIFAR100_STEPS, AUGMENT_REPEATS = 10, 6, 50
+CIFAR_TRAIN, CIFAR_TEST, CIFAR_BATCH, CIFAR_ITERATIONS = 50000, 128, 32, 2
+CIFAR10_STEPS, CIFAR100_STEPS, AUGMENT_REPEATS = 6, 4, 50
 # imagenet_autoensemble: the ImageNet trainer at its defaults (ResNet-50
 # width 64 + EfficientNet-B0, 224 x 224, batch 64, replication) on its fake
 # data (8 classes), 2 iterations x 10 steps; card/CPU forwards of ResNet-18
@@ -589,7 +643,7 @@ def build_kernels():
                 print("ptxas[%s]: %s" % (name, line.strip()))
 
 
-def member_module(seed, generator):
+def member_module(seed, generator, compute_dtype=None):
     import torch
 
     from adanet_tpu_torch.models import nasnet
@@ -597,7 +651,7 @@ def member_module(seed, generator):
 
     builder = improve_nas.Builder(
         None,
-        improve_nas.Hparams(use_pallas_sep_conv=True, compute_dtype=torch.bfloat16),
+        improve_nas.Hparams(use_pallas_sep_conv=True, compute_dtype=compute_dtype or torch.bfloat16),
         seed=seed,
         num_classes=10,
     )
@@ -612,10 +666,15 @@ def member_module(seed, generator):
     return builder, module.eval()
 
 
-def publish(model_dir, seed):
-    import numpy as np
+def served_ensemble(seed, device, compute_dtype=None):
+    """The serving generation's ensemble on `device`: two NASNet-A
+    (6@768) members from `seed` (bf16 compute unless `compute_dtype`),
+    SCALAR mixture weights, and the fused-combine ensembler. Returns
+    (frozen ensemble, ensembler, its `features -> predictions`, the
+    function `publish` exports)."""
     import torch
 
+    from adanet_tpu_torch.core import export
     from adanet_tpu_torch.core.architecture import Architecture
     from adanet_tpu_torch.core.frozen import (
         FrozenEnsemble,
@@ -627,19 +686,18 @@ def publish(model_dir, seed):
         ComplexityRegularizedEnsembler,
         MixtureWeightType,
     )
-    from adanet_tpu_torch.serving import publish_generation
 
     generator = torch.Generator().manual_seed(seed)
     architecture = Architecture("t1_nasnet_grow", "complexity_regularized", iteration_number=1)
     weights = [torch.tensor(w, dtype=torch.float32) for w in MIXTURE]
     members = []
     for t in range(NUM_MEMBERS):
-        builder, module = member_module(seed + t, generator)
+        builder, module = member_module(seed + t, generator, compute_dtype)
         architecture.add_subnetwork(t, builder.name)
         members.append(
             FrozenWeightedSubnetwork(
-                FrozenSubnetwork(t, builder.name, module, 1.0, builder_spec=builder.to_spec()),
-                weights[t],
+                FrozenSubnetwork(t, builder.name, module.to(device), 1.0, builder_spec=builder.to_spec()),
+                weights[t].to(device),
             )
         )
     frozen = FrozenEnsemble(
@@ -647,16 +705,60 @@ def publish(model_dir, seed):
         1,
         members,
         "complexity_regularized",
-        {"weights": weights, "bias": None},
+        {"weights": [ws.weight for ws in members], "bias": None},
         architecture,
     )
     ensembler = ComplexityRegularizedEnsembler(
         mixture_weight_type=MixtureWeightType.SCALAR, use_fused_combine=True
     )
+    return frozen, ensembler, export.frozen_predict_fn(frozen, ensembler, MultiClassHead(10))
+
+
+def publish(model_dir, seed):
+    """The serving generation: the served ensemble on the card, published
+    as a hermetic program (`serving.pt2`, K1 and K2 as custom ops).
+    Returns (generation dir, the export's numbers)."""
+    import numpy as np
+
+    from adanet_tpu_torch.core import export
+    from adanet_tpu_torch.serving import publish_generation
+
+    _, _, predict_fn = served_ensemble(seed, "cuda")
     sample = {"image": np.zeros((1, 32, 32, 3), np.float32)}
-    path = publish_generation(model_dir, 1, frozen, ensembler, MultiClassHead(10), sample)
-    nasnet = members[0].subnetwork.module.nasnet
-    return path, nasnet.sepconv_launch_shapes(), model_cell_signatures(nasnet)
+    t0 = time.perf_counter()
+    path = publish_generation(model_dir, 1, predict_fn, sample, device="cuda")
+    info = dict(
+        publish_secs=time.perf_counter() - t0,
+        program_bytes=os.path.getsize(os.path.join(path, export.SERVING_FILE)),
+        signature={k: v for k, v in export.serving_signature(path).items() if k not in ("inputs", "outputs")},
+    )
+    return path, info
+
+
+def start_publisher(model_dir, seed):
+    """`publish` in a process of its own (`--publish-only`), so that the
+    export's host work runs beside the phases between the kernel timings
+    and the serving phase; its result lands in
+    `<model_dir>/publish.json`."""
+    environ = dict(os.environ, OMP_NUM_THREADS="1")
+    log = open(os.path.join(model_dir, "publish.log"), "w")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--seed", str(seed), "--publish-only",
+                             model_dir], stdout=log, stderr=subprocess.STDOUT, env=environ,
+                            preexec_fn=lambda: os.nice(10))
+    return proc, log, time.perf_counter()
+
+
+def wait_publisher(started, model_dir):
+    proc, log, t0 = started
+    rc = proc.wait(timeout=PROCESS_TIMEOUT * 2)
+    log.close()
+    if rc != 0:
+        with open(log.name) as f:
+            raise AssertionError("publish: rc %d\n%s" % (rc, f.read()[-6000:]))
+    with open(os.path.join(model_dir, "publish.json")) as f:
+        published = json.load(f)
+    info = dict(published["info"], publish_process_secs=time.perf_counter() - t0)
+    return published["path"], info
 
 
 def model_cell_signatures(nasnet):
@@ -1494,9 +1596,35 @@ def time_kernels(sep_shapes, combine_rows, rng):
     return rows, per_shape, host
 
 
-def serve(model_dir, sep_shapes, rng):
-    """The main path: pool -> batcher -> frontend, with the launch
-    counters zeroed just before and read just after."""
+def check_served_program(program, predict_fn, rng):
+    """The served program (the pool's, loaded from `serving.pt2`) bitwise
+    the in-process predict of the same ensemble (`predict_fn`, built from
+    the same seed in this process) on the card, at SERVED_CHECK_ROWS
+    rows. Returns the rows checked."""
+    import torch
+
+    from adanet_tpu_torch.core import export
+
+    for n in SERVED_CHECK_ROWS:
+        image = torch.randn(n, 32, 32, 3, generator=rng)
+        got = program({"image": image.numpy()})
+        with torch.inference_mode(), export._serving_precision():
+            want = predict_fn({"image": image.cuda()})
+        if sorted(got) != sorted(want):
+            raise AssertionError("served program outputs %s, in-process %s" % (sorted(got), sorted(want)))
+        for key in want:
+            if not torch.equal(got[key], want[key]):
+                err = float((got[key].double() - want[key].double()).abs().max())
+                raise AssertionError("served program %s at %d rows differs from the in-process predict: max abs "
+                                     "diff %g" % (key, n, err))
+    return list(SERVED_CHECK_ROWS)
+
+
+def serve(model_dir, sep_shapes, rng, predict_fn, published=None):
+    """The main path: pool -> batcher -> frontend over the hermetic
+    program (`serve_nasnet_program`), with the launch counters zeroed
+    just before and read just after; then the pool's program against
+    the in-process predict (`check_served_program`)."""
     import numpy as np
     import torch
 
@@ -1515,6 +1643,7 @@ def serve(model_dir, sep_shapes, rng):
     dispatches = metrics.registry().counter("serving.batcher.dispatches")
     dispatched_before = dispatches.value
     ops.reset_launch_counts()
+    t_pool = time.monotonic()
     pool = ModelPool(model_dir)
     if not pool.poll() or pool.active is None:
         raise AssertionError("the pool did not bring up gen-1: %s" % pool.events)
@@ -1581,6 +1710,12 @@ def serve(model_dir, sep_shapes, rng):
         "= 1 K0, 1 K1 and %d K2 per program call (%d batches + 1 smoke)"
         % (len(results), len(serial), len(burst), batches, counts, per_program, batches)
     )
+    gate_secs = pool.events[0]["at"] - t_pool if pool.events else None
+    program = pool.active.program
+    bitwise_rows = check_served_program(program, predict_fn, rng)
+    nodes = collections.Counter(
+        str(node.target) for node in program.module.graph.nodes if node.op == "call_function"
+    )
     stats = {
         "p50_latency_ms": float(np.percentile(latencies, 50)) * 1e3,
         "serial_rows": int(sum(SERIAL_ROWS)),
@@ -1591,20 +1726,24 @@ def serve(model_dir, sep_shapes, rng):
         "store_reads_second_burst": reads["tune"] - first_reads,
         "batches": batches,
     }
-    return counts, stats
+    print("serve_nasnet_program: " + json.dumps(dict(
+        published or {}, graph_operations=sum(nodes.values()),
+        custom_ops={k: v for k, v in nodes.items() if k.startswith("adanet_tpu_torch")},
+        gate_load_smoke_secs=gate_secs, bitwise_vs_in_process_predict_rows=bitwise_rows,
+        p50_latency_ms=stats["p50_latency_ms"],
+        pr6_p50_latency_ms="131.68-212.10", launches=counts, card=card_line())))
+    return counts, stats, program
 
 
-def profile_batch(gen_dir, rng, batches=3):
+def profile_batch(program, rng, batches=3):
     """Where a served batch's time goes: one bucket-32 program call (bf16)
     timed on the host clock without the profiler, then traced with
     torch.profiler: device busy time, kernel launches per batch, the
     device's idle share, and the kernels that take the most time."""
     import torch
 
-    from adanet_tpu_torch.core import export
     from adanet_tpu_torch.serving.model_pool import to_host
 
-    program = export.load_serving_program(gen_dir)
     features = {"image": torch.randn(max(BUCKETS), 32, 32, 3, generator=rng).numpy()}
     for _ in range(2):
         to_host(program(features))
@@ -1644,20 +1783,17 @@ def profile_batch(gen_dir, rng, batches=3):
     return out
 
 
-def trace_served_combine(gen_dir, rng):
-    """One served `build_ensemble` traced on the served generation's
-    member outputs at bucket 32: it must launch K1 once and no stack or
-    cast kernel (the zero fill of the complexity term may remain, and is
-    named), prepare no weight, and agree with the plain version."""
+def trace_served_combine(frozen, ensembler, rng):
+    """One served `build_ensemble` traced on the served ensemble's member
+    outputs at bucket 32 (`served_ensemble` on the card): it must launch
+    K1 once and no stack or cast kernel (the zero fill of the complexity
+    term may remain, and is named), prepare no weight, and agree with
+    the plain version."""
     import torch
 
-    from adanet_tpu_torch.core import export
-    from adanet_tpu_torch.ensemble.weighted import ComplexityRegularizedEnsembler
     from adanet_tpu_torch.ops import ensemble_kernels as ek
     from adanet_tpu_torch.ops import sepconv_kernels as sk
 
-    frozen = export.load_frozen_ensemble(gen_dir)
-    ensembler = ComplexityRegularizedEnsembler.from_spec(export.serving_signature(gen_dir)["ensembler"])
     params = frozen.ensembler_params
     features = {"image": torch.randn(max(BUCKETS), 32, 32, 3, generator=rng).cuda()}
     with torch.inference_mode():
@@ -1697,17 +1833,22 @@ def trace_served_combine(gen_dir, rng):
     return out
 
 
-def compare_with_cpu(gen_dir, rng):
-    """One bucket at f32 compute on the card against the CPU."""
+def compare_with_cpu(seed, rng):
+    """One bucket of the served ensemble at f32 compute on the card
+    against the CPU (`served_ensemble` from the same seed on each)."""
     import torch
 
     from adanet_tpu_torch.core import export
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    features = {"image": torch.randn(2, 32, 32, 3, generator=rng).numpy()}
-    gpu = export.load_serving_program(gen_dir, "cuda", compute_dtype=torch.float32)(features)
-    cpu = export.load_serving_program(gen_dir, "cpu", compute_dtype=torch.float32)(features)
+    image = torch.randn(2, 32, 32, 3, generator=rng)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        _, _, predict_fn = served_ensemble(seed, device, torch.float32)
+        with torch.inference_mode(), export._serving_precision():
+            outs[device] = predict_fn({"image": image.to(device)})
+    gpu, cpu = outs["cuda"], outs["cpu"]
     scale = max(1.0, float(cpu["logits"].abs().max()))
     # f32 on both sides; sums in other orders through 20 cells.
     err = check_close("f32 logits card vs cpu", gpu["logits"].cpu(), cpu["logits"], 1e-3 * scale)
@@ -5437,6 +5578,705 @@ def elastic_multihost_phases(model_dir, lockstep, rr_losses):
                 multihost=multihost["k1_launches"], two_process=two_launches)
 
 
+# ------------------------------------------ long context and export of any ensemble
+
+# ring_attention: q, k, v [batch, seq, heads, head size] at the head shape
+# of TransformerConfig's defaults (4 heads of 32 at dim 128), sequence
+# 2048, 8 shards in one process; timed calls a case.
+RING_SHAPE, RING_SHARDS, RING_TIMED = (8, 2048, 4, 32), 8, 3
+# long_context_search: the tutorial at its defaults (seq 512, batch 16,
+# 2 x 30 steps, 8 shards, 4 test batches); the CPU runs its first
+# LONG_CONTEXT_CPU_STEPS steps from the same seeds, each step's losses
+# within LONG_CONTEXT_LOSS_BOUND x max(1, |loss|) of the card's (f32 on
+# both, TF32 off; sums in other orders, compounded by Adam: 6.7e-6 at
+# most on an H100), and the same steps at bf16 compute on the CPU, the
+# control, must fall outside it (7.5e-3 from the CPU's f32 run).
+LONG_CONTEXT_CPU_STEPS, LONG_CONTEXT_LOSS_BOUND = 4, 1e-4
+# transformer_full_width: TransformerConfig()'s defaults (vocab 32,000, 2
+# layers, 4 heads, dim 128, MLP 512, sequence 2048, bf16), ring over 8
+# shards, batch 8, one iteration of 10 steps (steps 4-7 timed, 8-9
+# traced), one test batch.
+FULL_WIDTH_BATCH, FULL_WIDTH_STEPS = 8, 10
+# export_programs: the request sizes each program serves in a fresh
+# process: 1, 7 and every bucket; the card-exported program on the CPU
+# within EXPORT_CPU_BOUND x max(1, max|card|) on every float output.
+EXPORT_ROWS, EXPORT_CPU_BOUND = (1, 7) + BUCKETS, 1e-4
+# serve_while_search: phase 11's search (digits, simple_dnn 128 wide,
+# fused combine) at 3 x SWS_STEPS steps with export_serving=True and the
+# default cascade, the frontend serving from its model_dir meanwhile.
+SWS_STEPS, SWS_ITERATIONS = 60, 3
+
+
+def _allclose_error(got, want, atol, rtol):
+    """max |got - want| - rtol |want|, and whether it stays within atol
+    (numpy's assert_allclose rule)."""
+    import torch
+
+    diff = (got.float() - want.float()).abs()
+    excess = float((diff - rtol * want.float().abs()).max())
+    return float(diff.max()), excess <= atol
+
+
+def _peak_mb(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def ring_attention_phase(gen):
+    """Ring attention over 8 shards in one process against full
+    attention on the card, at RING_SHAPE, f32 and bf16, causal and not,
+    outputs and gradients of sum(out^2): f32 within the JAX tests' rtol =
+    atol 2e-4 (outputs) and 1e-3 (gradients); bf16 (f32 scores and sums
+    inside, rounded once) within twice the distance of full attention's
+    bf16 result from its f32 result at the same inputs. Times (CUDA
+    events) and peak memory of a forward and backward of each."""
+    import torch
+
+    from adanet_tpu_torch.parallel import SequenceMesh, full_attention, ring_attention
+
+    mesh = SequenceMesh(RING_SHARDS)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            q, k, v = (torch.randn(RING_SHAPE, generator=gen).cuda().to(dtype).requires_grad_(True)
+                       for _ in range(3))
+
+            def run(fn, inputs=(q, k, v)):
+                out = fn(*inputs, causal)
+                return (out,) + torch.autograd.grad((out.float() ** 2).sum(), inputs)
+
+            ring_fn = lambda a, b, c, causal: ring_attention(a, b, c, mesh, causal=causal)  # noqa: E731
+            ring, ring_mb = _peak_mb(lambda: run(ring_fn))
+            full, full_mb = _peak_mb(lambda: run(full_attention))
+            names = ("out", "dq", "dk", "dv")
+            errors, ok = {}, True
+            if dtype == torch.float32:
+                for name, a, b in zip(names, ring, full):
+                    tol = 2e-4 if name == "out" else 1e-3
+                    errors[name], within = _allclose_error(a, b, tol, tol)
+                    ok &= within
+                bound = "rtol = atol 2e-4 (out), 1e-3 (gradients)"
+            else:
+                f32 = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+                ref = run(full_attention, f32)
+                bound = {}
+                for name, a, b, r in zip(names, ring, full, ref):
+                    limit = 2 * float((b.float() - r.float()).abs().max())
+                    errors[name] = float((a.float() - r.float()).abs().max())
+                    bound[name] = limit
+                    ok &= errors[name] <= limit
+            times = {}
+            for label, fn in (("ring", ring_fn), ("full", full_attention)):
+                run(fn)
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(RING_TIMED):
+                    run(fn)
+                end.record()
+                torch.cuda.synchronize()
+                times[label] = start.elapsed_time(end) / RING_TIMED
+            row = dict(dtype=str(dtype).replace("torch.", ""), causal=causal, shape=list(RING_SHAPE),
+                       shards=RING_SHARDS, max_abs_diff=errors, bound=bound, ring_ms=times["ring"],
+                       full_ms=times["full"], ring_peak_mb=ring_mb, full_peak_mb=full_mb, card=card_line())
+            print("ring_attention: " + json.dumps(row))
+            if not ok:
+                raise AssertionError("ring_attention: %s" % row)
+            rows.append(row)
+            del q, k, v, ring, full
+    return rows
+
+
+def start_ring_two_process(model_dir):
+    """Starts the two processes of `ring_two_process` (gloo group on a
+    free port, each a shard of RING_SHAPE on the card)."""
+    out_dir = os.path.join(model_dir, "ring_two_process")
+    os.makedirs(out_dir, exist_ok=True)
+    port = _free_port()
+    shape = ",".join(str(d) for d in RING_SHAPE)
+    procs = [("rank%d" % r, _spawn_runner("torch_ring_runner.py", [out_dir, r, 2, port, "cuda", "float32", "causal",
+                                                                    shape])) for r in (0, 1)]
+    return out_dir, procs, time.perf_counter()
+
+
+def ring_two_process(started):
+    """Form (b): two processes on the card, one shard each, the
+    key/value blocks staged through host memory (gloo), against form (a)
+    with 2 shards in this process on the same inputs: forward and
+    gradients within 1e-6. Prints ms a forward and backward and the
+    bytes staged through the host a step."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, _tests_dir())
+    import torch_ring_runner
+
+    from adanet_tpu_torch.parallel import SequenceMesh, ring_attention
+
+    out_dir, procs, t0 = started
+    _finish(procs, "ring_two_process")
+    secs = time.perf_counter() - t0
+    got = np.load(os.path.join(out_dir, "ring.npz"))
+    stats = json.load(open(os.path.join(out_dir, "ring.json")))
+    q, k, v = torch_ring_runner.inputs(RING_SHAPE, torch.float32, "cuda")
+    out = ring_attention(q, k, v, SequenceMesh(2), causal=True)
+    grads = torch.autograd.grad((out.float() ** 2).sum(), (q, k, v))
+    errors = {"out": float(np.abs(got["out"] - out.detach().cpu().numpy()).max())}
+    for name, grad in zip("qkv", grads):
+        errors["d" + name] = float(np.abs(got["d" + name] - grad.cpu().numpy()).max())
+    row = dict(shape=list(RING_SHAPE), processes=2, causal=True, max_abs_diff_vs_one_process=errors, bound=1e-6,
+               ms_per_step=stats["ms"], first_step_ms=stats["ms_first"], hops_per_step=stats["hops"],
+               host_staged_bytes_per_step=stats["staged_bytes"], hop_secs_per_step=stats["hop_secs"],
+               wall_secs=secs, card=card_line())
+    print("ring_two_process: " + json.dumps(row))
+    if max(errors.values()) > 1e-6:
+        raise AssertionError("ring_two_process: %s" % row)
+    return row
+
+
+def _step_losses(metrics):
+    """Each recorded step's losses (0-d tensors read once)."""
+    return [{k: float(v) for k, v in m.items() if "loss" in k} for m in metrics]
+
+
+def long_context_search(model_dir):
+    """The long-context tutorial at its defaults on the card (8 shards in
+    one process): accuracy, loss, best ensemble, ms a step, K1 exact
+    (one a candidate a step, one a test batch); then its first
+    LONG_CONTEXT_CPU_STEPS steps on the CPU from the same seeds, each
+    step's losses within LONG_CONTEXT_LOSS_BOUND x max(1, |loss|), and
+    the same steps at bf16 compute on the CPU, which must fall outside
+    that bound. Returns (counts, the row, the estimator)."""
+    import torch
+
+    from adanet_tpu_torch import ops
+    from adanet_tpu_torch.core.estimator import Estimator
+    from adanet_tpu_torch.examples.tutorials import long_context_ring_attention as tutorial
+    from adanet_tpu_torch.parallel import SequenceMesh
+
+    runs = {}
+    for run, device, dtype in (("cuda", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                               ("cpu_bf16", "cpu", torch.bfloat16)):
+        directory = os.path.join(model_dir, "long_context_" + run)
+        args = tutorial.parse_args(["--model_dir", directory, "--device", device])
+        estimator = tutorial.build_estimator(args, SequenceMesh(args.devices), _recording(Estimator), dtype)
+        train = tutorial.make_batches(0, 10, args.batch_size, args.seq_len)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        if device == "cuda":
+            estimator.train(train, max_steps=args.max_steps)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            metrics = estimator.evaluate(tutorial.make_batches(1, 4, args.batch_size, args.seq_len))
+            counts = ops.launch_counts()
+            _check_k1("long_context_search", counts, args.max_steps // args.iterations,
+                      _grow_candidates(2, args.iterations), 4, directory)
+            runs[run] = dict(estimator=estimator, secs=secs, metrics=metrics, counts=counts, args=args)
+        else:
+            estimator.train(train, max_steps=LONG_CONTEXT_CPU_STEPS)
+            runs[run] = dict(secs=time.perf_counter() - t0)
+        runs[run]["losses"] = _step_losses(estimator.metrics)
+    card, cpu = runs["cuda"], runs["cpu"]
+
+    def worst_relative(other):
+        return max(abs(got[key] - value) / max(1.0, abs(value))
+                   for got, want in zip(card["losses"], other["losses"]) for key, value in want.items())
+
+    worst, control = worst_relative(cpu), worst_relative(runs["cpu_bf16"])
+    metrics, args = card["metrics"], card["args"]
+    row = dict(accuracy=metrics["accuracy"], loss=metrics["average_loss"], best=metrics["best_ensemble"],
+               steps=args.max_steps, seq_len=args.seq_len, shards=args.devices, batch=args.batch_size,
+               ms_per_step=card["secs"] / args.max_steps * 1e3, train_secs=card["secs"],
+               k1_launches=card["counts"]["combine"], cpu_steps=len(cpu["losses"]), cpu_secs=cpu["secs"],
+               cpu_loss_bound="%g x max(1, |loss|)" % LONG_CONTEXT_LOSS_BOUND, cpu_worst_relative=worst,
+               cpu_bf16_control_worst_relative=control, card=card_line())
+    print("long_context_search: " + json.dumps(row))
+    if (len(cpu["losses"]) != LONG_CONTEXT_CPU_STEPS or not math.isfinite(row["loss"])
+            or not worst <= LONG_CONTEXT_LOSS_BOUND < control):
+        raise AssertionError("long_context_search: %s" % row)
+    return card["counts"], row, card["estimator"]
+
+
+def transformer_full_width(model_dir):
+    """TransformerConfig()'s defaults on the card, ring over 8 shards,
+    batch 8 of 2048 random tokens from the seed, one iteration of
+    FULL_WIDTH_STEPS steps: ms a step (host clock and CUDA events over
+    steps 4-7), device ms (steps 8-9 traced), peak memory, K1 exact."""
+    import numpy as np
+    import torch
+
+    from adanet_tpu_torch import ops
+    from adanet_tpu_torch.core.estimator import Estimator
+    from adanet_tpu_torch.core.heads import MultiClassHead
+    from adanet_tpu_torch.ensemble.weighted import ComplexityRegularizedEnsembler
+    from adanet_tpu_torch.models.transformer import TransformerBuilder, TransformerConfig
+    from adanet_tpu_torch.parallel import SequenceMesh
+    from adanet_tpu_torch.subnetwork.generator import SimpleGenerator
+
+    config = TransformerConfig(sp_mesh=SequenceMesh(RING_SHARDS))
+    rng = np.random.RandomState(5)
+    tokens = rng.randint(0, config.vocab_size, (FULL_WIDTH_BATCH * 4, config.max_seq_len))
+    labels = rng.randint(0, 2, FULL_WIDTH_BATCH * 4)
+
+    def input_fn():
+        for start in range(0, len(tokens), FULL_WIDTH_BATCH):
+            yield {"tokens": tokens[start:start + FULL_WIDTH_BATCH]}, labels[start:start + FULL_WIDTH_BATCH]
+
+    directory = os.path.join(model_dir, "transformer_full_width")
+    estimator = Estimator(
+        MultiClassHead(2), SimpleGenerator([TransformerBuilder(config)]), max_iteration_steps=FULL_WIDTH_STEPS,
+        max_iterations=1, model_dir=directory, log_every_steps=0, device="cuda",
+        ensemblers=[ComplexityRegularizedEnsembler(optimizer=lambda p: torch.optim.SGD(p, lr=0.01),
+                                                   use_fused_combine=True)],
+    )
+    clock = _StepClock(input_fn, first=4, traced=8, window=4, traced_steps=2)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    estimator.train(clock, max_steps=FULL_WIDTH_STEPS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    metrics = estimator.evaluate(lambda: itertools.islice(input_fn(), 1))
+    counts = ops.launch_counts()
+    _check_k1("transformer_full_width", counts, FULL_WIDTH_STEPS, [1], 1, directory)
+    (host0, event0), (host1, event1) = clock.marks
+    host_ms = (host1 - host0) / 4 * 1e3
+    row = dict(config=dict(vocab_size=config.vocab_size, num_layers=config.num_layers, num_heads=config.num_heads,
+                           model_dim=config.model_dim, mlp_dim=config.mlp_dim, max_seq_len=config.max_seq_len,
+                           compute_dtype="bfloat16", shards=RING_SHARDS),
+               batch=FULL_WIDTH_BATCH, steps=FULL_WIDTH_STEPS, train_secs=secs, window_host_ms_per_step=host_ms,
+               window_event_ms_per_step=event0.elapsed_time(event1) / 4,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, loss=metrics["average_loss"],
+               k1_launches=counts["combine"], card=card_line())
+    row.update(traced_step(clock.profile, host_ms, steps=2))
+    print("transformer_full_width: " + json.dumps(row))
+    if not math.isfinite(row["loss"]):
+        raise AssertionError("transformer_full_width: %s" % row)
+    return counts, row
+
+
+def _multi_head_export_search(model_dir):
+    """A two-member multi-head search (the serving tutorial's two-head
+    builders, a regression and a 3-class head) with both member outputs
+    exported."""
+    import torch
+
+    from adanet_tpu_torch.core.estimator import Estimator
+    from adanet_tpu_torch.core.heads import MultiClassHead, MultiHead, RegressionHead
+    from adanet_tpu_torch.ensemble.weighted import ComplexityRegularizedEnsembler
+    from adanet_tpu_torch.examples.tutorials import serving_example
+    from adanet_tpu_torch.subnetwork.generator import SimpleGenerator
+
+    estimator = Estimator(
+        head=MultiHead([RegressionHead(name="reg"), MultiClassHead(3, name="cls")]),
+        subnetwork_generator=SimpleGenerator([serving_example.TwoHeadBuilder("narrow", 8),
+                                              serving_example.TwoHeadBuilder("wide", 16)]),
+        max_iteration_steps=8, max_iterations=2, model_dir=os.path.join(model_dir, "multi_head_export"),
+        ensemblers=[ComplexityRegularizedEnsembler(optimizer=lambda p: torch.optim.SGD(p, lr=0.01),
+                                                   use_fused_combine=True)],
+        log_every_steps=0, device="cuda", export_subnetwork_logits=True, export_subnetwork_last_layer=True,
+    )
+    estimator.train(serving_example.input_fn, max_steps=16)
+    return estimator
+
+
+def _flat_outputs(prefix, tree, out):
+    if isinstance(tree, dict):
+        for key, value in tree.items():
+            _flat_outputs(prefix + "/" + key, value, out)
+    else:
+        out[prefix] = tree
+
+
+def start_export_programs(model_dir, long_context, seq_len):
+    """Exports three winners (`Estimator.export_saved_model`): the
+    long-context search's, the simple_dnn search's (phase 11's model
+    dir, rebuilt by a fresh Estimator) and a multi-head ensemble with
+    member outputs, and starts, for each, tests/torch_serve_runner.py in
+    a fresh process (torch, numpy and the kernels' custom ops only) at
+    EXPORT_ROWS. `export_programs` checks them."""
+    import numpy as np
+    import torch
+
+    from adanet_tpu_torch.core import export
+    from adanet_tpu_torch.core.estimator import Estimator
+    from adanet_tpu_torch.examples.synthetic_digits import make_dataset
+
+    head, generator, ensembler = search_parts()
+    dnn = Estimator(head, generator, max_iteration_steps=TRAIN_STEPS, max_iterations=TRAIN_ITERATIONS,
+                    ensemblers=[ensembler], model_dir=os.path.join(model_dir, "search"), log_every_steps=0,
+                    device="cuda")
+    multi_head = _multi_head_export_search(model_dir)
+    digits = make_dataset(64, seed=9)[0].reshape(64, -1)
+    rng = np.random.RandomState(11)
+    cases = {
+        "long_context": (long_context, {"tokens": rng.randint(0, 63, (max(EXPORT_ROWS), seq_len))}, 1),
+        "simple_dnn": (dnn, {"x": digits}, 1),
+        "multi_head": (multi_head, {"x": rng.randn(max(EXPORT_ROWS), 4).astype(np.float32)}, 0),
+    }
+    procs, rows = [], {}
+    for name, (estimator, pool, k1_per_call) in cases.items():
+        directory = os.path.join(model_dir, "export_" + name)
+        t0 = time.perf_counter()
+        estimator.export_saved_model(directory, ({k: v[:1] for k, v in pool.items()}, None))
+        export_secs = time.perf_counter() - t0
+        requests = {}
+        for i, rows_n in enumerate(EXPORT_ROWS):
+            for key, value in pool.items():
+                requests["%d/%s" % (i, key)] = value[:rows_n]
+        np.savez(os.path.join(directory, "requests.npz"), **requests)
+        procs.append((name, _spawn_runner("torch_serve_runner.py", [
+            directory, os.path.join(directory, "requests.npz"), os.path.join(directory, "served.npz"), "cuda"])))
+        rows[name] = dict(export_secs=export_secs, k1_per_call=k1_per_call, directory=directory)
+    return cases, procs, rows
+
+
+def export_programs(started):
+    """The served outputs of `start_export_programs`' processes bitwise
+    the in-process `predict` on the card, with K1's launches inside each
+    exact (one a call for a weighted winner, none for dict logits); each
+    card-exported program served on the CPU at 1 and 7 rows within
+    EXPORT_CPU_BOUND; the signatures' platforms and fallback reasons."""
+    import numpy as np
+
+    from adanet_tpu_torch.core import export
+
+    cases, procs, rows = started
+    _finish(procs, "export_programs")
+    for name, (estimator, pool, k1_per_call) in cases.items():
+        directory = rows[name].pop("directory")
+        served = np.load(os.path.join(directory, "served.npz"))
+        modules = [str(m) for m in served["__modules__"]]
+        model_code = [m for m in modules if m.startswith(("adanet_tpu_torch.core", "adanet_tpu_torch.models",
+                                                          "adanet_tpu_torch.examples", "adanet_tpu_torch.ensemble"))]
+        if model_code or int(served["__launches__"]) != k1_per_call * len(EXPORT_ROWS):
+            raise AssertionError("export_programs %s: model code %s, K1 launches %s"
+                                 % (name, model_code, served["__launches__"]))
+        cpu = export.load_serving_program(directory, device="cpu")
+        cpu_worst = 0.0
+        for i, rows_n in enumerate(EXPORT_ROWS):
+            features = {key: value[:rows_n] for key, value in pool.items()}
+            want = {}
+            _flat_outputs(str(i), next(iter(estimator.predict(lambda: iter([features])))), want)
+            for key, value in want.items():
+                if not np.array_equal(served[key], value.numpy()):
+                    raise AssertionError("export_programs %s: served %s differs from predict" % (name, key))
+            if i >= 2:  # the CPU serves the first two requests, 1 and 7 rows
+                continue
+            on_cpu = {}
+            _flat_outputs(str(i), cpu(features), on_cpu)
+            for key, value in want.items():
+                if value.is_floating_point():
+                    err = float((on_cpu[key].float() - value.float()).abs().max())
+                    bound = EXPORT_CPU_BOUND * max(1.0, float(value.abs().max()))
+                    cpu_worst = max(cpu_worst, err / max(1.0, float(value.abs().max())))
+                    if err > bound:
+                        raise AssertionError("export_programs %s: cpu %s off by %g" % (name, key, err))
+        signature = export.serving_signature(directory)
+        rows[name].update(
+            rows=list(EXPORT_ROWS), bitwise_vs_predict=True, served_k1_launches=int(served["__launches__"]),
+            cpu_worst_relative=cpu_worst, platforms=signature["platforms"],
+            multi_platform_fallback_reason=signature["multi_platform_fallback_reason"],
+            polymorphic_fallback_reason=signature["polymorphic_fallback_reason"],
+            program_bytes=os.path.getsize(os.path.join(directory, export.SERVING_FILE)))
+    out = dict(programs=rows, cpu_bound="%g x max(1, max|card|)" % EXPORT_CPU_BOUND, card=card_line())
+    print("export_programs: " + json.dumps(out))
+    return out
+
+
+def _k1_nodes(path):
+    """The K1 custom ops in the graph of the exported program at `path`:
+    its K1 launches a call."""
+    import torch
+
+    program = torch.export.load(path)
+    return sum(1 for node in program.graph.nodes
+               if node.op == "call_function" and "weighted_combine" in str(node.target))
+
+
+class _CountedPrograms:
+    """While entered, every program `export.load_serving_program` loads
+    counts its calls (`calls`, by the program's path)."""
+
+    def __enter__(self):
+        import threading
+
+        from adanet_tpu_torch.core import export
+
+        self._export, self._load = export, export.load_serving_program
+        self.calls, lock = collections.Counter(), threading.Lock()
+
+        def load(export_dir, filename=None, device="cuda"):
+            fn = self._load(export_dir, filename, device)
+            path = os.path.join(export_dir, filename or export.SERVING_FILE)
+
+            def call(features):
+                with lock:
+                    self.calls[path] += 1
+                return fn(features)
+
+            call.module = fn.module
+            return call
+
+        export.load_serving_program = load
+        return self
+
+    def __exit__(self, *exc):
+        self._export.load_serving_program = self._load
+
+
+def serve_while_search(model_dir):
+    """Phase 11's search at SWS_ITERATIONS x SWS_STEPS with
+    export_serving=True and the default cascade, while a frontend over
+    the same model_dir answers a stream of requests (1 to 32 rows) from
+    another thread: every request answered ok, at least 2 flips; at the
+    end, the cascade-free answers of the last generation bitwise the
+    offline `load_serving_program` on the same padded bucket, and each
+    cascade answer's rows bitwise the offline level-0 program's (clear
+    rows) or the full program's on the residual bucket (the rest).
+    K1 exact: one a candidate a training step, and for each generation
+    published, one a K1 of its program for the export's sample run and,
+    with a cascade, for the calibration's full call, and as many for the
+    cascade program's sample run and calibration call; one a K1 of a
+    served program for each call the pool and the batcher made to it.
+    Prints the level-0 share and the published agreement."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from adanet_tpu_torch import ops
+    from adanet_tpu_torch.core import export
+    from adanet_tpu_torch.core.estimator import Estimator
+    from adanet_tpu_torch.examples.synthetic_digits import input_fn, make_dataset
+    from adanet_tpu_torch.serving import (Batcher, BatcherConfig, FrontendConfig, ModelPool, ServingFrontend,
+                                          batcher as batcher_lib, publisher)
+
+    head, generator, ensembler = search_parts()
+    xtr, ytr = make_dataset(TRAIN_EXAMPLES, seed=7)
+    xte = make_dataset(256, seed=12)[0].reshape(256, -1)
+    directory = os.path.join(model_dir, "serve_while_search")
+    estimator = Estimator(head, generator, max_iteration_steps=SWS_STEPS, max_iterations=SWS_ITERATIONS,
+                          ensemblers=[ensembler], model_dir=directory, log_every_steps=0, device="cuda",
+                          export_serving=True)
+    pool = ModelPool(directory)
+    batcher = Batcher(pool)
+    frontend = ServingFrontend(batcher, FrontendConfig(default_deadline_secs=120.0, poll_interval_secs=0.05)).start()
+    results, stop = [], threading.Event()
+    sizes = itertools.cycle(BURST_ROWS)
+
+    def client():
+        offset = 0
+        while not stop.is_set():
+            if pool.active is None:
+                time.sleep(0.01)
+                continue
+            n = next(sizes)
+            rows = xte[offset % 200:offset % 200 + n]
+            offset += n
+            results.append(frontend.submit({"x": rows}, timeout=120.0))
+
+    thread = threading.Thread(target=client, daemon=True)
+    with _CountedPrograms() as programs:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            thread.start()
+            estimator.train(input_fn(xtr, ytr, TRAIN_BATCH), max_steps=10**6)
+            deadline = time.time() + 60
+            while ((pool.active is None or pool.active.iteration_number < SWS_ITERATIONS - 1)
+                   and time.time() < deadline):
+                time.sleep(0.05)
+            time.sleep(0.5)
+        finally:
+            stop.set()
+            thread.join(timeout=120)
+            drained = frontend.drain(timeout=120.0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    gens = [t for t, _ in publisher.list_generations(directory)]
+    bad = [r for r in results if not r.ok]
+    levels = collections.Counter(r.cascade_level for r in results)
+    if not drained or bad or pool.flips < 2 or gens != list(range(SWS_ITERATIONS)) or not results:
+        raise AssertionError("serve_while_search: drained %s, failed %s, flips %d, generations %s, requests %d"
+                             % (drained, [(r.status, r.error) for r in bad[:3]], pool.flips, gens, len(results)))
+    stats = batcher.cascade_stats()
+    k1 = {path: _k1_nodes(path) for path in programs.calls}
+    published_k1 = 0
+    for t in gens:
+        gen_dir = publisher.generation_dir(directory, t)
+        full_k1 = k1.get(os.path.join(gen_dir, export.SERVING_FILE)) or _k1_nodes(
+            os.path.join(gen_dir, export.SERVING_FILE))
+        published_k1 += full_k1
+        if "cascade" in export.serving_signature(gen_dir):
+            cheap_path = os.path.join(gen_dir, export.CASCADE_FILE)
+            published_k1 += full_k1 + 2 * (k1.get(cheap_path) or _k1_nodes(cheap_path))
+    k1_split = dict(search=SWS_STEPS * sum(_grow_candidates(2, SWS_ITERATIONS)), publications=published_k1,
+                    served=sum(calls * k1[path] for path, calls in programs.calls.items()))
+    expected = sum(k1_split.values())
+    if counts["combine"] != expected or counts["sepconv"] or counts["cell"]:
+        raise AssertionError("serve_while_search: launches %s, expected %d K1 (%s) and no K2 or K3; program "
+                             "calls %s, K1 a call %s" % (counts, expected, k1_split, dict(programs.calls), k1))
+    last = publisher.generation_dir(directory, SWS_ITERATIONS - 1)
+    signature = export.serving_signature(last)
+    full = export.load_serving_program(last)
+    cheap = export.load_serving_program(last, export.CASCADE_FILE) if "cascade" in signature else None
+    final_pool = ModelPool(directory)
+    final_pool.poll()
+    off = Batcher(final_pool, BatcherConfig(cascade=False))
+    on = Batcher(final_pool)
+    checked = 0
+    for n in (1, 3, 8, 17, 32):
+        request = {"x": xte[:n]}
+        bucket = batcher_lib.bucket_for(n, off.config.bucket_sizes)
+        padded, _ = batcher_lib.pad_batch([request], bucket)
+        _, (served,) = off.execute([request])
+        offline = batcher_lib.split_rows(full(padded), [n])[0]
+        for key in offline:
+            if not np.array_equal(served[key], offline[key]):
+                raise AssertionError("serve_while_search: served %s differs from the offline program" % key)
+        _, (answered,) = on.execute([request])
+        mask = on.last_row_fallthrough
+        if mask is not None and cheap is not None:
+            level0 = batcher_lib.split_rows(cheap(padded), [n])[0]
+            residual = np.flatnonzero(mask)
+            if len(residual):
+                rbucket = batcher_lib.bucket_for(len(residual), on.config.bucket_sizes)
+                rpadded, _ = batcher_lib.pad_batch([{"x": xte[:n][residual]}], rbucket)
+                full_rows = batcher_lib.split_rows(full(rpadded), [len(residual)])[0]
+            for key in answered:
+                want = level0[key].copy()
+                if len(residual):
+                    want[residual] = full_rows[key]
+                if not np.array_equal(answered[key], want):
+                    raise AssertionError("serve_while_search: cascade answer %s differs" % key)
+        checked += 1
+    cascade = signature.get("cascade") or {}
+    row = dict(steps=SWS_STEPS * SWS_ITERATIONS, generations=gens, flips=pool.flips, requests=len(results),
+               rows=int(sum(r.outputs["logits"].shape[0] for r in results)), cascade_levels=dict(
+                   (str(k), v) for k, v in levels.items()),
+               level0_row_share=None if stats["row_fallthrough_rate"] is None else 1 - stats["row_fallthrough_rate"],
+               cascade_threshold=cascade.get("threshold"), holdout_agreement=cascade.get("holdout_agreement"),
+               target_agreement=cascade.get("target_agreement"), shadow_divergence=stats["shadow_divergence"],
+               final_checks=checked, secs=secs, k1_launches=counts["combine"], k1_expected=k1_split,
+               program_calls=sum(programs.calls.values()), card=card_line())
+    print("serve_while_search: " + json.dumps(row))
+    return counts, row
+
+
+def start_serving_example(model_dir):
+    """The serving tutorial on the card, as a user runs it (`python -m
+    ...serving_example`), in a process of its own beside the group's
+    other phases; it prints its launch counts last."""
+    environ = dict(os.environ, OMP_NUM_THREADS="1",
+                   PYTHONPATH=os.pathsep.join([os.path.dirname(os.path.abspath(__file__)),
+                                               os.environ.get("PYTHONPATH", "")]))
+    code = ("import json; from adanet_tpu_torch import ops; "
+            "from adanet_tpu_torch.examples.tutorials import serving_example; serving_example.main([]); "
+            "print('serving_example_counts: ' + json.dumps(ops.launch_counts()))")
+    log = open(os.path.join(model_dir, "serving_example.log"), "w")
+    proc = subprocess.Popen([sys.executable, "-c", code], stdout=log, stderr=subprocess.STDOUT, env=environ,
+                            cwd=model_dir)
+    return proc, log, time.perf_counter()
+
+
+def serving_example_on_card(started):
+    """The tutorial's process: the two-head search, its export, batches 1
+    and 7 served by a process without model code."""
+    proc, log, t0 = started
+    rc = proc.wait(timeout=PROCESS_TIMEOUT)
+    log.close()
+    with open(log.name) as f:
+        out = f.read()
+    served = [line for line in out.splitlines() if line.startswith("served batch")]
+    counts = [json.loads(line.split(": ", 1)[1]) for line in out.splitlines()
+              if line.startswith("serving_example_counts: ")]
+    row = dict(served=served, secs=time.perf_counter() - t0, k1_launches=counts[-1]["combine"] if counts else None,
+               card=card_line())
+    print("serving_example: " + json.dumps(row))
+    if rc != 0 or len(served) != 2 or "OK: hermetic multi-head serving round trip" not in out or not counts:
+        raise AssertionError("serving_example: rc %s\n%s" % (rc, out[-4000:]))
+    # Dict logits take the combine that launches no K1 (nor K2 or K3).
+    if any(counts[-1][name] for name in ("combine", "sepconv", "cell")):
+        raise AssertionError("serving_example: launches %s, expected no K1, K2 or K3" % counts[-1])
+    return counts[-1], row
+
+
+class _CombineShapes:
+    """Records the (members, rows, classes, weights' rank, bias) of every
+    K1 plan looked up while it is entered."""
+
+    def __enter__(self):
+        from adanet_tpu_torch.ops import ensemble_kernels as ek
+
+        self._ek, self._plan_for, self.seen = ek, ek.plan_for, set()
+
+        def plan_for(n, first, w, bias, stacked):
+            self.seen.add((n, int(first.shape[0]), int(first.shape[1]), w.dim(), bias is not None))
+            return self._plan_for(n, first, w, bias, stacked)
+
+        ek.plan_for = plan_for
+        return self
+
+    def __exit__(self, *exc):
+        self._ek.plan_for = self._plan_for
+
+
+def check_group_combines(seen, gen):
+    """K1 against its plain version at every shape the group launched it
+    at (`check_search_combine`: both weight forms and under autograd).
+    Returns (worst forward or gradient error, the shapes)."""
+    worst = 0.0
+    for n, b, c, rank, use_bias in sorted(seen):
+        if rank != 1:
+            raise AssertionError("the group launched K1 with weights of rank %d" % rank)
+        worst = max(worst, *check_search_combine(n, use_bias, gen, batch=b, classes=c))
+    shapes = sorted({(n, b, c) for n, b, c, _, _ in seen})
+    print("K1 at the long-context and export paths' shapes %s: worst abs err %g" % (shapes, worst))
+    return worst, shapes
+
+
+def long_context_export_phases(model_dir, long_context_gen):
+    """The fifteenth slice's group: `ring_attention`, `ring_two_process`
+    (its processes started first), `long_context_search`,
+    `transformer_full_width`, `export_programs`, `serve_while_search`,
+    `serving_example`, then K1 at every shape they launched it at.
+    Returns ({phase: K1 launches}, K1's worst error, the shapes)."""
+    started = example = None
+    try:
+        with _CombineShapes() as shapes:
+            # Phases 42-45 have the card to themselves; the tutorial's
+            # process and the programs' serving processes run beside
+            # phases 46-47.
+            ring_attention_phase(long_context_gen)
+            started = start_ring_two_process(model_dir)
+            ring_two_process(started)
+            lc_counts, lc_row, lc_estimator = long_context_search(model_dir)
+            fw_counts, _ = transformer_full_width(model_dir)
+            example = start_serving_example(model_dir)
+            serving = start_export_programs(model_dir, lc_estimator, lc_row["seq_len"])
+            try:
+                sws_counts, _ = serve_while_search(model_dir)
+            finally:
+                exported = export_programs(serving)
+            example_counts, _ = serving_example_on_card(example)
+    finally:
+        for proc in ([p for _, p in started[1]] if started else []) + ([example[0]] if example else []):
+            if proc.poll() is None:
+                proc.kill()
+    worst, combine_shapes = check_group_combines(shapes.seen, long_context_gen)
+    launches = dict(long_context=lc_counts["combine"], transformer_full_width=fw_counts["combine"],
+                    export_programs={k: v["served_k1_launches"] for k, v in exported["programs"].items()},
+                    serve_while_search=sws_counts["combine"], serving_example=example_counts["combine"])
+    return launches, worst, combine_shapes
+
+
 def trainer_on_card():
     """The trainer CLI on the card, on fake data, at a small size."""
     from adanet_tpu_torch.research.improve_nas import trainer
@@ -5467,6 +6307,7 @@ class _PhaseClock:
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--publish-only", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     import torch
@@ -5477,6 +6318,12 @@ def main(argv=None):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from adanet_tpu_torch.ops import _build
 
+    if args.publish_only:
+        # `start_publisher`'s process: the kernels are built already.
+        path, info = publish(args.publish_only, args.seed)
+        with open(os.path.join(args.publish_only, "publish.json"), "w") as f:
+            json.dump(dict(path=path, info=info), f)
+        return 0
     print(card_line())
     clock = _PhaseClock()
     build_kernels()
@@ -5484,64 +6331,80 @@ def main(argv=None):
     clock.mark("build")
     rng = torch.Generator().manual_seed(args.seed + 1)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as model_dir:
-        t0 = time.time()
-        gen_dir, sep_shapes, cell_signatures = publish(model_dir, args.seed)
-        print("published %s in %.1f s" % (os.path.basename(gen_dir), time.time() - t0))
-        if cell_signatures != CELL_SIGNATURES:
-            raise AssertionError("the model's cells %s differ from CELL_SIGNATURES" % cell_signatures)
-        errors = check_kernels(sep_shapes, rng)
-        combine_errors, _ = check_combine(rng)
-        errors["combine"] = max([errors["combine"]] + list(combine_errors.values()))
-        errors["cell"] = check_cells(rng)
-        print("kernel checks passed: max abs err %s" % errors)
-        clock.mark("kernel_checks")
-        counts, served = serve(model_dir, sep_shapes, rng)
+        # The served ensemble in this process: the kernels' shapes, and
+        # the in-process predict the served program is held against.
+        served_frozen, served_ensembler, served_predict = served_ensemble(args.seed, "cuda")
+        nasnet = served_frozen.weighted_subnetworks[0].subnetwork.module.nasnet
+        sep_shapes, cell_signatures = nasnet.sepconv_launch_shapes(), model_cell_signatures(nasnet)
+        publisher = None
+        try:
+            if cell_signatures != CELL_SIGNATURES:
+                raise AssertionError("the model's cells %s differ from CELL_SIGNATURES" % cell_signatures)
+            errors = check_kernels(sep_shapes, rng)
+            combine_errors, _ = check_combine(rng)
+            errors["combine"] = max([errors["combine"]] + list(combine_errors.values()))
+            errors["cell"] = check_cells(rng)
+            print("kernel checks passed: max abs err %s" % errors)
+            clock.mark("kernel_checks")
+            tune_counts, tuned = autotune_path(rng)
+            clock.mark("autotune_path")
+            # The single-kernel traces come before the large ones of the
+            # training phases and the served batch, after which the
+            # tracer has been seen to deliver no kernels; device_ms then
+            # falls back to queued events.
+            combine_rows = time_combine(rng)
+            rows, per_shape, host = time_kernels(sep_shapes, combine_rows, rng)
+            rows["cell"], cell_rows, cell_host = time_cells(rng)
+            host.update(cell_host)
+            time_tuned(tuned)
+            trace_served_combine(served_frozen, served_ensembler, rng)
+            clock.mark("kernel_timing")
+            # The serving generation is exported in a process of its own
+            # (niced, one thread) while the phases up to the serving
+            # phase run here; their timings share the host with it.
+            publisher = start_publisher(model_dir, args.seed)
+            check_sepconv_grads(sep_shapes, rng)
+            clock.mark("sepconv_grads")
+            fused_probes = {}
+            train_counts, train_stats = train_search(model_dir, fused_probes)
+            clock.mark("train_search")
+            train_vs_cpu()
+            clock.mark("train_vs_cpu")
+            t_selection = time.perf_counter()
+            selection_counts, _ = search_selection(model_dir, args.seed)
+            selection_vs_cpu(args.seed)
+            multi_head_counts, _ = multi_head_search(model_dir)
+            heads_vs_cpu(rng)
+            print("selection_phases: " + json.dumps({"secs": time.perf_counter() - t_selection,
+                                                     "card": card_line()}))
+            clock.mark("selection_phases")
+            t_gates = time.perf_counter()
+            full_gate_counts, _ = full_dnn_gate(model_dir)
+            cnn_counts, _ = cnn_search(model_dir)
+            cnn_vs_cpu(model_dir)
+            autoensemble_counts, _ = autoensemble(model_dir)
+            replay_counts, _ = replay_search(model_dir, args.seed)
+            tutorials_on_card(model_dir)
+            predict_debug(model_dir)
+            print("gates_autoensemble_replay_phases: " + json.dumps({"secs": time.perf_counter() - t_gates,
+                                                                      "card": card_line()}))
+            clock.mark("gates_autoensemble_replay_phases")
+            t_slice = time.perf_counter()
+            cifar_counts, _ = cifar_trainer(model_dir)
+            imagenet_counts, _, imagenet_losses = imagenet_autoensemble(model_dir, rng)
+            modelflow(model_dir)
+            errors["combine"] = max(errors["combine"], check_slice_combines(rng))
+            print("cifar_imagenet_modelflow_phases: " + json.dumps({"secs": time.perf_counter() - t_slice,
+                                                                     "card": card_line()}))
+            clock.mark("cifar_imagenet_modelflow_phases")
+            gen_dir, published = wait_publisher(publisher, model_dir)
+        finally:
+            if publisher is not None and publisher[0].poll() is None:
+                publisher[0].kill()
+        print("published %s in %.1f s" % (os.path.basename(gen_dir), published["publish_process_secs"]))
+        clock.mark("publish_wait")
+        counts, served, served_program = serve(model_dir, sep_shapes, rng, served_predict, published)
         clock.mark("serve")
-        tune_counts, tuned = autotune_path(rng)
-        clock.mark("autotune_path")
-        # The single-kernel traces come before the batch's large one
-        # (23,000 kernels), after which the tracer has been seen to
-        # deliver no kernels; device_ms then falls back to queued events.
-        combine_rows = time_combine(rng)
-        rows, per_shape, host = time_kernels(sep_shapes, combine_rows, rng)
-        rows["cell"], cell_rows, cell_host = time_cells(rng)
-        host.update(cell_host)
-        time_tuned(tuned)
-        trace_served_combine(gen_dir, rng)
-        clock.mark("kernel_timing")
-        check_sepconv_grads(sep_shapes, rng)
-        clock.mark("sepconv_grads")
-        fused_probes = {}
-        train_counts, train_stats = train_search(model_dir, fused_probes)
-        clock.mark("train_search")
-        train_vs_cpu()
-        clock.mark("train_vs_cpu")
-        t_selection = time.perf_counter()
-        selection_counts, _ = search_selection(model_dir, args.seed)
-        selection_vs_cpu(args.seed)
-        multi_head_counts, _ = multi_head_search(model_dir)
-        heads_vs_cpu(rng)
-        print("selection_phases: " + json.dumps({"secs": time.perf_counter() - t_selection, "card": card_line()}))
-        clock.mark("selection_phases")
-        t_gates = time.perf_counter()
-        full_gate_counts, _ = full_dnn_gate(model_dir)
-        cnn_counts, _ = cnn_search(model_dir)
-        cnn_vs_cpu(model_dir)
-        autoensemble_counts, _ = autoensemble(model_dir)
-        replay_counts, _ = replay_search(model_dir, args.seed)
-        tutorials_on_card(model_dir)
-        predict_debug(model_dir)
-        print("gates_autoensemble_replay_phases: " + json.dumps({"secs": time.perf_counter() - t_gates,
-                                                                  "card": card_line()}))
-        clock.mark("gates_autoensemble_replay_phases")
-        t_slice = time.perf_counter()
-        cifar_counts, _ = cifar_trainer(model_dir)
-        imagenet_counts, _, imagenet_losses = imagenet_autoensemble(model_dir, rng)
-        modelflow(model_dir)
-        errors["combine"] = max(errors["combine"], check_slice_combines(rng))
-        print("cifar_imagenet_modelflow_phases: " + json.dumps({"secs": time.perf_counter() - t_slice,
-                                                                 "card": card_line()}))
-        clock.mark("cifar_imagenet_modelflow_phases")
         t_placement = time.perf_counter()
         rr_imagenet_counts, _, rr_imagenet_losses = imagenet_round_robin(model_dir, imagenet_losses)
         rr_search_counts, _ = round_robin_search(model_dir, fused_probes)
@@ -5562,6 +6425,12 @@ def main(argv=None):
         print("elastic_multihost_phases: " + json.dumps({"secs": time.perf_counter() - t_elastic,
                                                           "card": card_line()}))
         clock.mark("elastic_multihost_phases")
+        t_long = time.perf_counter()
+        long_context_launches, long_context_err, _ = long_context_export_phases(model_dir, rng)
+        errors["combine"] = max(errors["combine"], long_context_err)
+        print("long_context_export_phases: " + json.dumps({"secs": time.perf_counter() - t_long,
+                                                            "card": card_line()}))
+        clock.mark("long_context_export_phases")
         nasnet_counts, _ = train_nasnet(model_dir)
         clock.mark("train_nasnet")
         with deterministic_cudnn():
@@ -5591,8 +6460,8 @@ def main(argv=None):
         errors["sepconv"] = max(errors["sepconv"], train_errors["forward_float32"], train_errors["forward_bfloat16"])
         clock.mark("check_train_sepconv")
         trainer_on_card()
-        profile_batch(gen_dir, rng)
-        compare_with_cpu(gen_dir, rng)
+        profile_batch(served_program, rng)
+        compare_with_cpu(args.seed, rng)
         clock.mark("trainer_profile_compare")
     # Each kernel's launches on the main path that runs it: serving for
     # K0-K2, the autotuner for K3; K1's on the search path beside them.
@@ -5649,6 +6518,11 @@ def main(argv=None):
             kernels[-1]["elastic_search_launches"] = elastic_launches["elastic"]
             kernels[-1]["elastic_two_process_launches"] = elastic_launches["two_process"]
             kernels[-1]["speculation_launches"] = elastic_launches["speculation"]
+            kernels[-1]["long_context_launches"] = long_context_launches["long_context"]
+            kernels[-1]["transformer_full_width_launches"] = long_context_launches["transformer_full_width"]
+            kernels[-1]["export_programs_launches"] = long_context_launches["export_programs"]
+            kernels[-1]["serve_while_search_launches"] = long_context_launches["serve_while_search"]
+            kernels[-1]["serving_example_launches"] = long_context_launches["serving_example"]
         if name == "sepconv":
             kernels[-1]["train_launches"] = nasnet_counts["sepconv"]
             kernels[-1]["nasnet_gate_launches"] = gate_counts["sepconv"]

@@ -15,6 +15,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -58,6 +59,9 @@ COPIES = {
     "adanet_tpu_torch/experimental/storages.py": "adanet_tpu/experimental/storages.py",
     # The thirteenth slice: the collective deadlines and the heartbeat.
     "adanet_tpu_torch/robustness/watchdog.py": "adanet_tpu/robustness/watchdog.py",
+    # The fifteenth slice: the serving cascade (calibration, per-row
+    # clearance).
+    "adanet_tpu_torch/serving/fleet/cascade.py": "adanet_tpu/serving/fleet/cascade.py",
 }
 
 #: Top-level definitions a copy replaces on purpose ("__doc__": the
@@ -75,6 +79,8 @@ REPLACED = {
     "adanet_tpu_torch/research/improve_nas/image_processing.py": ("__doc__",),
     # The docstring names the port's transports (store waits, gloo, NCCL).
     "adanet_tpu_torch/robustness/watchdog.py": ("__doc__",),
+    # The docstring names the port's cheap program file (`cascade.pt2`).
+    "adanet_tpu_torch/serving/fleet/cascade.py": ("__doc__",),
 }
 
 #: Modules that later slices added; the import rules must reach them.
@@ -139,6 +145,13 @@ SLICE_MODULES = (
     "adanet_tpu_torch.distributed.placement",
     "adanet_tpu_torch.distributed.executor",
     "adanet_tpu_torch.distributed.multihost",
+    "adanet_tpu_torch.parallel",
+    "adanet_tpu_torch.parallel.ring_attention",
+    "adanet_tpu_torch.models.transformer",
+    "adanet_tpu_torch.examples.tutorials.long_context_ring_attention",
+    "adanet_tpu_torch.examples.tutorials.serving_example",
+    "adanet_tpu_torch.serving.fleet",
+    "adanet_tpu_torch.serving.fleet.cascade",
 )
 
 
@@ -274,6 +287,8 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
     from adanet_tpu_torch.research.imagenet_autoensemble import trainer as imagenet_trainer
     from adanet_tpu_torch.distributed import RoundRobinStrategy, coordination, data_parallel_mesh
     from adanet_tpu_torch.distributed import ElasticWorkQueueStrategy, MultiHostRoundRobinExecutor
+    from adanet_tpu_torch.examples.tutorials import long_context_ring_attention, serving_example
+    from adanet_tpu_torch.serving import publish_generation
 
     # An iteration built on the CPU, before CUDA is hidden, for the
     # executors that place onto devices of their own.
@@ -336,6 +351,14 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
         lambda: Estimator(head, generator, 10, model_dir=str(tmp_path),
                           placement_strategy=ElasticWorkQueueStrategy(window_steps=8, speculate_steps=8)),
         lambda: MultiHostRoundRobinExecutor(cpu_iteration),
+        # The fifteenth slice: the export and publication of programs, the
+        # serving Estimator and both tutorials.
+        lambda: export.export_serving_program(str(tmp_path / "x"), lambda f: f, {"x": np.zeros((2, 2))}),
+        lambda: export.load_serving_program(str(tmp_path), export.CASCADE_FILE),
+        lambda: publish_generation(str(tmp_path), 0, lambda f: f, {"x": np.zeros((2, 2))}),
+        lambda: Estimator(head, generator, 10, model_dir=str(tmp_path), export_serving=True),
+        lambda: long_context_ring_attention.main(["--seq_len", "16", "--max_steps", "1"]),
+        lambda: serving_example.main([]),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

@@ -46,7 +46,9 @@ from adanet_tpu_torch.serving import (
 )
 from adanet_tpu_torch.serving import publisher
 from adanet_tpu_torch.utils import convert
-from torch_port_common import numpy_variables, variable_shapes
+from torch_port_common import numpy_variables, variable_shapes, one_torch_thread
+
+_one_torch_thread = pytest.fixture(autouse=True)(one_torch_thread)
 
 SHAPE = (16, 16, 3)
 MIXTURE = [0.7, 0.45]
@@ -116,13 +118,14 @@ def _frozen(variables):
 
 
 def _publish(model_dir, variables, t=1):
+    from adanet_tpu_torch.core import export
+
     ensembler = ComplexityRegularizedEnsembler(
         mixture_weight_type=MixtureWeightType.SCALAR, use_fused_combine=True
     )
     sample = {"image": np.zeros((1,) + SHAPE, np.float32)}
-    return publish_generation(
-        model_dir, t, _frozen(variables), ensembler, MultiClassHead(10), sample
-    )
+    predict_fn = export.frozen_predict_fn(_frozen(variables), ensembler, MultiClassHead(10))
+    return publish_generation(model_dir, t, predict_fn, sample, device="cpu")
 
 
 def test_served_predictions_match_jax(tmp_path, reference):
@@ -130,9 +133,8 @@ def test_served_predictions_match_jax(tmp_path, reference):
     model_dir = str(tmp_path / "model")
     gen = _publish(model_dir, variables)
     assert sorted(os.listdir(gen)) == [
-        "architecture.json",
         "generation.json",
-        "params.npz",
+        "serving.pt2",
         "serving_signature.json",
     ]
     assert _publish(model_dir, variables) is None  # set-once
@@ -168,12 +170,12 @@ def test_pool_rejects_corrupt_generation_and_keeps_serving(tmp_path, reference):
     pool = ModelPool(model_dir, device="cpu")
     assert pool.poll() and pool.active.iteration_number == 1
     gen2 = _publish(model_dir, variables, t=2)
-    path = os.path.join(gen2, "params.npz")
+    path = os.path.join(gen2, "serving.pt2")
     data = bytearray(open(path, "rb").read())
     data[len(data) // 2] ^= 0xFF
     with open(path, "wb") as f:
         f.write(bytes(data))
-    assert publisher.verify_generation(gen2) == ["params.npz digest mismatch"]
+    assert publisher.verify_generation(gen2) == ["serving.pt2 digest mismatch"]
     assert pool.poll()
     assert pool.active.iteration_number == 1
     assert pool.rollbacks == 1 and pool.events[-1]["event"] == "rollback"
@@ -190,17 +192,18 @@ def test_frontend_rejects_oversized_and_unavailable(tmp_path):
 
 
 def test_served_weights_are_prepared_once(tmp_path, reference):
-    """The loaded program's ensembler weights are ordinary tensors (loaded
-    outside `torch.inference_mode`), so they carry a version counter and
-    K1's wrapper prepares them on the first served call only."""
+    """The loaded program's constants (the ensembler weights among them)
+    are ordinary tensors (moved outside `torch.inference_mode`), so they
+    carry a version counter, keep their identity across calls, and K1's
+    custom op prepares them on the first served call only."""
     from adanet_tpu_torch.core import export
     from adanet_tpu_torch.ops import sepconv_kernels
 
     requests, variables, want = reference
     gen = _publish(str(tmp_path / "model"), variables)
-    frozen = export.load_frozen_ensemble(gen, "cpu")
-    assert all(torch.is_tensor(w) and not w.is_inference() for w in frozen.ensembler_params["weights"])
-    predict = export.load_serving_program(gen, "cpu")
+    predict = export.load_serving_program(gen, device="cpu")
+    constants = [v for m in predict.module.modules() for v in vars(m).values() if torch.is_tensor(v)]
+    assert constants and all(not c.is_inference() for c in constants)
     before = sepconv_kernels.prepare.made
     first = predict({"image": requests[0]})
     assert sepconv_kernels.prepare.made == before + 1
