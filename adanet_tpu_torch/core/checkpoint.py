@@ -30,8 +30,9 @@ file (`*.corrupt`) and rolls back. The previous manifest stays at
 `checkpoint.json.prev`, and a model dir whose manifests are both gone is
 reconstructed from the architecture chain.
 
-Manifest v3 carries the JAX package's `store_refs` map, always empty
-here: publishing payloads to the artifact store comes with a later slice.
+Manifest v3 carries the JAX package's `store_refs` map: with an
+artifact store, the Estimator records there the store digest of each
+frozen payload it published or grafted (`frozen-<t>.pt`).
 """
 
 from __future__ import annotations
@@ -83,8 +84,8 @@ class CheckpointInfo:
     one entry per completed iteration (`{"iteration_number",
     "global_step", "generation"}`) so rollback knows each iteration's end
     step; `digests` maps payload filenames to their SHA-256 hex digests
-    (duplicated in sidecar files so either survives alone). `store_refs`
-    is the v3 field of the JAX package, kept empty here.
+    (duplicated in sidecar files so either survives alone); `store_refs`
+    maps frozen payload filenames to their artifact-store digests.
     """
 
     iteration_number: int = 0

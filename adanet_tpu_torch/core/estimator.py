@@ -92,8 +92,19 @@ iteration as a generation under `<model_dir>/serving/gen-<t>/` (the
 chief, after the manifest; a failure is logged, never raised), by
 default with a calibrated cascade (`serving_cascade`): the cheapest
 member's program and its confidence threshold, calibrated on a
-reservoir of training feature batches. The artifact store
-(`artifact_store`, `store_spec_extra`) comes with a later slice.
+reservoir of training feature batches.
+
+The artifact store (`store/`, `artifact_store`): the chief holds a TTL
+lease on the store while it trains and publishes every completed
+iteration's architecture and frozen payload under a ref keyed by the
+winner's architecture hash, the iteration and the search's spec
+fingerprint (seed, step budget, `store_spec_extra` and the port's
+payload format, so that a JAX search's msgpack payloads and the port's
+never share a ref); with `export_serving`, each generation's files too.
+A store failure is logged, never raised. A search given a
+`replay_config` whose recorded winner of iteration t is in the store
+grafts it instead of training: no batch, no training step, no kernel
+launch, the same manifest advance and `replay.json`.
 
 Placement and processes (`distributed/`): a `RoundRobinStrategy` trains
 each iteration through `distributed.executor.RoundRobinExecutor` (each
@@ -142,6 +153,7 @@ from __future__ import annotations
 import copy
 import inspect
 import itertools
+import json
 import logging
 import math
 import os
@@ -171,6 +183,7 @@ from adanet_tpu_torch.distributed.placement import ElasticWorkQueueStrategy, Rep
 from adanet_tpu_torch.ensemble.strategy import GrowStrategy
 from adanet_tpu_torch.ensemble.weighted import ComplexityRegularizedEnsembler, full_f32_matmul
 from adanet_tpu_torch.observability import flightrec as flightrec_lib
+from adanet_tpu_torch.observability import metrics as metrics_lib
 from adanet_tpu_torch.observability import spans as spans_lib
 from adanet_tpu_torch.robustness import faults as faults_lib
 from adanet_tpu_torch.robustness import integrity
@@ -434,8 +447,13 @@ class Estimator:
         cheapest member, calibrated to `cascade_target_agreement` with the
         full ensemble on the last `cascade_calibration_batches` sampled
         training feature batches.
-      artifact_store, store_spec_extra: not ported yet (ROADMAP item 10,
-        part two); given, they raise.
+      artifact_store: an `adanet_tpu_torch.store.ArtifactStore` or its
+        root path, shared by searches and serving pools: completed
+        iterations are published to it and, with a `replay_config`,
+        grafted from it.
+      store_spec_extra: extra configuration (JSON-able) folded into the
+        store spec fingerprint (`store.keys.search_spec_fingerprint`):
+        whatever makes the same architecture train to different numbers.
     """
 
     def __init__(
@@ -480,11 +498,6 @@ class Estimator:
         artifact_store=None,
         store_spec_extra: Optional[Dict[str, Any]] = None,
     ):
-        if artifact_store is not None or store_spec_extra is not None:
-            raise NotImplementedError(
-                "artifact_store and store_spec_extra are not ported yet (ROADMAP item 10, part two: the store "
-                "publication and replay of payloads)."
-            )
         if cascade_calibration_batches < 1:
             raise ValueError("cascade_calibration_batches must be >= 1.")
         if placement_strategy is not None and not isinstance(
@@ -565,6 +578,24 @@ class Estimator:
         self._cascade_calibration_batches = int(cascade_calibration_batches)
         self._cascade_calibration: list = []
         self._calibration_pulls = 0
+        # The shared artifact store, its spec fingerprint's extra
+        # ingredients (checked now, not at the first publication hours
+        # later), the chief's lease while it trains, and the iterations
+        # this Estimator grafted from the store (the registry counter
+        # `estimator.replay.store_grafts` carries the process total).
+        self._store_spec_extra = dict(store_spec_extra) if store_spec_extra else None
+        if store_spec_extra is not None:
+            self._store_spec_fingerprint()
+        self._artifact_store = None
+        if artifact_store is not None:
+            from adanet_tpu_torch.store import ArtifactStore
+
+            self._artifact_store = (
+                artifact_store if isinstance(artifact_store, ArtifactStore) else ArtifactStore(str(artifact_store))
+            )
+        self._store_lease = None
+        self._warned_replay_serving = False
+        self._store_graft_count = 0
         self._iteration_builder = self._make_iteration_builder(self._device)
         # The winner of the last iteration this train() call completed;
         # the first iteration of a call rebuilds its previous from disk.
@@ -636,6 +667,17 @@ class Estimator:
                 heal.quarantined or heal.issues,
             )
         info = heal.info or ckpt_lib.CheckpointInfo()
+        if self._artifact_store is not None and coordination.is_chief():
+            # Pin what this search references against a concurrent GC
+            # (a killed search's pins expire after one TTL), and publish
+            # again each completed iteration whose ref is missing (a crash
+            # between the artifact and the ref writes).
+            from adanet_tpu_torch.store import leases as store_leases
+
+            self._store_lease = store_leases.acquire(
+                self._artifact_store, owner="search-%d" % os.getpid(), ttl_secs=self._store_lease_ttl_secs()
+            )
+            self._store_reconcile(info)
         self._stop_requested = False
         previous_handler = None
         handler_installed = False
@@ -681,6 +723,11 @@ class Estimator:
                 # no iteration in this call.
                 self._write_replay_record()
         finally:
+            if self._store_lease is not None:
+                from adanet_tpu_torch.store import leases as store_leases
+
+                store_leases.release(self._artifact_store, self._store_lease)
+                self._store_lease = None
             # evaluate() and predict() after train() are local to each
             # process: a process group left set would turn them into
             # collectives that hang unless every process joins.
@@ -717,6 +764,12 @@ class Estimator:
                 break
             if max_steps is not None and info.global_step >= max_steps:
                 break
+            if self._try_store_replay(t, info):
+                # The recorded winner of iteration t was grafted from the
+                # store: no batch, no step; the next trained iteration
+                # rebuilds its previous ensemble from disk.
+                self._previous = None
+                continue
 
             batch, data_iter = self._next_batch(input_fn, data_iter)
             sample_batch = batch
@@ -1418,6 +1471,10 @@ class Estimator:
             {"iteration_number": t, "global_step": int(info.global_step), "generation": info.generation + 1}
         )
         if write:
+            if self._artifact_store is not None:
+                # Before the manifest write, so that the manifest's
+                # `store_refs` entry rides this generation.
+                self._store_publish_iteration(t, info)
             ckpt_lib.write_manifest(self._model_dir, info)
             self._remove_state_file(stale_state)
             # replay.json after every completed iteration, so that an
@@ -1832,9 +1889,194 @@ class Estimator:
                     _LOG.exception("Cascade spec derivation for generation %d failed; publishing without a "
                                    "cascade.", t)
             publisher.publish_generation(
-                self._model_dir, t, self._frozen_predict_fn(frozen), features, cascade=cascade,
-                device=self._device,
+                self._model_dir, t, self._frozen_predict_fn(frozen), features, store=self._artifact_store,
+                cascade=cascade, device=self._device,
             )
         except Exception:
             _LOG.exception("Serving export for generation %d failed; the search continues and serving stays on "
                            "the previous generation.", t)
+
+    # --------------------------------------------------------- artifact store
+
+    #: The blob entry of a frozen ref naming the port's payload, and the
+    #: ingredient that keys the port's refs apart from the JAX package's
+    #: (whose entry is `frozen.msgpack`): the same architecture, seed and
+    #: step budget are different bytes in the two packages.
+    STORE_PAYLOAD_ENTRY = "frozen.pt"
+    STORE_PAYLOAD_FORMAT = "adanet_tpu_torch/frozen.pt"
+
+    def _store_lease_ttl_secs(self) -> float:
+        """`ADANET_STORE_LEASE_TTL_SECS` (default 3600): how long this
+        search's store pins outlive a crash before GC may reclaim them."""
+        raw = os.environ.get("ADANET_STORE_LEASE_TTL_SECS", "").strip()
+        if raw:
+            try:
+                return float(raw)
+            except ValueError:
+                _LOG.warning("Ignoring non-numeric ADANET_STORE_LEASE_TTL_SECS=%r.", raw)
+        return 3600.0
+
+    def _store_spec_fingerprint(self) -> str:
+        """What makes different frozen payloads under the same
+        architecture: the seed and the step budget, `store_spec_extra`,
+        and the payload format. Two searches agreeing on all of it (and
+        on the architecture hash) train bit-identical members."""
+        from adanet_tpu_torch.store import keys as store_keys
+
+        extra = dict(self._store_spec_extra or {})
+        if "payload_format" in extra:
+            raise ValueError("store_spec_extra may not set 'payload_format': it keys the port's refs apart")
+        extra["payload_format"] = self.STORE_PAYLOAD_FORMAT
+        return store_keys.search_spec_fingerprint(self._random_seed, self._max_iteration_steps, extra)
+
+    def _frozen_ref_name(self, arch_hash: str, t: int) -> str:
+        """`frozen/<arch_hash>-t<t>-<spec>`: the iteration is part of the
+        key, because a re-selected winner has its previous iteration's
+        structural hash but other numbers (its mixture weights trained
+        further)."""
+        from adanet_tpu_torch.store import keys as store_keys
+
+        return store_keys.ref_name(arch_hash, "t%d" % int(t), self._store_spec_fingerprint())
+
+    def _store_lease_pin(self, digests) -> None:
+        """Adds digests to this search's lease and extends its TTL."""
+        if self._store_lease is None:
+            return
+        from adanet_tpu_torch.store import leases as store_leases
+
+        try:
+            store_leases.renew(self._artifact_store, self._store_lease, self._store_lease_ttl_secs(),
+                               add_digests=digests)
+        except store_leases.LeaseExpiredError:
+            # The pin lapsed and GC may have swept in the gap: acquire the
+            # whole closure anew rather than revive the dead lease.
+            self._store_lease = store_leases.acquire(
+                self._artifact_store, owner="search-%d" % os.getpid(), ttl_secs=self._store_lease_ttl_secs(),
+                digests=sorted(set(self._store_lease.digests) | set(digests)),
+            )
+        except OSError as exc:
+            _LOG.warning("Store lease renewal failed: %s", exc)
+
+    def _store_publish_iteration(self, t: int, info) -> None:
+        """Publishes iteration t's frozen winner: one ref binding the
+        architecture file and the frozen payload, with the model dir's
+        copies recorded as heal sources. Failure-isolated: a store outage
+        means no sharing, never a dead search."""
+        frozen_name = ckpt_lib.frozen_filename(t)
+        arch_path = os.path.join(self._model_dir, ckpt_lib.architecture_filename(t))
+        frozen_path = os.path.join(self._model_dir, frozen_name)
+        try:
+            from adanet_tpu_torch.store import keys as store_keys
+
+            with open(arch_path, "rb") as f:
+                arch_bytes = f.read()
+            with open(frozen_path, "rb") as f:
+                frozen_bytes = f.read()
+            store = self._artifact_store
+            arch_digest = store.put(arch_bytes)
+            frozen_digest = store.put(frozen_bytes)
+            ref = store.put_ref(
+                "frozen",
+                self._frozen_ref_name(store_keys.architecture_hash(json.loads(arch_bytes)), t),
+                {"architecture.json": arch_digest, self.STORE_PAYLOAD_ENTRY: frozen_digest},
+                meta={"iteration_number": int(t), "global_step": int(info.global_step)},
+                sources=[arch_path, frozen_path],
+            )
+            info.store_refs[frozen_name] = ref["blobs"].get(self.STORE_PAYLOAD_ENTRY, frozen_digest)
+            self._store_lease_pin(sorted(set(ref["blobs"].values())))
+        except Exception:
+            _LOG.exception("Store publication for iteration %d failed; the search continues without sharing it.", t)
+
+    def _store_reconcile(self, info) -> None:
+        """The chief's start: publishes again each completed iteration
+        whose ref is missing (a crash between the artifact and the ref
+        writes, or a store given to a model dir trained without one),
+        and, with `export_serving`, each generation's closure (a
+        publisher killed mid-closure; the puts heal a torn blob)."""
+        from adanet_tpu_torch.store import keys as store_keys
+
+        for t in range(info.iteration_number):
+            arch_path = os.path.join(self._model_dir, ckpt_lib.architecture_filename(t))
+            if not (os.path.exists(arch_path) and os.path.exists(os.path.join(self._model_dir,
+                                                                             ckpt_lib.frozen_filename(t)))):
+                continue  # fsck owns broken chains
+            try:
+                arch_hash = store_keys.architecture_hash_from_file(arch_path)
+            except (OSError, ValueError):
+                continue
+            try:
+                missing = self._artifact_store.get_ref("frozen", self._frozen_ref_name(arch_hash, t)) is None
+            except Exception:
+                _LOG.exception("Store ref read for iteration %d failed.", t)
+                continue
+            if missing:
+                self._store_publish_iteration(t, info)
+        if self._export_serving:
+            from adanet_tpu_torch.serving import publisher
+
+            for t, _ in publisher.list_generations(self._model_dir):
+                publisher.publish_ref_closure(self._artifact_store, self._model_dir, t)
+
+    def _try_store_replay(self, t: int, info) -> bool:
+        """Grafts iteration t from the store when the replay config
+        records its winner there: no batch, no training step, no kernel
+        launch. False (train it instead) whenever anything is missing."""
+        if (
+            self._replay_config is None
+            or self._artifact_store is None
+            or not coordination.is_chief()
+            or coordination.process_count() > 1
+        ):
+            return False
+        get_hash = getattr(self._replay_config, "get_architecture_hash", None)
+        arch_hash = get_hash(t) if get_hash is not None else None
+        if arch_hash is None:
+            return False
+        store = self._artifact_store
+        from adanet_tpu_torch.store.blobstore import StoreError
+
+        try:
+            ref = store.get_ref("frozen", self._frozen_ref_name(arch_hash, t))
+            if ref is None:
+                return False
+            blobs = ref.get("blobs", {})
+            if not {"architecture.json", self.STORE_PAYLOAD_ENTRY} <= set(blobs):
+                return False
+            arch_bytes = store.get(blobs["architecture.json"])
+            frozen_bytes = store.get(blobs[self.STORE_PAYLOAD_ENTRY])
+        except (StoreError, OSError, ValueError) as exc:
+            _LOG.warning("Warm start for iteration %d unavailable (%s); training it instead.", t, exc)
+            return False
+        arch_obj = json.loads(arch_bytes)
+        # The artifacts land byte for byte as the trained iteration's did,
+        # and the manifest advances as `_complete_iteration` advances it.
+        frozen_name = ckpt_lib.frozen_filename(t)
+        ckpt_lib.write_text(self._model_dir, ckpt_lib.architecture_filename(t), arch_bytes.decode())
+        info.digests[frozen_name] = ckpt_lib.write_payload_bytes(self._model_dir, frozen_name, frozen_bytes)
+        info.store_refs[frozen_name] = blobs[self.STORE_PAYLOAD_ENTRY]
+        stale_state = info.iteration_state_file
+        info.iteration_number = t + 1
+        info.iteration_state_file = None
+        info.replay_indices = list(arch_obj.get("replay_indices", []))
+        info.global_step = int(arch_obj.get("global_step", info.global_step))
+        info.history.append(
+            {"iteration_number": t, "global_step": int(info.global_step), "generation": info.generation + 1}
+        )
+        ckpt_lib.write_manifest(self._model_dir, info)
+        self._remove_state_file(stale_state)
+        # As after a trained iteration: the graft is graftable in turn
+        # even if this process dies before the search ends.
+        self._write_replay_record()
+        self._store_lease_pin(sorted(set(blobs.values())))
+        if self._export_serving and not self._warned_replay_serving:
+            # A graft has no trained state (and no sample batch) to export.
+            self._warned_replay_serving = True
+            _LOG.warning(
+                "Warm-started iterations do not publish serving generations (no trained state to export); run "
+                "export_saved_model after the replay, or continue the search past the replayed prefix."
+            )
+        self._store_graft_count += 1
+        metrics_lib.registry().counter("estimator.replay.store_grafts").inc()
+        _LOG.info("Iteration %d warm-started from the artifact store (architecture %s): no training.", t,
+                  arch_hash[:12])
+        return True

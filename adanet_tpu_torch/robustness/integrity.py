@@ -22,6 +22,11 @@ file degrades to "resume from the previous generation":
 
 `Estimator.train` runs `fsck(repair=True)` before restoring;
 `adanet_tpu_torch/tools/ckpt_fsck.py` is the operator CLI over it.
+
+Beside the training chain, `verify_serving_generation` is the
+verify-on-load check the serving pool runs before a flip, and
+`serving_report` / `store_report` are `ckpt_fsck --json`'s `serving` and
+`store` sections, so that fsck predicts what the pool will do.
 """
 
 from __future__ import annotations
@@ -38,6 +43,13 @@ from adanet_tpu_torch.core import checkpoint as ckpt
 _LOG = logging.getLogger("adanet_tpu_torch")
 
 STALE_SUFFIX = ".stale"
+
+#: The serving-generation contract (mirrors `core/export.py`'s
+#: SERVING_FILE and SIGNATURE_FILE, not imported: this layer loads
+#: without the export stack). A published `serving/gen-<t>/` carries both
+#: files and a checksummed `generation.json` binding their digests.
+GENERATION_MANIFEST = "generation.json"
+REQUIRED_SERVING_FILES = ("serving.pt2", "serving_signature.json")
 
 #: Exit codes of `ckpt_fsck` (usage errors exit 64, EX_USAGE, so that 2
 #: is unambiguous).
@@ -264,3 +276,79 @@ def fsck(model_dir: str, repair: bool = False) -> FsckReport:
     report.ok = not report.issues
     report.info = info
     return report
+
+
+# ------------------------------------------------- serving generation audit
+
+
+def verify_serving_generation(gen_dir: str) -> List[str]:
+    """Verifies one published `serving/gen-<t>/` directory.
+
+    Returns the list of issues; empty means the generation is eligible
+    to serve. This is the verify-on-load check `serving.model_pool`
+    runs before a flip, so `ckpt_fsck --json` audits the verdict the
+    server would reach.
+    """
+    issues: List[str] = []
+    manifest_path = os.path.join(gen_dir, GENERATION_MANIFEST)
+    try:
+        with open(manifest_path) as f:
+            obj = json.load(f)
+    except (OSError, ValueError) as exc:
+        return ["generation manifest unreadable: %s" % exc]
+    if not isinstance(obj, dict) or "digests" not in obj:
+        return ["generation manifest malformed (no digests map)"]
+    # The self-checksum is required: the publisher always writes one, so
+    # its absence means the manifest was rewritten, and accepting it
+    # would let a rewritten digests map launder rotted artifacts.
+    checksum = obj.pop("checksum", None)
+    if checksum is None:
+        return ["generation manifest missing checksum"]
+    if checksum != ckpt.sha256_hex(json.dumps(obj, sort_keys=True).encode()):
+        return ["generation manifest checksum mismatch"]
+    digests = dict(obj.get("digests", {}))
+    for name in REQUIRED_SERVING_FILES:
+        if name not in digests:
+            issues.append("required serving file not recorded: %s" % name)
+    for name, digest in sorted(digests.items()):
+        verdict = ckpt.verify_file(gen_dir, name, expected=digest)
+        if verdict is not True:
+            issues.append(
+                "digest mismatch or missing file: %s" % name
+                if verdict is False
+                else "no digest verdict for: %s" % name
+            )
+    return issues
+
+
+def serving_report(model_dir: str) -> dict:
+    """Per-generation serving eligibility for a model dir.
+
+    `selected_generation` is the generation a freshly started pool would
+    serve: the newest eligible one (`ModelPool` skips to the newest
+    generation and rejects what fails this same check).
+    """
+    from adanet_tpu_torch.serving import publisher
+
+    generations = []
+    selected = None
+    for t, path in publisher.list_generations(model_dir):
+        issues = verify_serving_generation(path)
+        generations.append({"iteration_number": t, "serving_eligible": not issues, "issues": issues})
+        if not issues:
+            selected = t
+    return {"generations": generations, "selected_generation": selected}
+
+
+# --------------------------------------------------- artifact store audit
+
+
+def store_report(store_root: str, repair: bool = False, gc_dry_run: bool = False) -> dict:
+    """The `store` section of `ckpt_fsck --json`, over `store.fsck_store`:
+    blob census, corrupt and quarantined blobs, dangling refs, the lease
+    census and, under `--gc --dry-run`, the would-GC set. `repair`
+    quarantines corrupt blobs and heals them from any duplicate
+    referencer, the path a live `store.get` takes."""
+    from adanet_tpu_torch.store import ArtifactStore, fsck_store
+
+    return fsck_store(ArtifactStore(store_root), repair=repair, gc_dry_run=gc_dry_run)

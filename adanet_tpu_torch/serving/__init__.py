@@ -3,7 +3,8 @@ batch requests into fixed buckets, and answer them through a bounded,
 admission-controlled front end.
 
 `ServingFrontend(Batcher(ModelPool(model_dir))).start()` serves the
-newest healthy generation under `<model_dir>/serving/gen-<t>/`.
+newest healthy generation under `<model_dir>/serving/gen-<t>/`; a later
+generation serves only after its canary window (`PoolConfig`).
 """
 
 from adanet_tpu_torch.serving.batcher import (  # noqa: F401
@@ -23,6 +24,7 @@ from adanet_tpu_torch.serving.model_pool import (  # noqa: F401
     GenerationRecord,
     ModelPool,
     NoServableGeneration,
+    PoolConfig,
 )
 from adanet_tpu_torch.serving import publisher  # noqa: F401
 from adanet_tpu_torch.serving.publisher import publish_generation  # noqa: F401

@@ -21,9 +21,16 @@ at level 0 also runs the full ensemble on the batch and scores the
 argmax disagreement of the level-0 rows; past the published bound the
 cascade rolls back to ensemble-only serving for that generation.
 
+The batcher also runs the pool's canary mirror: while a candidate
+generation is staged (`ModelPool.canary_record`), each executed batch is
+replayed on the candidate's program on the same padded bucket, and its
+verdict (it ran, its outputs are finite, and their max absolute
+divergence from the incumbent's) goes back to the pool's gate
+(`report_canary`). A raising candidate counts as unhealthy and never
+reaches the request.
+
 Thread contract: `execute` is NOT thread-safe; the serving front-end's
-single executor thread is the serializer. The canary mirror comes with
-ROADMAP item 10's second half.
+single executor thread is the serializer.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ import numpy as np
 
 from adanet_tpu_torch.observability import metrics as metrics_lib
 from adanet_tpu_torch.robustness import faults
-from adanet_tpu_torch.serving.model_pool import GenerationRecord, ModelPool, to_host
+from adanet_tpu_torch.serving.model_pool import GenerationRecord, ModelPool, outputs_finite, to_host
 
 _LOG = logging.getLogger("adanet_tpu_torch")
 
@@ -126,6 +133,18 @@ def split_rows(outputs: Any, sizes: Sequence[int]) -> List[Any]:
     return out
 
 
+def max_divergence(a: Any, b: Any) -> Optional[float]:
+    """Max |a - b| over the float leaves of two host output trees."""
+    worst = None
+    for la, lb in zip(_leaves(a), _leaves(b)):
+        la, lb = np.asarray(la), np.asarray(lb)
+        if not np.issubdtype(la.dtype, np.floating):
+            continue
+        delta = float(np.max(np.abs(la - lb))) if la.size else 0.0
+        worst = delta if worst is None else max(worst, delta)
+    return worst
+
+
 class Batcher:
     """Padded-bucket executor over the pool's incumbent generation."""
 
@@ -149,6 +168,7 @@ class Batcher:
         self._g_row_fallthrough = reg.gauge("serving.cascade.row_fallthrough_rate")
         self._g_shadow_divergence = reg.gauge("serving.cascade.shadow_divergence")
         self._m_cascade_rollbacks = reg.counter("serving.cascade.rollbacks")
+        self._g_canary_divergence = reg.gauge("serving.batcher.canary_divergence")
         #: Cascade tier of the last dispatched batch (0 cheap, 1 full,
         #: None = no cascade ran), read by the frontend right after
         #: `execute` on its executor thread.
@@ -188,7 +208,10 @@ class Batcher:
             outputs = self._execute_cascade(record, padded, real_rows)
         if outputs is None:
             outputs = record.program(padded)
-        return record, split_rows(outputs, sizes)
+        outputs = to_host(outputs)
+        split = split_rows(outputs, sizes)
+        self._mirror_canary(padded, outputs)
+        return record, split
 
     # -------------------------------------------------------------- cascade
 
@@ -376,3 +399,32 @@ class Batcher:
             for old in [k for k in self._cascade_digests if k < t - 2]:
                 del self._cascade_digests[old]
         return self._cascade_digests[t]
+
+    # --------------------------------------------------------------- canary
+
+    def _mirror_canary(self, padded: Any, incumbent_outputs: Any) -> None:
+        """Replays the batch on a staged candidate and reports its health.
+
+        `incumbent_outputs` may hold cascade level-0 answers (the whole
+        batch, or the clear rows of a per-row split); their divergence
+        from the candidate's full program would measure the calibration,
+        not the candidate, so the divergence is skipped whenever any row
+        was answered at level 0 (finiteness still counts).
+        """
+        candidate = self.pool.canary_record()
+        if candidate is None:
+            return
+        any_cheap = self.last_cascade_level == 0 or (
+            self.last_row_fallthrough is not None and not bool(np.all(self.last_row_fallthrough))
+        )
+        try:
+            mirrored = to_host(candidate.program(padded))
+            ok = outputs_finite(mirrored)
+            divergence = None if any_cheap else max_divergence(incumbent_outputs, mirrored)
+        except Exception as exc:
+            _LOG.error("Canary execution failed for generation %d: %s: %s", candidate.iteration_number,
+                       type(exc).__name__, exc)
+            ok, divergence = False, None
+        if divergence is not None:
+            self._g_canary_divergence.set(divergence)
+        self.pool.report_canary(ok, divergence)

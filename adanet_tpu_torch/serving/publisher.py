@@ -11,15 +11,23 @@ programs (`core/export.py`):
 
 The export lands in a hidden staging directory and is renamed into
 place, so a reader never observes a half-written generation.
-Publication is set-once per iteration. `generation.json` binds the
-SHA-256 digest of every artifact (the programs included) to the
-iteration number with a self-checksum, which `verify_generation` checks
-before a pool loads a generation. With a cascade
-(`serving.fleet.cascade.CascadeSpec`) the cheap member's program is
-exported beside the ensemble's and calibrated on the spec's held-out
-features inside the same staging directory, so program and policy land
-in one digest-sealed unit. Store ref closures (`store=`) come with
-ROADMAP item 10's second half.
+Publication is set-once per iteration; a quarantined `gen-<t>.corrupt`
+does not block a fresh publish of iteration t. `generation.json` binds
+the SHA-256 digest of every artifact (the programs included) to the
+iteration number with a self-checksum, which
+`robustness.integrity.verify_serving_generation` checks before a pool
+loads a generation. With a cascade (`serving.fleet.cascade.CascadeSpec`)
+the cheap member's program is exported beside the ensemble's and
+calibrated on the spec's held-out features inside the same staging
+directory, so program and policy land in one digest-sealed unit.
+
+With an artifact store (`store=`), each generation is also published as
+a ref closure (`serving/<dir-id>-gen<t>`): every artifact lands in the
+content-addressed store with the generation directory recorded as its
+heal source, so that a serving pool can lease the closure against GC.
+The closure is set-once, failure-isolated, and attempted again when the
+directory already exists but the ref does not (a publisher killed
+between the two).
 """
 
 from __future__ import annotations
@@ -33,11 +41,13 @@ import shutil
 import tempfile
 from typing import Any, Callable, List, Optional, Tuple
 
+from adanet_tpu_torch.robustness import integrity
+
 _LOG = logging.getLogger("adanet_tpu_torch")
 
 #: Subdirectory of the model dir holding the generation chain.
 SERVING_SUBDIR = "serving"
-GENERATION_MANIFEST = "generation.json"
+GENERATION_MANIFEST = integrity.GENERATION_MANIFEST
 
 _GEN_RE = re.compile(r"^gen-(\d+)$")
 
@@ -57,7 +67,7 @@ def generation_dir(model_dir: str, iteration_number: int) -> str:
 def list_generations(model_dir: str) -> List[Tuple[int, str]]:
     """(iteration_number, absolute path) of published generations, sorted.
 
-    Staging directories never match the `gen-<t>` pattern, so readers only
+    Quarantined (`*.corrupt`) and staging directories never match the `gen-<t>` pattern, so readers only
     ever see complete publications.
     """
     root = serving_root(model_dir)
@@ -87,14 +97,12 @@ def _checksum(obj) -> str:
 
 def write_generation_manifest(gen_dir: str, iteration_number: int) -> None:
     """Records `generation.json` over the artifacts already in `gen_dir`."""
-    from adanet_tpu_torch.core.export import REQUIRED_SERVING_FILES
-
     digests = {
         name: _sha256_file(os.path.join(gen_dir, name))
         for name in sorted(os.listdir(gen_dir))
         if name != GENERATION_MANIFEST and os.path.isfile(os.path.join(gen_dir, name))
     }
-    missing = [name for name in REQUIRED_SERVING_FILES if name not in digests]
+    missing = [name for name in integrity.REQUIRED_SERVING_FILES if name not in digests]
     if missing:
         raise ValueError("Serving export incomplete; missing %s in %s" % (missing, gen_dir))
     obj = {"iteration_number": int(iteration_number), "digests": digests}
@@ -103,33 +111,6 @@ def write_generation_manifest(gen_dir: str, iteration_number: int) -> None:
         json.dump(obj, f, indent=2, sort_keys=True)
         f.flush()
         os.fsync(f.fileno())
-
-
-def verify_generation(gen_dir: str) -> List[str]:
-    """Problems with a published generation (empty when it is intact):
-    a missing or self-inconsistent manifest, a missing artifact, or an
-    artifact whose digest differs from the manifest's."""
-    try:
-        with open(os.path.join(gen_dir, GENERATION_MANIFEST)) as f:
-            obj = json.load(f)
-    except (OSError, ValueError) as exc:
-        return ["manifest unreadable: %s" % exc]
-    body = {k: v for k, v in obj.items() if k != "checksum"}
-    if obj.get("checksum") != _checksum(body):
-        return ["manifest checksum mismatch"]
-    issues = []
-    for name, digest in sorted(obj.get("digests", {}).items()):
-        path = os.path.join(gen_dir, name)
-        if not os.path.isfile(path):
-            issues.append("%s missing" % name)
-        elif _sha256_file(path) != digest:
-            issues.append("%s digest mismatch" % name)
-    return issues
-
-
-def read_iteration_number(gen_dir: str) -> int:
-    with open(os.path.join(gen_dir, GENERATION_MANIFEST)) as f:
-        return int(json.load(f)["iteration_number"])
 
 
 def publish_generation(
@@ -147,14 +128,13 @@ def publish_generation(
     when given.
 
     Returns the published directory, or None when this generation was
-    already published (set-once).
+    already published (set-once). With `store`, the generation's ref
+    closure is published too, on both paths (`publish_ref_closure`).
     """
-    if store is not None:
-        raise NotImplementedError(
-            "publishing a generation to an artifact store is not ported yet (ROADMAP item 10, part two)"
-        )
     final = generation_dir(model_dir, iteration_number)
     if os.path.isdir(final):
+        if store is not None:
+            publish_ref_closure(store, model_dir, iteration_number)
         return None
     root = serving_root(model_dir)
     os.makedirs(root, exist_ok=True)
@@ -177,6 +157,8 @@ def publish_generation(
     except BaseException:
         shutil.rmtree(staging, ignore_errors=True)
         raise
+    if store is not None:
+        publish_ref_closure(store, model_dir, iteration_number)
     _LOG.info("Published serving generation %d at %s", iteration_number, final)
     return final
 
@@ -237,3 +219,50 @@ def read_digests(gen_dir: str) -> dict:
             return dict(json.load(f).get("digests", {}))
     except (OSError, ValueError):
         return {}
+
+
+def serving_ref_name(model_dir: str, iteration_number: int) -> str:
+    """Store ref name of one model dir's generation closure."""
+    from adanet_tpu_torch.store import keys as store_keys
+
+    dir_id = store_keys.sha256_hex(os.path.abspath(model_dir).encode())[:16]
+    return store_keys.ref_name(dir_id, "gen%d" % int(iteration_number))
+
+
+def publish_ref_closure(store, model_dir: str, iteration_number: int) -> Optional[dict]:
+    """Publishes a generation's artifacts as a store ref closure.
+
+    Failure-isolated: a store outage means "this generation is not
+    shared or healable", never a dead searcher. Returns the ref document,
+    or None when the closure already landed (set-once), publication
+    failed, or the directory holds no artifact.
+    """
+    gen_dir = generation_dir(model_dir, iteration_number)
+    name = serving_ref_name(model_dir, iteration_number)
+    try:
+        if store.get_ref("serving", name) is not None:
+            return None
+        blobs = {}
+        sources = []
+        for entry in sorted(os.listdir(gen_dir)):
+            path = os.path.join(gen_dir, entry)
+            if not os.path.isfile(path):
+                continue
+            with open(path, "rb") as f:
+                blobs[entry] = store.put(f.read())
+            sources.append(path)
+        if not blobs:
+            return None
+        return store.put_ref(
+            "serving",
+            name,
+            blobs,
+            meta={"model_dir": os.path.abspath(model_dir), "iteration_number": int(iteration_number)},
+            sources=sources,
+        )
+    except Exception:
+        _LOG.exception(
+            "Store closure publication for serving generation %d failed; the on-disk generation is unaffected.",
+            iteration_number,
+        )
+        return None

@@ -22,7 +22,7 @@
 4. Main path at full width: a two-member NASNet-A (6@768) CIFAR ensemble
    (18 cells, 32 filters, bf16, fused sep-conv, SCALAR fused combine),
    weights from a seeded `torch.Generator`, batch-norm statistics random
-   with count 1, fixed mixture weights. It publishes `gen-1`, serves mixed
+   with count 1, fixed mixture weights. It publishes `gen-0`, serves mixed
    requests of 1 to 32 rows through ServingFrontend -> Batcher ->
    ModelPool, checks every result is ok, finite and well formed, and
    checks the launch counts (zeroed just before): one K0 per gated
@@ -325,12 +325,19 @@
    only torch, numpy and `adanet_tpu_torch.ops` at 1, 7 and every bucket
    (bitwise `predict`, K1 exact inside it), and on the CPU at 1 and 7
    rows (EXPORT_CPU_BOUND); their processes run while 47 does. 47.
-   `serve_while_search`: phase 11's search at 3 x SWS_STEPS with
-   `export_serving` and the default cascade while a frontend serves the
-   same model dir: every request ok, >= 2 flips, the last generation's
-   answers bitwise the offline programs'; K1 exact (the search's, the
-   publications' sample and calibration calls, and one a served program
-   call for each K1 in that program); level-0 share and agreement. 48.
+   `serve_while_search`, the chaos gate of tests/test_serving.py: phase
+   11's search at 3 x SWS_STEPS with `export_serving` and the default
+   cascade in a process of its own (`--sws-search`), SIGKILLed by a torn
+   write of iteration 1's frozen payload and started again, while a
+   frontend serves the same model dir under `PoolConfig(canary_requests=
+   2)` with its second flip (gen-1's) rotted at `serving.flip`: every
+   request ok, also while the searcher is dead, >= 2 flips (the last by
+   its canary window), gen-1 rolled back and quarantined, the last
+   generation's answers bitwise the offline programs'; K1 exact in this
+   process (one a served program call, the canary mirror's included, for
+   each K1 in that program) and in the restarted searcher (iterations
+   1-2's steps, the publications' sample and calibration calls, read off
+   each program at its flip); level-0 share and agreement. 48.
    `serving_example`: the tutorial on the card (no K1: dict logits),
    in a process of its own beside 46-47. Then K1 at every shape the
    group launched it at (`check_group_combines`). Phases 42-45 have the
@@ -342,6 +349,24 @@
    serving phase then follows. It prints `serve_nasnet_program:`
    (export and gate seconds, the program's operations, p50 beside PR
    6's).
+   `store_warm_start` (after phase 11, whose search publishes both
+   iterations to `<dir>/store`): a second Estimator in a fresh process
+   (`--graft-only`) and model dir, given phase 11's `replay.json` and the
+   store, grafts both iterations: zero training steps, batches, launches
+   and nvcc builds, phase 11's payloads byte for byte, its predictions
+   bitwise; `ckpt_fsck --json --store --gc --dry-run` with the closure
+   leased: clean, nothing to collect. Prints the graft's seconds against
+   phase 11's.
+   `canary_flip` (after phase 4, on its pool, `PoolConfig(canary_
+   requests=8)`, serving gen-0): CANARY_REQUESTS unmirrored bucket-32
+   batches; gen-1 (gen-0's artifacts copied byte for byte under a
+   manifest of its own) staged as the canary and promoted after
+   CANARY_REQUESTS mirrored batches, divergence 0, K1 and K2 exactly
+   twice the incumbent's in the window; gen-2 (its program rotted after
+   its manifest) rejected before load, quarantined, not retried; a fixed
+   request bitwise alike before and after; fsck selects generation 1.
+   Prints the mirrored and unmirrored batch ms, the gate's load s and the
+   launch counts.
 
 Cut for the long-context and export phases' time (PR 15):
 `nasnet_train_vs_cpu` 2 x 2 -> 2 x 1 steps, the SIGTERMed trainer 2 x 10
@@ -381,7 +406,10 @@ launches on the NASNet training paths, `train_launches`; both with
 `round_robin_search_launches`, `round_robin_gate_launches` and
 `spmd_two_process_launches` (one a rank), `multihost_round_robin_launches`
 and `elastic_two_process_launches` (chief, worker), `elastic_search_launches`
-and `speculation_launches` (0)), the `imagenet_round_robin:`,
+and `speculation_launches` (0), `serve_while_search_searcher_launches` and
+`store_warm_start_launches` (0); K0's, K1's and K2's with
+`canary_flip_launches` and `canary_window_launches`), the
+`store_warm_start:`, `canary_flip:`, `imagenet_round_robin:`,
 `round_robin_search:`, `round_robin_gate:`, `spmd_two_process:`,
 `chief_worker:`, `elastic_search:`, `multihost_round_robin:`,
 `elastic_two_process:` and `multihost_peer_death:` lines,
@@ -726,7 +754,7 @@ def publish(model_dir, seed):
     _, _, predict_fn = served_ensemble(seed, "cuda")
     sample = {"image": np.zeros((1, 32, 32, 3), np.float32)}
     t0 = time.perf_counter()
-    path = publish_generation(model_dir, 1, predict_fn, sample, device="cuda")
+    path = publish_generation(model_dir, 0, predict_fn, sample, device="cuda")
     info = dict(
         publish_secs=time.perf_counter() - t0,
         program_bytes=os.path.getsize(os.path.join(path, export.SERVING_FILE)),
@@ -1624,14 +1652,16 @@ def serve(model_dir, sep_shapes, rng, predict_fn, published=None):
     """The main path: pool -> batcher -> frontend over the hermetic
     program (`serve_nasnet_program`), with the launch counters zeroed
     just before and read just after; then the pool's program against
-    the in-process predict (`check_served_program`)."""
+    the in-process predict (`check_served_program`). Returns (the counts,
+    the numbers, the served program, the pool, which `canary_flip` takes
+    over)."""
     import numpy as np
     import torch
 
     from adanet_tpu_torch import ops
     from adanet_tpu_torch.observability import metrics
     from adanet_tpu_torch.ops import tuning
-    from adanet_tpu_torch.serving import Batcher, FrontendConfig, ModelPool, ServingFrontend
+    from adanet_tpu_torch.serving import Batcher, FrontendConfig, ModelPool, PoolConfig, ServingFrontend
     from adanet_tpu_torch.store import ArtifactStore
 
     def request(n):
@@ -1644,9 +1674,9 @@ def serve(model_dir, sep_shapes, rng, predict_fn, published=None):
     dispatched_before = dispatches.value
     ops.reset_launch_counts()
     t_pool = time.monotonic()
-    pool = ModelPool(model_dir)
+    pool = ModelPool(model_dir, PoolConfig(canary_requests=CANARY_REQUESTS))
     if not pool.poll() or pool.active is None:
-        raise AssertionError("the pool did not bring up gen-1: %s" % pool.events)
+        raise AssertionError("the pool did not bring up gen-0: %s" % pool.events)
     batcher = Batcher(pool)
     frontend = ServingFrontend(batcher, FrontendConfig(default_deadline_secs=120.0)).start()
     latencies = []
@@ -1732,7 +1762,7 @@ def serve(model_dir, sep_shapes, rng, predict_fn, published=None):
         gate_load_smoke_secs=gate_secs, bitwise_vs_in_process_predict_rows=bitwise_rows,
         p50_latency_ms=stats["p50_latency_ms"],
         pr6_p50_latency_ms="131.68-212.10", launches=counts, card=card_line())))
-    return counts, stats, program
+    return counts, stats, program, pool
 
 
 def profile_batch(program, rng, batches=3):
@@ -1995,6 +2025,7 @@ def train_search(model_dir, probes=None):
     estimator = _probing(Estimator, {} if probes is None else probes)(
         head, generator, max_iteration_steps=TRAIN_STEPS, max_iterations=TRAIN_ITERATIONS,
         ensemblers=[ensembler], model_dir=search_dir, log_every_steps=0, device="cuda",
+        artifact_store=os.path.join(model_dir, "store"),
     )
     # Iteration 1 runs global steps TRAIN_STEPS + 1 ... 2 x TRAIN_STEPS.
     clock = _StepClock(input_fn(xtr, ytr, TRAIN_BATCH), first=TRAIN_STEPS + 11,
@@ -6030,20 +6061,99 @@ class _CountedPrograms:
         self._export.load_serving_program = self._load
 
 
+def _sws_estimator(directory):
+    """`serve_while_search`'s search: phase 11's configuration at
+    SWS_ITERATIONS x SWS_STEPS with `export_serving` (the default cascade)."""
+    from adanet_tpu_torch.core.estimator import Estimator
+
+    head, generator, ensembler = search_parts()
+    return Estimator(head, generator, max_iteration_steps=SWS_STEPS, max_iterations=SWS_ITERATIONS,
+                     ensemblers=[ensembler], model_dir=directory, log_every_steps=0, device="cuda",
+                     export_serving=True)
+
+
+def sws_search_main(directory):
+    """`serve_while_search`'s searcher (`--sws-search`): trains the search
+    from where `directory` stands, launch counts zeroed just before and
+    read just after, and prints `sws_search:` with them. A fault armed
+    through ADANET_FAULTS may kill it first."""
+    import torch
+
+    from adanet_tpu_torch import ops
+    from adanet_tpu_torch.examples.synthetic_digits import input_fn, make_dataset
+
+    xtr, ytr = make_dataset(TRAIN_EXAMPLES, seed=7)
+    estimator = _sws_estimator(directory)
+    start = estimator.latest_iteration_number()
+    ops.reset_launch_counts()
+    estimator.train(input_fn(xtr, ytr, TRAIN_BATCH), max_steps=10**6)
+    torch.cuda.synchronize()
+    print("sws_search: " + json.dumps(dict(start_iteration=start, iterations=estimator.latest_iteration_number(),
+                                           launches=ops.launch_counts())), flush=True)
+
+
+class _FlipPrograms:
+    """While entered, the K1 custom ops of each program in a generation's
+    directory, read when the pool's `serving.flip` seam is reached (before
+    an armed fault can rot the program), by the directory's name."""
+
+    def __enter__(self):
+        from adanet_tpu_torch.core import export
+        from adanet_tpu_torch.robustness import faults
+
+        self._faults, self._trip = faults, faults.trip
+        self.k1 = {}
+
+        def trip(site, path=None, data=None):
+            if site == "serving.flip" and path is not None:
+                gen_dir = os.path.dirname(path)
+                self.k1[os.path.basename(gen_dir)] = {
+                    name: _k1_nodes(os.path.join(gen_dir, name))
+                    for name in (export.SERVING_FILE, export.CASCADE_FILE)
+                    if os.path.exists(os.path.join(gen_dir, name))
+                }
+            return self._trip(site, path=path, data=data)
+
+        faults.trip = trip
+        return self
+
+    def __exit__(self, *exc):
+        self._faults.trip = self._trip
+
+
+def _published_k1(programs):
+    """K1 launches of one generation's publication: the program's sample
+    run, and with a cascade the calibration's full call and the cheap
+    program's sample run and calibration call."""
+    full = programs["serving.pt2"]
+    cheap = programs.get("cascade.pt2")
+    return full if cheap is None else 2 * full + 2 * cheap
+
+
 def serve_while_search(model_dir):
     """Phase 11's search at SWS_ITERATIONS x SWS_STEPS with
-    export_serving=True and the default cascade, while a frontend over
-    the same model_dir answers a stream of requests (1 to 32 rows) from
-    another thread: every request answered ok, at least 2 flips; at the
-    end, the cascade-free answers of the last generation bitwise the
-    offline `load_serving_program` on the same padded bucket, and each
-    cascade answer's rows bitwise the offline level-0 program's (clear
-    rows) or the full program's on the residual bucket (the rest).
-    K1 exact: one a candidate a training step, and for each generation
-    published, one a K1 of its program for the export's sample run and,
-    with a cascade, for the calibration's full call, and as many for the
-    cascade program's sample run and calibration call; one a K1 of a
-    served program for each call the pool and the batcher made to it.
+    export_serving=True and the default cascade, in a process of its own
+    (`--sws-search`), while a frontend over the same model_dir answers a
+    stream of requests (1 to 32 rows) from another thread under a pool
+    with `PoolConfig(canary_requests=2)`: the chaos gate of
+    tests/test_serving.py. The searcher is SIGKILLed by an armed torn
+    write of iteration 1's frozen payload (`checkpoint.write:torn:
+    after=1`) and started again, which heals and finishes the search;
+    the pool's second flip (gen-1's) is rotted at `serving.flip`, so it
+    is rejected, quarantined and rolled back; the last generation is
+    promoted through its canary window. Every request answered ok, zero
+    errors, >= 2 flips, >= 1 rollback; at the end, the cascade-free
+    answers of the last generation bitwise the offline
+    `load_serving_program` on the same padded bucket, and each cascade
+    answer's rows bitwise the offline level-0 program's (clear rows) or
+    the full program's on the residual bucket (the rest). K1 exact in
+    this process: one a K1 of a served program for each call the pool
+    and the batcher (the canary mirror included) made to it; and in the
+    restarted searcher: one a candidate a training step of iterations 1
+    and 2, and for each generation it published, one a K1 of its program
+    for the export's sample run and, with a cascade, for the
+    calibration's full call, and as many for the cascade program's sample
+    run and calibration call (the killed searcher's counts die with it).
     Prints the level-0 share and the published agreement."""
     import threading
 
@@ -6052,19 +6162,16 @@ def serve_while_search(model_dir):
 
     from adanet_tpu_torch import ops
     from adanet_tpu_torch.core import export
-    from adanet_tpu_torch.core.estimator import Estimator
-    from adanet_tpu_torch.examples.synthetic_digits import input_fn, make_dataset
-    from adanet_tpu_torch.serving import (Batcher, BatcherConfig, FrontendConfig, ModelPool, ServingFrontend,
-                                          batcher as batcher_lib, publisher)
+    from adanet_tpu_torch.examples.synthetic_digits import make_dataset
+    from adanet_tpu_torch.observability import flightrec
+    from adanet_tpu_torch.robustness import faults
+    from adanet_tpu_torch.serving import (Batcher, BatcherConfig, FrontendConfig, ModelPool, PoolConfig,
+                                          ServingFrontend, batcher as batcher_lib, publisher)
 
-    head, generator, ensembler = search_parts()
-    xtr, ytr = make_dataset(TRAIN_EXAMPLES, seed=7)
     xte = make_dataset(256, seed=12)[0].reshape(256, -1)
     directory = os.path.join(model_dir, "serve_while_search")
-    estimator = Estimator(head, generator, max_iteration_steps=SWS_STEPS, max_iterations=SWS_ITERATIONS,
-                          ensemblers=[ensembler], model_dir=directory, log_every_steps=0, device="cuda",
-                          export_serving=True)
-    pool = ModelPool(directory)
+    flightrec.uninstall()
+    pool = ModelPool(directory, PoolConfig(canary_requests=SWS_CANARY_REQUESTS))
     batcher = Batcher(pool)
     frontend = ServingFrontend(batcher, FrontendConfig(default_deadline_secs=120.0, poll_interval_secs=0.05)).start()
     results, stop = [], threading.Event()
@@ -6081,19 +6188,42 @@ def serve_while_search(model_dir):
             offset += n
             results.append(frontend.submit({"x": rows}, timeout=120.0))
 
+    def searcher(fault=None):
+        environ = dict(os.environ, OMP_NUM_THREADS="1")
+        environ.pop("ADANET_FAULTS", None)
+        if fault:
+            environ["ADANET_FAULTS"] = fault
+        return subprocess.run([sys.executable, os.path.abspath(__file__), "--sws-search", directory],
+                              env=environ, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              timeout=PROCESS_TIMEOUT)
+
     thread = threading.Thread(target=client, daemon=True)
-    with _CountedPrograms() as programs:
+    with _CountedPrograms() as programs, _FlipPrograms() as flipped:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
+        faults.arm("serving.flip", "rot", after=1)
         try:
             thread.start()
-            estimator.train(input_fn(xtr, ytr, TRAIN_BATCH), max_steps=10**6)
-            deadline = time.time() + 60
-            while ((pool.active is None or pool.active.iteration_number < SWS_ITERATIONS - 1)
-                   and time.time() < deadline):
-                time.sleep(0.05)
+            killed = searcher("checkpoint.write:torn:after=1")
+            if killed.returncode != -signal.SIGKILL:
+                raise AssertionError("serve_while_search: the armed searcher returned %d\n%s"
+                                     % (killed.returncode, killed.stdout[-4000:]))
+            _wait_until("gen-0's bootstrap", lambda: pool.active is not None, timeout=120)
+            served_while_dead = len(results)
+            time.sleep(1.0)
+            served_while_dead = len(results) - served_while_dead
+            restarted = searcher()
+            lines = [line for line in restarted.stdout.splitlines() if line.startswith("sws_search: ")]
+            if restarted.returncode != 0 or not lines:
+                raise AssertionError("serve_while_search: the restarted searcher returned %d\n%s"
+                                     % (restarted.returncode, restarted.stdout[-4000:]))
+            search = json.loads(lines[-1][len("sws_search: "):])
+            _wait_until("the last generation's promotion",
+                        lambda: pool.active is not None and pool.active.iteration_number == SWS_ITERATIONS - 1,
+                        timeout=120)
             time.sleep(0.5)
         finally:
+            faults.disarm()
             stop.set()
             thread.join(timeout=120)
             drained = frontend.drain(timeout=120.0)
@@ -6103,26 +6233,27 @@ def serve_while_search(model_dir):
     gens = [t for t, _ in publisher.list_generations(directory)]
     bad = [r for r in results if not r.ok]
     levels = collections.Counter(r.cascade_level for r in results)
-    if not drained or bad or pool.flips < 2 or gens != list(range(SWS_ITERATIONS)) or not results:
-        raise AssertionError("serve_while_search: drained %s, failed %s, flips %d, generations %s, requests %d"
-                             % (drained, [(r.status, r.error) for r in bad[:3]], pool.flips, gens, len(results)))
+    quarantined = [name for name in os.listdir(publisher.serving_root(directory)) if ".corrupt" in name]
+    flips = [e for e in pool.events if e["event"] == "flip"]
+    if (not drained or bad or pool.flips < 2 or pool.rollbacks < 1 or flips[-1]["how"] != "canary"
+            or gens != [0, SWS_ITERATIONS - 1] or quarantined != ["gen-1.corrupt"] or not results
+            or not served_while_dead or {r.generation for r in results} - {e["iteration_number"] for e in flips}):
+        raise AssertionError("serve_while_search: drained %s, failed %s, events %s, generations %s, quarantined %s, "
+                             "requests %d (%d while the searcher was down)"
+                             % (drained, [(r.status, r.error) for r in bad[:3]], pool.events, gens, quarantined,
+                                len(results), served_while_dead))
     stats = batcher.cascade_stats()
     k1 = {path: _k1_nodes(path) for path in programs.calls}
-    published_k1 = 0
-    for t in gens:
-        gen_dir = publisher.generation_dir(directory, t)
-        full_k1 = k1.get(os.path.join(gen_dir, export.SERVING_FILE)) or _k1_nodes(
-            os.path.join(gen_dir, export.SERVING_FILE))
-        published_k1 += full_k1
-        if "cascade" in export.serving_signature(gen_dir):
-            cheap_path = os.path.join(gen_dir, export.CASCADE_FILE)
-            published_k1 += full_k1 + 2 * (k1.get(cheap_path) or _k1_nodes(cheap_path))
-    k1_split = dict(search=SWS_STEPS * sum(_grow_candidates(2, SWS_ITERATIONS)), publications=published_k1,
-                    served=sum(calls * k1[path] for path, calls in programs.calls.items()))
-    expected = sum(k1_split.values())
-    if counts["combine"] != expected or counts["sepconv"] or counts["cell"]:
-        raise AssertionError("serve_while_search: launches %s, expected %d K1 (%s) and no K2 or K3; program "
-                             "calls %s, K1 a call %s" % (counts, expected, k1_split, dict(programs.calls), k1))
+    served = sum(calls * k1[path] for path, calls in programs.calls.items())
+    cheap = _grow_candidates(2, SWS_ITERATIONS)
+    searched = dict(search=SWS_STEPS * sum(cheap[1:]), publications=sum(
+        _published_k1(flipped.k1["gen-%d" % t]) for t in range(1, SWS_ITERATIONS)))
+    expected_search = dict(copy=search["launches"]["copy"], combine=sum(searched.values()), sepconv=0, cell=0)
+    if (counts["combine"] != served or counts["sepconv"] or counts["cell"] or search["start_iteration"] != 1
+            or search["launches"] != expected_search):
+        raise AssertionError("serve_while_search: launches %s, expected %d K1 (program calls %s, K1 a call %s); the "
+                             "restarted searcher's %s, expected %s (%s)"
+                             % (counts, served, dict(programs.calls), k1, search, expected_search, searched))
     last = publisher.generation_dir(directory, SWS_ITERATIONS - 1)
     signature = export.serving_signature(last)
     full = export.load_serving_program(last)
@@ -6136,10 +6267,10 @@ def serve_while_search(model_dir):
         request = {"x": xte[:n]}
         bucket = batcher_lib.bucket_for(n, off.config.bucket_sizes)
         padded, _ = batcher_lib.pad_batch([request], bucket)
-        _, (served,) = off.execute([request])
+        _, (served_rows,) = off.execute([request])
         offline = batcher_lib.split_rows(full(padded), [n])[0]
         for key in offline:
-            if not np.array_equal(served[key], offline[key]):
+            if not np.array_equal(served_rows[key], offline[key]):
                 raise AssertionError("serve_while_search: served %s differs from the offline program" % key)
         _, (answered,) = on.execute([request])
         mask = on.last_row_fallthrough
@@ -6158,16 +6289,313 @@ def serve_while_search(model_dir):
                     raise AssertionError("serve_while_search: cascade answer %s differs" % key)
         checked += 1
     cascade = signature.get("cascade") or {}
-    row = dict(steps=SWS_STEPS * SWS_ITERATIONS, generations=gens, flips=pool.flips, requests=len(results),
+    row = dict(steps=SWS_STEPS * SWS_ITERATIONS, generations=gens, quarantined=quarantined, flips=pool.flips,
+               rollbacks=pool.rollbacks, events=[(e["event"], e["iteration_number"], e.get("how")) for e in pool.events],
+               requests=len(results), requests_while_searcher_down=served_while_dead,
                rows=int(sum(r.outputs["logits"].shape[0] for r in results)), cascade_levels=dict(
                    (str(k), v) for k, v in levels.items()),
                level0_row_share=None if stats["row_fallthrough_rate"] is None else 1 - stats["row_fallthrough_rate"],
                cascade_threshold=cascade.get("threshold"), holdout_agreement=cascade.get("holdout_agreement"),
                target_agreement=cascade.get("target_agreement"), shadow_divergence=stats["shadow_divergence"],
-               final_checks=checked, secs=secs, k1_launches=counts["combine"], k1_expected=k1_split,
+               final_checks=checked, secs=secs, k1_launches=counts["combine"], k1_served=served,
+               restarted_searcher=search, restarted_searcher_k1_expected=searched,
                program_calls=sum(programs.calls.values()), card=card_line())
     print("serve_while_search: " + json.dumps(row))
     return counts, row
+
+
+# --------------------------------------- canary, quarantine and the store
+
+# canary_flip: requests of CANARY_ROWS rows (bucket 32); the window is
+# PoolConfig's default of CANARY_REQUESTS mirrored batches, and as many
+# unmirrored batches are timed before it.
+CANARY_REQUESTS, CANARY_ROWS = 8, 32
+# serve_while_search's canary window (tests/test_serving.py's gate).
+SWS_CANARY_REQUESTS = 2
+
+
+def _wait_until(what, condition, timeout=PROCESS_TIMEOUT):
+    deadline = time.monotonic() + timeout
+    while not condition():
+        if time.monotonic() > deadline:
+            raise AssertionError("%s: not within %d s" % (what, timeout))
+        time.sleep(0.02)
+
+
+def _copy_generation(source, model_dir, t, rot=False):
+    """gen-<t> under `model_dir`: the artifacts of the published generation
+    `source` copied byte for byte, with a manifest of its own written by
+    the publisher's writer (no second export), renamed into place; with
+    `rot`, one byte of the program flipped after the manifest was
+    written. Returns its path."""
+    import shutil
+
+    from adanet_tpu_torch.core import export
+    from adanet_tpu_torch.robustness import integrity
+    from adanet_tpu_torch.serving import publisher
+
+    root = publisher.serving_root(model_dir)
+    os.makedirs(root, exist_ok=True)
+    staging = tempfile.mkdtemp(prefix=".stage-gen-", dir=root)
+    for name in os.listdir(source):
+        if name != integrity.GENERATION_MANIFEST:
+            shutil.copyfile(os.path.join(source, name), os.path.join(staging, name))
+    publisher.write_generation_manifest(staging, t)
+    if rot:
+        path = os.path.join(staging, export.SERVING_FILE)
+        with open(path, "r+b") as f:
+            f.seek(os.path.getsize(path) // 2)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([byte[0] ^ 0xFF]))
+    final = publisher.generation_dir(model_dir, t)
+    os.replace(staging, final)
+    return final
+
+
+def _fsck_json(argv):
+    """`adanet_tpu_torch.tools.ckpt_fsck --json`'s report and exit code."""
+    import io
+    from contextlib import redirect_stdout
+
+    from adanet_tpu_torch.tools import ckpt_fsck
+
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = ckpt_fsck.main(list(argv) + ["--json"])
+    return rc, json.loads(buf.getvalue())
+
+
+def canary_flip(model_dir, pool, sep_shapes, rng):
+    """`serve`'s pool, with `PoolConfig(canary_requests=8)`, serving the
+    NASNet-A (6@768) bf16 program's gen-0, under a frontend of its own:
+    CANARY_REQUESTS unmirrored bucket-32 batches; then gen-1, gen-0's
+    artifacts copied byte for byte under a manifest of its own, staged as
+    the canary, and CANARY_REQUESTS mirrored batches (the incumbent
+    answers, the candidate runs the same padded bucket) promote it
+    `how="canary"`, with a divergence of 0 on every batch and K1 and K2
+    launched exactly twice the incumbent's alone; gen-2, a copy whose
+    program is rotted after its manifest was written, is rejected before
+    load (no K0), quarantined as `gen-2.corrupt` and not retried; a fixed
+    request is answered bitwise alike by gen-0, by gen-1 and after the
+    rejection; `ckpt_fsck --json`'s `serving` section names generation 1.
+    Launch counts zeroed just before and read just after; exact. Returns
+    (the counts, the `canary_flip:` numbers)."""
+    import numpy as np
+    import torch
+
+    from adanet_tpu_torch import ops
+    from adanet_tpu_torch.observability import metrics
+    from adanet_tpu_torch.serving import Batcher, FrontendConfig, ServingFrontend, publisher
+
+    requests = [{"image": torch.randn(CANARY_ROWS, 32, 32, 3, generator=rng).numpy()}
+                for _ in range(CANARY_REQUESTS)]
+    probe = {"image": torch.randn(CANARY_ROWS, 32, 32, 3, generator=rng).numpy()}
+    gauge = metrics.registry().gauge("serving.batcher.canary_divergence")
+    per_program = NUM_MEMBERS * len(sep_shapes)
+    source = publisher.generation_dir(model_dir, 0)
+    if pool.config.canary_requests != CANARY_REQUESTS or pool.stats()["active_generation"] != 0:
+        raise AssertionError("canary_flip: the pool is %s with %s" % (pool.stats(), pool.config))
+    calls = 0
+
+    def answer(features, generation):
+        nonlocal calls
+        t0 = time.perf_counter()
+        result = frontend.submit(features, timeout=300.0)
+        ms = (time.perf_counter() - t0) * 1e3
+        if not result.ok or result.generation != generation:
+            raise AssertionError("canary_flip: %s %s from generation %s, expected %d"
+                                 % (result.status, result.error, result.generation, generation))
+        calls += 1
+        return result, ms
+
+    ops.reset_launch_counts()
+    frontend = ServingFrontend(Batcher(pool), FrontendConfig(default_deadline_secs=300.0,
+                                                             poll_interval_secs=0.05)).start()
+    try:
+        plain_ms = [answer(r, 0)[1] for r in requests]
+        by_gen0, _ = answer(probe, 0)
+        t0 = time.monotonic()
+        _copy_generation(source, model_dir, 1)
+        _wait_until("gen-1's staging", lambda: pool.canary_record() is not None)
+        stage_secs = time.monotonic() - t0
+        calls += 1  # the gate's smoke sample
+        before = ops.launch_counts()
+        mirrored_ms, divergences = [], []
+        for r in requests:
+            mirrored_ms.append(answer(r, 0)[1])
+            divergences.append(gauge.value)
+        window = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        calls += CANARY_REQUESTS  # the candidate's mirrored calls
+        stats = pool.stats()
+        if (stats["active_generation"], stats["canary_generation"]) != (1, None) or pool.events[-1]["how"] != "canary":
+            raise AssertionError("canary_flip: %s after the window; events %s" % (stats, pool.events))
+        by_gen1, _ = answer(probe, 1)
+        before = ops.launch_counts()
+        _copy_generation(source, model_dir, 2, rot=True)
+        _wait_until("gen-2's rejection", lambda: pool.rollbacks >= 1)
+        rejection = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        after_reject, _ = answer(probe, 1)
+    finally:
+        drained = frontend.drain(timeout=120.0)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    retried = pool.poll()
+    serving_dirs = sorted(name for name in os.listdir(publisher.serving_root(model_dir)) if not name.startswith("."))
+    twice = {"copy": 0, "combine": 2 * CANARY_REQUESTS, "sepconv": 2 * CANARY_REQUESTS * per_program, "cell": 0}
+    expected = {"copy": 1, "combine": calls, "sepconv": calls * per_program, "cell": 0}
+    reason = pool.events[-1].get("reason", "")
+    if (not drained or window != twice or counts != expected or any(rejection.values()) or retried
+            or serving_dirs != ["gen-0", "gen-1", "gen-2.corrupt"] or pool.rollbacks != 1
+            or "digest mismatch" not in reason):
+        raise AssertionError("canary_flip: drained %s, window %s (expected %s), launches %s (expected %s), "
+                             "rejection %s, retried %s, dirs %s, events %s"
+                             % (drained, window, twice, counts, expected, rejection, retried, serving_dirs,
+                                pool.events))
+    if max(divergences) != 0.0:
+        raise AssertionError("canary_flip: the same program on the same rows diverged: %s" % divergences)
+    for key in by_gen0.outputs:
+        if not (np.array_equal(by_gen0.outputs[key], by_gen1.outputs[key])
+                and np.array_equal(by_gen1.outputs[key], after_reject.outputs[key])):
+            raise AssertionError("canary_flip: %s differs across the flip or the rejection" % key)
+    rc, report = _fsck_json([model_dir])
+    serving = report["serving"]
+    if rc != 0 or serving["selected_generation"] != 1 or [g["iteration_number"] for g in serving["generations"]] != [0, 1]:
+        raise AssertionError("canary_flip: ckpt_fsck rc %d, serving %s" % (rc, serving))
+    row = dict(
+        unmirrored_batch_ms=float(np.median(plain_ms)), mirrored_batch_ms=float(np.median(mirrored_ms)),
+        unmirrored_batch_ms_all=plain_ms, mirrored_batch_ms_all=mirrored_ms, canary_gate_load_secs=stage_secs,
+        divergences=divergences, window_launches=window, rejection_launches=rejection, launches=counts,
+        program_calls=calls, events=[(e["event"], e["iteration_number"], e.get("how")) for e in pool.events],
+        reason=reason, serving_dirs=serving_dirs, fsck_selected_generation=serving["selected_generation"],
+        card=card_line(),
+    )
+    print("canary_flip: " + json.dumps(row))
+    return counts, row
+
+
+def graft_main(graft_dir, store_root, first_dir):
+    """`store_warm_start`'s grafting process (`--graft-only`): an Estimator
+    of `train_search`'s configuration over a fresh `graft_dir`, given the
+    first search's `replay.json` and the same store. Counts its training
+    steps, batches, launches and nvcc builds, predicts the test digits
+    (saved beside it, `predictions.npz`) and prints `graft:` with the
+    numbers."""
+    import numpy as np
+    import torch
+
+    from adanet_tpu_torch import ops
+    from adanet_tpu_torch import replay
+    from adanet_tpu_torch.core.estimator import Estimator
+    from adanet_tpu_torch.core.iteration import Iteration
+    from adanet_tpu_torch.examples.synthetic_digits import input_fn, make_dataset
+    from adanet_tpu_torch.ops import _build
+
+    steps = [0]
+    step, train_steps = Iteration.train_step, Iteration.train_steps
+
+    def counted_step(self, *args, **kwargs):
+        steps[0] += 1
+        return step(self, *args, **kwargs)
+
+    def counted_steps(self, state, batches, *args, **kwargs):
+        steps[0] += len(batches)
+        return train_steps(self, state, batches, *args, **kwargs)
+
+    Iteration.train_step, Iteration.train_steps = counted_step, counted_steps
+    head, generator, ensembler = search_parts()
+    xtr, ytr = make_dataset(TRAIN_EXAMPLES, seed=7)
+    xte, yte = make_dataset(EVAL_EXAMPLES, seed=8)
+    pulls = [0]
+
+    def train_fn():
+        pulls[0] += 1
+        return input_fn(xtr, ytr, TRAIN_BATCH)()
+
+    config = replay.Config.load(os.path.join(first_dir, replay.REPLAY_FILENAME))
+    estimator = Estimator(head, generator, max_iteration_steps=TRAIN_STEPS, max_iterations=TRAIN_ITERATIONS,
+                          ensemblers=[ensembler], model_dir=graft_dir, log_every_steps=0, device="cuda",
+                          artifact_store=store_root, replay_config=config)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    estimator.train(train_fn, max_steps=10**6)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    predictions = [p for p in estimator.predict(input_fn(xte, yte, TRAIN_BATCH))]
+    np.savez(os.path.join(graft_dir, "predictions.npz"),
+             **{key: np.concatenate([p[key].numpy() for p in predictions]) for key in predictions[0]})
+    print("graft: " + json.dumps(dict(
+        secs=secs, grafts=estimator._store_graft_count, training_steps=steps[0], batches_pulled=pulls[0],
+        launches=launches, nvcc_builds=sorted(_build.BUILD_LOG), global_step=estimator.latest_global_step(),
+        iterations=estimator.latest_iteration_number())), flush=True)
+
+
+def store_warm_start(model_dir, first_secs):
+    """`train_search` published both its iterations to `<model_dir>/store`;
+    a second Estimator in a fresh process and model dir, given the first's
+    `replay.json` and the same store, grafts both iterations
+    (`graft_main`) with zero training steps, zero batches, zero launches
+    and zero nvcc builds, lands the first's payloads byte for byte and
+    predicts bitwise as the first; fsck's store section (with the
+    grafted search's closure leased, `--gc --dry-run`) is clean and would
+    remove nothing. Prints `store_warm_start:`, the graft's seconds
+    against the first search's."""
+    import numpy as np
+
+    from adanet_tpu_torch.core import checkpoint as ckpt_lib
+    from adanet_tpu_torch.core.estimator import Estimator
+    from adanet_tpu_torch.examples.synthetic_digits import input_fn, make_dataset
+    from adanet_tpu_torch.store import ArtifactStore, leases
+
+    first_dir, store_root = os.path.join(model_dir, "search"), os.path.join(model_dir, "store")
+    graft_dir = os.path.join(model_dir, "graft")
+    os.makedirs(graft_dir)
+    environ = dict(os.environ, OMP_NUM_THREADS="1")
+    environ.pop("ADANET_FAULTS", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--graft-only", graft_dir, "--store",
+                           store_root, "--first", first_dir], env=environ, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True, timeout=PROCESS_TIMEOUT)
+    process_secs = time.perf_counter() - t0
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("graft: ")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError("store_warm_start: rc %d\n%s" % (proc.returncode, proc.stdout[-6000:]))
+    graft = json.loads(lines[-1][len("graft: "):])
+    if (graft["grafts"] != TRAIN_ITERATIONS or graft["training_steps"] or graft["batches_pulled"]
+            or any(graft["launches"].values()) or graft["nvcc_builds"]
+            or graft["global_step"] != TRAIN_STEPS * TRAIN_ITERATIONS):
+        raise AssertionError("store_warm_start: %s" % graft)
+    for t in range(TRAIN_ITERATIONS):
+        for name in (ckpt_lib.frozen_filename(t), ckpt_lib.architecture_filename(t)):
+            with open(os.path.join(first_dir, name), "rb") as a, open(os.path.join(graft_dir, name), "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError("store_warm_start: %s differs from the first search's" % name)
+    head, generator, ensembler = search_parts()
+    xte, yte = make_dataset(EVAL_EXAMPLES, seed=8)
+    first = Estimator(head, generator, max_iteration_steps=TRAIN_STEPS, max_iterations=TRAIN_ITERATIONS,
+                      ensemblers=[ensembler], model_dir=first_dir, log_every_steps=0, device="cuda")
+    want = [p for p in first.predict(input_fn(xte, yte, TRAIN_BATCH))]
+    got = np.load(os.path.join(graft_dir, "predictions.npz"))
+    for key in want[0]:
+        if not np.array_equal(got[key], np.concatenate([p[key].numpy() for p in want])):
+            raise AssertionError("store_warm_start: grafted predictions %s differ from the first search's" % key)
+    store = ArtifactStore(store_root)
+    digests = sorted({d for _, _, ref in store.iter_refs("frozen") for d in ref["blobs"].values()})
+    lease = leases.acquire(store, owner="chip-smoke-%d" % os.getpid(), ttl_secs=600.0, digests=digests)
+    try:
+        rc, report = _fsck_json([graft_dir, "--store", store_root, "--gc", "--dry-run"])
+    finally:
+        leases.release(store, lease)
+    section = report["store"]
+    if rc != 0 or not section["clean"] or section["dangling_refs"] or section["would_gc"] or not section["leases"]["live"]:
+        raise AssertionError("store_warm_start: ckpt_fsck rc %d, store %s" % (rc, section))
+    row = dict(graft_secs=graft["secs"], graft_process_secs=process_secs, first_search_secs=first_secs,
+               graft=graft, store=dict((k, section[k]) for k in ("blob_count", "bytes", "ref_count", "leases",
+                                                                 "would_gc", "clean")),
+               predictions_bitwise=sorted(want[0]), card=card_line())
+    print("store_warm_start: " + json.dumps(row))
+    return row
 
 
 def start_serving_example(model_dir):
@@ -6262,7 +6690,7 @@ def long_context_export_phases(model_dir, long_context_gen):
             example = start_serving_example(model_dir)
             serving = start_export_programs(model_dir, lc_estimator, lc_row["seq_len"])
             try:
-                sws_counts, _ = serve_while_search(model_dir)
+                sws_counts, sws_row = serve_while_search(model_dir)
             finally:
                 exported = export_programs(serving)
             example_counts, _ = serving_example_on_card(example)
@@ -6273,7 +6701,9 @@ def long_context_export_phases(model_dir, long_context_gen):
     worst, combine_shapes = check_group_combines(shapes.seen, long_context_gen)
     launches = dict(long_context=lc_counts["combine"], transformer_full_width=fw_counts["combine"],
                     export_programs={k: v["served_k1_launches"] for k, v in exported["programs"].items()},
-                    serve_while_search=sws_counts["combine"], serving_example=example_counts["combine"])
+                    serve_while_search=sws_counts["combine"],
+                    serve_while_search_searcher=sws_row["restarted_searcher"]["launches"]["combine"],
+                    serving_example=example_counts["combine"])
     return launches, worst, combine_shapes
 
 
@@ -6308,6 +6738,10 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--publish-only", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--graft-only", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--store", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--first", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--sws-search", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     import torch
@@ -6323,6 +6757,14 @@ def main(argv=None):
         path, info = publish(args.publish_only, args.seed)
         with open(os.path.join(args.publish_only, "publish.json"), "w") as f:
             json.dump(dict(path=path, info=info), f)
+        return 0
+    if args.graft_only:
+        # `store_warm_start`'s process: the kernels are built already.
+        graft_main(args.graft_only, args.store, args.first)
+        return 0
+    if args.sws_search:
+        # `serve_while_search`'s searcher.
+        sws_search_main(args.sws_search)
         return 0
     print(card_line())
     clock = _PhaseClock()
@@ -6368,6 +6810,8 @@ def main(argv=None):
             fused_probes = {}
             train_counts, train_stats = train_search(model_dir, fused_probes)
             clock.mark("train_search")
+            warm_start = store_warm_start(model_dir, train_stats["search_secs"])
+            clock.mark("store_warm_start")
             train_vs_cpu()
             clock.mark("train_vs_cpu")
             t_selection = time.perf_counter()
@@ -6403,8 +6847,10 @@ def main(argv=None):
                 publisher[0].kill()
         print("published %s in %.1f s" % (os.path.basename(gen_dir), published["publish_process_secs"]))
         clock.mark("publish_wait")
-        counts, served, served_program = serve(model_dir, sep_shapes, rng, served_predict, published)
+        counts, served, served_program, served_pool = serve(model_dir, sep_shapes, rng, served_predict, published)
         clock.mark("serve")
+        canary_counts, canary_row = canary_flip(model_dir, served_pool, sep_shapes, rng)
+        clock.mark("canary_flip")
         t_placement = time.perf_counter()
         rr_imagenet_counts, _, rr_imagenet_losses = imagenet_round_robin(model_dir, imagenet_losses)
         rr_search_counts, _ = round_robin_search(model_dir, fused_probes)
@@ -6523,6 +6969,12 @@ def main(argv=None):
             kernels[-1]["export_programs_launches"] = long_context_launches["export_programs"]
             kernels[-1]["serve_while_search_launches"] = long_context_launches["serve_while_search"]
             kernels[-1]["serving_example_launches"] = long_context_launches["serving_example"]
+            kernels[-1]["serve_while_search_searcher_launches"] = long_context_launches[
+                "serve_while_search_searcher"]
+            kernels[-1]["store_warm_start_launches"] = warm_start["graft"]["launches"]["combine"]
+        if name in ("copy", "combine", "sepconv"):
+            kernels[-1]["canary_flip_launches"] = canary_counts[name]
+            kernels[-1]["canary_window_launches"] = canary_row["window_launches"][name]
         if name == "sepconv":
             kernels[-1]["train_launches"] = nasnet_counts["sepconv"]
             kernels[-1]["nasnet_gate_launches"] = gate_counts["sepconv"]

@@ -15,6 +15,9 @@
   and re-issues to the chief, which finishes the search alone on the
   lockstep RoundRobin oracle's selection (and, bitwise, its frozen
   parameters: windows of 4 on both sides, builders that draw nothing).
+  The chief sleeps 0.3 s before each of its units: under a loaded host
+  the worker can reach the queue after the chief has drained it alone,
+  and would then never reach the unit its fault kills.
 - A copy of tests/test_distributed.py::test_spmd_autoensemble_bagging
   (`torch_spmd_runner.py bagging`): each process feeds its half of the
   shared and the bagged streams; both processes' trained candidates
@@ -110,7 +113,8 @@ def test_elastic_grow_back_resume(tmp_path):
 def test_elastic_wq_worker_sigkill_mid_unit(tmp_path):
     d = _fresh(tmp_path, "m")
     port = _free_port()
-    chief = _spawn("torch_elastic_wq_runner.py", [d, "chaos", 0, port, 2, -1], TEST_LEASE_TTL="2")
+    chief = _spawn("torch_elastic_wq_runner.py", [d, "chaos", 0, port, 2, -1], TEST_LEASE_TTL="2",
+                   TEST_CHIEF_UNIT_DELAY="0.3")
     worker = _spawn("torch_elastic_wq_runner.py", [d, "chaos", 1, port, 2, -1], TEST_LEASE_TTL="2",
                     ADANET_FAULTS="workunit.execute:kill:after=1")
     (chief_rc, chief_out), (worker_rc, _) = _finish([chief, worker])

@@ -44,7 +44,7 @@ from adanet_tpu_torch.serving import (
     ServingFrontend,
     publish_generation,
 )
-from adanet_tpu_torch.serving import publisher
+from adanet_tpu_torch.robustness import integrity
 from adanet_tpu_torch.utils import convert
 from torch_port_common import numpy_variables, variable_shapes, one_torch_thread
 
@@ -175,11 +175,12 @@ def test_pool_rejects_corrupt_generation_and_keeps_serving(tmp_path, reference):
     data[len(data) // 2] ^= 0xFF
     with open(path, "wb") as f:
         f.write(bytes(data))
-    assert publisher.verify_generation(gen2) == ["serving.pt2 digest mismatch"]
+    assert integrity.verify_serving_generation(gen2) == ["digest mismatch or missing file: serving.pt2"]
     assert pool.poll()
     assert pool.active.iteration_number == 1
     assert pool.rollbacks == 1 and pool.events[-1]["event"] == "rollback"
     assert not pool.poll()  # a rejected generation is not retried
+    assert os.path.isdir(gen2 + ".corrupt")  # and is quarantined
 
 
 def test_frontend_rejects_oversized_and_unavailable(tmp_path):

@@ -16,7 +16,11 @@ absolute steps, so a unit re-issued to a survivor, or run in a world of
 another size, reads the same data. With `TEST_PLACEMENT=rr` the same
 search runs under lockstep RoundRobin in one process (the oracle),
 windows of 4 steps like the elastic units. `TEST_LEASE_TTL` sets the
-lease TTL (3 s by default); `ADANET_TEST_EXIT_BARRIER=1` makes the
+lease TTL (3 s by default); `TEST_CHIEF_UNIT_DELAY` (seconds) makes
+the chief sleep before each unit it executes, so that a worker that
+reaches the queue late still finds units to claim (a delay changes no
+number: a unit's result is a function of its snapshot and steps alone);
+`ADANET_TEST_EXIT_BARRIER=1` makes the
 chief wait for every worker's exit flag before it leaves (the store
 lives in its process). With `TEST_SEARCH=digits` the search is
 `chip_smoke.py`'s `elastic_search` (`digits_search`). Rank 0 writes
@@ -149,6 +153,19 @@ def main(argv):
         return result
 
     ElasticWorkQueueExecutor.run_iteration = counted
+    delay = float(os.environ.get("TEST_CHIEF_UNIT_DELAY", "0"))
+    if delay and rank == 0:
+        import time
+
+        def delayed(run_unit):
+            def run(self, *args, **kwargs):
+                time.sleep(delay)
+                return run_unit(self, *args, **kwargs)
+
+            return run
+
+        ElasticWorkQueueExecutor._run_subnetwork_unit = delayed(ElasticWorkQueueExecutor._run_subnetwork_unit)
+        ElasticWorkQueueExecutor._run_ensemble_unit = delayed(ElasticWorkQueueExecutor._run_ensemble_unit)
     digits = os.environ.get("TEST_SEARCH") == "digits"
     if digits:
         est, train_fn, test_fn = digits_search(model_dir, device)
