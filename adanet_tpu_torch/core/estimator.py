@@ -713,9 +713,21 @@ class Estimator:
         heartbeat = None
         if world > 1 and coordination.is_chief():
             heartbeat = watchdog_lib.HeartbeatWriter(self._model_dir, role="chief").start()
+        # The telemetry plane: a flight recorder rooted at the model dir
+        # (shared with a serving pool over the same dir; a search over a
+        # new dir rebinds, so that its dumps land under its model dir) and
+        # a search span whose correlation ID every nested span (window,
+        # iteration, checkpoint) inherits.
+        flightrec_lib.install_default(os.path.join(self._model_dir, flightrec_lib.DEFAULT_SUBDIR))
+        self._search_id = "%s-p%d" % (os.path.basename(os.path.normpath(self._model_dir)) or "search", os.getpid())
         try:
-            with full_f32_matmul():
-                self._train_loop(input_fn, max_steps, info)
+            with spans_lib.tracer().span("search", correlation={"search_id": self._search_id}, max_steps=max_steps):
+                with full_f32_matmul():
+                    self._train_loop(input_fn, max_steps, info)
+            if self._stop_requested:
+                # The SIGTERM checkpoint-and-stop path leaves its trace
+                # (the dump runs outside the signal handler).
+                flightrec_lib.dump_installed("sigterm_stop")
             if self._peer_lost is not None:
                 flightrec_lib.dump_installed("peer_lost", extra={"error": str(self._peer_lost)})
             if coordination.is_chief():
@@ -839,14 +851,18 @@ class Estimator:
                     extra_batches = {}
                     for name, fn in extra_input_fns.items():
                         extra_batches[name], extra_iters[name] = self._next_batch(fn, extra_iters.get(name))
-                    state, metrics = train_step(state, batch, extra_batches)
+                    # A dispatch span: host-side enqueue; the device finishes
+                    # asynchronously, and the span reads nothing from it.
+                    with spans_lib.tracer().span("train_window", correlation={"iteration": t}, steps=1):
+                        state, metrics = train_step(state, batch, extra_batches)
                 else:
                     loop_size = min(self._iterations_per_loop, budget)
                     batches = []
                     for _ in range(loop_size):
                         batch, data_iter = self._next_batch(input_fn, data_iter)
                         batches.append(batch)
-                    state, metrics = train_steps(state, batches)
+                    with spans_lib.tracer().span("train_window", correlation={"iteration": t}, steps=loop_size):
+                        state, metrics = train_steps(state, batches)
                 prev_steps_done = steps_done
                 steps_done += loop_size
                 info.global_step += loop_size
@@ -1382,14 +1398,17 @@ class Estimator:
         return state
 
     def _save_iteration_state(self, info, iteration_number, state) -> None:
-        stale = info.iteration_state_file
-        filename = ckpt_lib.iteration_state_filename(info.global_step)
-        info.digests[filename] = ckpt_lib.save_payload(
-            self._model_dir, filename, iteration_lib.state_payload(state)
-        )
-        info.iteration_number = iteration_number
-        info.iteration_state_file = filename
-        ckpt_lib.write_manifest(self._model_dir, info)
+        with spans_lib.tracer().span(
+            "checkpoint.save", correlation={"iteration": iteration_number}, global_step=info.global_step
+        ):
+            stale = info.iteration_state_file
+            filename = ckpt_lib.iteration_state_filename(info.global_step)
+            info.digests[filename] = ckpt_lib.save_payload(
+                self._model_dir, filename, iteration_lib.state_payload(state)
+            )
+            info.iteration_number = iteration_number
+            info.iteration_state_file = filename
+            ckpt_lib.write_manifest(self._model_dir, info)
         # The manifest now points at the new state; the superseded file
         # would otherwise accumulate over a long search.
         self._remove_state_file(stale, keep=filename)
@@ -1437,6 +1456,12 @@ class Estimator:
         generation bump), then drops the iteration's state file. Without
         `write` (a data-parallel worker) only the in-memory results: the
         selection and reports still run, collectively."""
+        with spans_lib.tracer().span(
+            "iteration.complete", correlation={"iteration": iteration.iteration_number}, write=write
+        ):
+            return self._complete_iteration_impl(iteration, state, sample_batch, info, write)
+
+    def _complete_iteration_impl(self, iteration, state, sample_batch, info, write: bool = True) -> FrozenEnsemble:
         t = iteration.iteration_number
         best_index = self._get_best_ensemble_index(iteration, state)
         spec = iteration.ensemble_specs[best_index]

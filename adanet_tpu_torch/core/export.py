@@ -40,10 +40,12 @@ repeated to two rows before the trace.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import logging
 import os
+import threading
 from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
@@ -62,6 +64,24 @@ SIGNATURE_FILE = "serving_signature.json"
 CASCADE_FILE = "cascade.pt2"
 REQUIRED_SERVING_FILES = (SERVING_FILE, SIGNATURE_FILE)
 DEFAULT_PLATFORMS = ("cuda", "cpu")
+
+#: Loads and calls of every program this process loaded, by program
+#: file: a served process's K1 launches are each program's calls times
+#: the K1 nodes in its graph, and its K0 launches its loads on the card.
+_program_counts = {"loads": collections.Counter(), "calls": collections.Counter()}
+_program_counts_lock = threading.Lock()
+
+
+def program_counts() -> Dict[str, Dict[str, int]]:
+    """`{"loads": {path: n}, "calls": {path: n}}` of the programs
+    `load_serving_program` loaded in this process."""
+    with _program_counts_lock:
+        return {kind: dict(counter) for kind, counter in _program_counts.items()}
+
+
+def _count_program(kind: str, path: str) -> None:
+    with _program_counts_lock:
+        _program_counts[kind][path] += 1
 
 
 def _canonical(tree):
@@ -314,7 +334,9 @@ def load_serving_program(export_dir: str, filename: Optional[str] = None, device
         from adanet_tpu_torch.ops import _build
 
         _build.self_test(dev)
-    program = torch.export.load(os.path.join(export_dir, filename or SERVING_FILE))
+    path = os.path.abspath(os.path.join(export_dir, filename or SERVING_FILE))
+    _count_program("loads", path)
+    program = torch.export.load(path)
     module = program.module()
     target = torch.device("cuda", dev.index or 0) if dev.type == "cuda" else dev
     _retarget(module, target)
@@ -329,6 +351,7 @@ def load_serving_program(export_dir: str, filename: Optional[str] = None, device
                 setattr(sub, name, value.to(target))
 
     def predict(features):
+        _count_program("calls", path)
         features = _canonical(_map(lambda x: _tensor(x, target), features))
         with torch.inference_mode(), _serving_precision():
             return module(features)

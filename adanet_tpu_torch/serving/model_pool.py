@@ -84,8 +84,9 @@ class PoolConfig:
     default, because consecutive AdaNet generations differ by design (the
     new one has one more member); set it for replicas serving the same
     generation chain. `quarantine` renames rejected directories.
-    `follow=False` (an externally driven flip plane, the serving fleet)
-    is not ported yet (ROADMAP item 10.3).
+    `follow=False` makes `poll()` a no-op: an external flip plane (the
+    serving fleet's `FlipParticipant`) gates generations itself and
+    installs them with `ModelPool.adopt`.
     """
 
     canary_requests: int = 8
@@ -216,11 +217,6 @@ class ModelPool:
     ):
         self._model_dir = model_dir
         self.config = config or PoolConfig()
-        if not self.config.follow:
-            raise NotImplementedError(
-                "PoolConfig(follow=False), the serving fleet's externally driven flips, is not ported yet "
-                "(ROADMAP item 10.3)."
-            )
         self.device = resolve_device(device)
         self._clock: Callable[[], float] = time.monotonic
         # The shared artifact store: each promoted generation's closure is
@@ -282,8 +278,11 @@ class ModelPool:
 
         Skips straight to the newest unattempted generation (the rule
         `integrity.serving_report` audits as `selected_generation`). At
-        most one flip is in flight: a staged canary resolves first.
+        most one flip is in flight: a staged canary resolves first. An
+        externally driven pool (`follow=False`) never flips here.
         """
+        if not self.config.follow:
+            return False
         with self._lock:
             if self._canary is not None:
                 return False
@@ -384,6 +383,22 @@ class ModelPool:
             self._pin_store_closure(promoted)
         if reject is not None:
             self._reject(reject.iteration_number, reject.path, "canary failed (%d unhealthy batches)" % failures)
+
+    # ------------------------------------------------------ externally gated
+
+    def adopt(self, record: GenerationRecord, how: str = "fleet") -> None:
+        """Installs an externally gated generation as the incumbent.
+
+        The fleet flip path: `serving.fleet.FlipParticipant` runs the
+        verify/load/smoke gate (`gate_generation`) and the coordinated
+        canary itself, and calls this only after the fleet-wide
+        all-or-none commit. The swap is the same atomic reference flip
+        as the pool's own; a staged local canary is discarded.
+        """
+        with self._lock:
+            self._attempted.add(self._identity(record.path))
+            self._promote_locked(record, how=how)
+        self._pin_store_closure(record)
 
     # ----------------------------------------------------- promote / reject
 

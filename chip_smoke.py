@@ -126,7 +126,9 @@
    (zeroed just before its train(), read after its evaluate()); the
    trainer CLI in a subprocess, SIGTERMed inside iteration 1, exits 0
    with a mid-iteration checkpoint and a second run resumes it to the
-   end (2 x 10 steps). Prints `resume_nasnet:` (bytes of `ckpt-8.pt` and `frozen-0.pt`,
+   end (2 x 4 steps; since PR 17 the subprocess runs beside `nasnet_gate`
+   and `nasnet_train_vs_cpu`, the resumed run in this process, and it
+   prints `trainer_sigterm:`). Prints `resume_nasnet:` (bytes of `ckpt-8.pt` and `frozen-0.pt`,
    ms a save split into device-to-host, serialise, digest and write
    with fsync, ms a restore, a save's share of a step, the deviations,
    the phase's seconds, the card line).
@@ -140,11 +142,14 @@
 18. `nasnet_gate_bf16`: `nasnet_gate` under the bf16 step policy and
    device prefetch (tests/test_convergence.py::
    test_nasnet_family_converges_bf16_steps): accuracy >= 0.88, exact
-   counts, no prefetcher left open.
+   counts, no prefetcher left open. Since PR 17, 18 and then 17 run in
+   a process of their own (`--side-gates`) beside `nasnet_gate` and
+   `nasnet_train_vs_cpu` (`side_gates_wait:` in `phase_secs`), so their
+   ms a step are readings beside another gate, not alone.
 19. Fifth main path, NASNet-A Mobile (`train_nasnet_mobile`): the
    ImageNet stem, 12 cells, 44 filters, 1001 classes, 224 x 224 x 3
-   images from --seed, batch 32, through `TPUEstimator` (windows of 8,
-   bf16 steps, device prefetch, a checkpoint every 8 steps), 2 x 16
+   images from --seed, batch 32, through `TPUEstimator` (windows of 4,
+   bf16 steps, device prefetch, a checkpoint every 4 steps), 2 x 8
    steps, then `evaluate` and `predict` of 32 + 32 + 7 rows padded to 32
    (bitwise the same rows inside unpadded batches of 32; against the
    rows at their own batch size, the same ensemble rebuilt at f32 within
@@ -182,10 +187,10 @@
    the same winner wherever the CPU's two best are further apart.
 22. `multi_head_search`: simple_dnn (128 wide) on the digits under a
    MultiHead (digit, even, value) and under a MultiLabelHead over the
-   digit's four-bit code, 2 x 100 steps through train, evaluate and
+   digit's four-bit code, 2 x 50 steps through train, evaluate and
    predict; K1 launches 0 on the multi-head path (dict logits never
    fuse) and exact on the multi-label one; the multi-head search stopped
-   at step 150 restored bitwise by a fresh Estimator and resumed; card
+   at step 75 restored bitwise by a fresh Estimator and resumed; card
    against CPU at 2 x 20 steps within 1e-4 x max(1, |value|).
 23. `heads_vs_cpu`: the five heads' losses, metrics (1e-5 x max(1,
    |value|)) and predictions (1e-6; class ids equal) at batch 4096 on
@@ -200,21 +205,22 @@
 25. `cnn_search`: tests/test_convergence.py::test_cnn_family_converges
    (CNNBuilder 1 and 2 blocks, 32 channels, bf16 convolutions, 2 x 400
    steps): accuracy >= 0.89, K1 exact, the same timing fields;
-   `cnn_vs_cpu`: 2 x 20 steps of it on the card and the CPU from one
+   `cnn_vs_cpu`: 2 x 10 steps of it on the card and the CPU from one
    init, losses within (2 x 2 + 1) x 2^-8 x max(1, |value|), accuracy
    within one example of a batch, beside the CPU's bf16 against f32.
 26. `autoensemble`: the bagging gate (three bootstrap-bagged MLPs, mean
    ensemble, 150 steps; bagged >= the best single member, K1 0), again
    with device prefetch (bagged streams closed at iteration end),
-   transfer_learning at its defaults with cuDNN's TF32 at torch's default
+   transfer_learning (2 x 100 search steps) with cuDNN's TF32 at torch's default
    (accuracy > 0.3, TF32 off inside every step, the frozen member bitwise
-   the pretrained one, K1 exact) and boston_housing (finite, K1 exact).
+   the pretrained one, K1 exact) and boston_housing (3 x 100 steps;
+   finite, K1 exact).
 27. `replay_search`: the selection search at 2 x 50 steps, then replayed
    from its `replay.json`: written after each iteration, no Evaluator
    call, equal architecture files, K1 exact.
 28. `tutorials`: adanet_objective at its slow test's settings (lambda 0
    grows a deeper member, lambda 1 keeps 1-layer ones), mnist_simple_dnn
-   and cifar10_cnn at 150 steps. 29. `predict_debug`: predict and
+   and cifar10_cnn at 50 steps. 29. `predict_debug`: predict and
    TPUEstimator.predict under debug=True raise on a NaN feature.
    Phases 24-29's command time is printed on
    `gates_autoensemble_replay_phases:`.
@@ -231,7 +237,7 @@
    events), peak memory, the metrics and launches.
 31. `imagenet_autoensemble`: the ImageNet AutoEnsemble trainer CLI at its
    defaults (ResNet-50 width 64 + EfficientNet-B0, 224 x 224, batch 64,
-   replication, K1 on) on its fake data, 2 x 10 steps: K1 exact, finite
+   replication, K1 on) on its fake data, 2 x 7 steps: K1 exact, finite
    metrics, each subnetwork's training loss falling within its
    iteration (each step's kept for phase 33); ResNet-18 (width 8) and
    B0 with small inputs, f32, card against CPU from the same weights
@@ -313,7 +319,8 @@
    the card (gloo, blocks staged through the host; started after 42)
    against 2 shards in this process: within 1e-6; ms and bytes
    staged a step. 44. `long_context_search`: the tutorial at its
-   defaults (seq 512, batch 16, 2 x 30 steps, 8 shards): accuracy, loss,
+   defaults (seq 512, batch 16, 8 shards) but 2 x 15 steps (2 x 30 until
+   PR 17): accuracy, loss,
    best ensemble, ms a step, K1 exact; its first LONG_CONTEXT_CPU_STEPS
    steps on the CPU within LONG_CONTEXT_LOSS_BOUND, and the same steps
    at bf16 compute on the CPU (the control) outside it. 45.
@@ -368,6 +375,50 @@
    Prints the mirrored and unmirrored batch ms, the gate's load s and the
    launch counts.
 
+49-51. The serving fleet and the trace tools (PR 17), after phase 48.
+   49. `serving_fleet`: gen-0 a byte copy of phase 47's last generation
+   (simple_dnn at width 128 with its member cascade), its closure in a
+   shared store; `servectl launch` starts r0 and r1 on the card (inside
+   phase 47-48's group, after 47, while the group waits on its side
+   processes), then this process distills gen-1 (`distill_and_publish(
+   teacher_from_generation(gen-0))`, a student MLP on digit features as the distilled
+   level 0, calibrated on held-out digits), and r2 joins with
+   `ADANET_FAULTS=serving.fleet_flip:kill`; three client threads send 1
+   to 32 rows through a `FleetBalancer` while gen-1 is published: r2 dies
+   mid-flip, r0 and r1 commit, r2 is respawned and bootstraps gen-1; then
+   requests one at a time, `servectl status`, `cascade` and `drain`.
+   Zero `error` results, one `commit` outcome, every replica on gen-1
+   with its distilled cascade published, row mode, not rolled back, the
+   final answers bitwise the offline programs, a clean store fsck and
+   `ckpt_fsck` rc 0, servectl rc 0, heartbeats within their staleness
+   bound; K0 and K1 exact in each drained replica (its `REPLICA DRAINED`
+   line) and in this process's distillation, K1 against its plain
+   version at the fleet's shapes. Prints the distillation's seconds and
+   agreement, the flip's seconds, the requests answered while r2 was
+   dead, the gate loads, p50 and rows/s. 50. `trace_view`: a search of
+   phase 11's configuration (2 x TRACE_SEARCH_STEPS) in this process,
+   whose recorder dumps under the fleet's model dir beside the replicas'
+   SIGTERM-drain dumps; `trace_view --json --export` holds this
+   process's `search`, `train_window` and `serving.fleet.request` spans
+   and every replica process's events. 51. `profile_nasnet`: the tool's
+   `main` in this process with K2 on (`--pallas_sepconv --steps
+   PROFILE_STEPS`, its defaults otherwise): device ms a step and the top
+   kernels by category; K2's launches equal the sep-conv forwards exactly.
+
+Cut for the serving fleet's and the trace tools' time (PR 17):
+`resume_nasnet`'s timed save and restore 3 -> 1 repeats, its SIGTERMed
+trainer moved beside `nasnet_gate` and `nasnet_train_vs_cpu` and its resumed run
+in this process (was a second subprocess), `nasnet_gate_bf16` and
+`windows_vs_steps` moved into a process of their own beside
+`nasnet_gate`, `multi_head_search` 2 x 100 -> 2 x 50 steps (its stop 150 ->
+75), the transfer_learning tutorial's search 2 x 200 -> 2 x 100 steps,
+boston_housing 3 x 200 -> 3 x 100, `long_context_search` 2 x 30 -> 2 x
+15, `tutorials`' mnist_simple_dnn and
+cifar10_cnn 100 -> 50 steps, `cnn_vs_cpu` 2 x 20 -> 2 x 10, `train_nasnet_
+mobile` 2 x 16 -> 2 x 8 steps in windows of 8 -> 4, `imagenet_
+autoensemble` and `imagenet_round_robin` 2 x 10 -> 2 x 7 steps. No gate
+and no kernel check was cut.
+
 Cut for the long-context and export phases' time (PR 15):
 `nasnet_train_vs_cpu` 2 x 2 -> 2 x 1 steps, the SIGTERMed trainer 2 x 10
 -> 2 x 4 steps, `tutorials`' mnist_simple_dnn and cifar10_cnn 150 -> 100
@@ -412,8 +463,11 @@ and `speculation_launches` (0), `serve_while_search_searcher_launches` and
 `store_warm_start:`, `canary_flip:`, `imagenet_round_robin:`,
 `round_robin_search:`, `round_robin_gate:`, `spmd_two_process:`,
 `chief_worker:`, `elastic_search:`, `multihost_round_robin:`,
-`elastic_two_process:` and `multihost_peer_death:` lines,
-and as its last line `{"ok": true, "device": {...}}`. Any failure raises
+`elastic_two_process:` and `multihost_peer_death:` lines, the
+`serving_fleet:`, `trace_view:` and `profile_nasnet:` lines (K0's, K1's
+and K2's `kernels` rows with `serving_fleet_replica_launches` and
+`profile_nasnet_launches`, K1's with `serving_fleet_distill_launches`,
+K2's with `profile_nasnet_profiled_launches`), and as its last line `{"ok": true, "device": {...}}`. Any failure raises
 and exits non-zero.
 """
 
@@ -497,7 +551,8 @@ SELECTION_VALID, SELECTION_REPORT_STEPS, SELECTION_PARITY_STEPS = 1024, 8, 50
 # multi_head_search: steps per iteration, the stop of its resumed run
 # (inside iteration 1) and the card-against-CPU steps per iteration;
 # heads_vs_cpu's batch.
-MULTI_HEAD_STEPS, MULTI_HEAD_STOP, MULTI_HEAD_PARITY_STEPS = 100, 150, 20
+# (2 x 100, stopped at 150, until PR 17.)
+MULTI_HEAD_STEPS, MULTI_HEAD_STOP, MULTI_HEAD_PARITY_STEPS = 50, 75, 20
 # full_dnn_gate: tests/test_convergence.py::test_search_converges_to_target_accuracy
 # (8192 and 2048 digits, simple_dnn 256 wide with dropout 0.1, 3 x 800 steps).
 FULL_GATE_TRAIN, FULL_GATE_TEST, FULL_GATE_LAYER, FULL_GATE_DROPOUT = 8192, 2048, 256, 0.1
@@ -505,7 +560,7 @@ FULL_GATE_STEPS, FULL_GATE_ITERATIONS, FULL_GATE_ACCURACY, FULL_GATE_TOP5 = 800,
 # cnn_search: tests/test_convergence.py::test_cnn_family_converges (CNNBuilder
 # 1 and 2 blocks, 32 channels, lr 0.02, 2 x 400 steps); cnn_vs_cpu's steps.
 CNN_TRAIN, CNN_TEST, CNN_CHANNELS, CNN_LR, CNN_STEPS, CNN_ACCURACY = 8192, 2048, 32, 0.02, 400, 0.89
-CNN_PARITY_STEPS = 20
+CNN_PARITY_STEPS = 10  # (20 until PR 17)
 # cnn_vs_cpu's bound on losses, relative to max(1, |value|): twice the
 # largest reading of the bf16 CPU search against itself with its
 # parameters moved by 1e-7 (2.19e-4 on the H100 host's CPU), rounded up;
@@ -516,7 +571,9 @@ CNN_PARITY_BOUND = 5e-4
 # boston_housing's steps an iteration at their defaults, and the transfer
 # test digits; the reduced steps of mnist_simple_dnn and cifar10_cnn.
 BAGGING_TRAIN, BAGGING_TEST, BAGGING_STEPS = 2048, 1024, 150
-TRANSFER_STEPS, TRANSFER_TEST, BOSTON_STEPS, TUTORIAL_STEPS = 200, 1024, 200, 100
+# (200, 200 and 100 until PR 17; the tutorials' defaults are 200, 200 and
+# 3000.)
+TRANSFER_STEPS, TRANSFER_TEST, BOSTON_STEPS, TUTORIAL_STEPS = 100, 1024, 100, 50
 # The seeds of the CPU runs whose initial parameters are moved by 1e-7.
 MOVED_SEEDS = (5, 11, 17)
 HEADS_BATCH = 4096
@@ -529,8 +586,9 @@ NASNET_WINDOW, NASNET_TRACED = 5, 3
 # resume_nasnet: train_nasnet's configuration, 2 iterations of
 # RESUME_STEPS with a checkpoint every RESUME_SAVE_EVERY steps, stopped at
 # global step RESUME_STOP (inside iteration 1); saves and restores timed
-# RESUME_SAVES times (medians), steps over a window of RESUME_WINDOW.
-RESUME_STEPS, RESUME_SAVE_EVERY, RESUME_STOP, RESUME_SAVES, RESUME_WINDOW = 6, 3, 8, 3, 3
+# RESUME_SAVES times (medians; one since PR 17, three before), steps over
+# a window of RESUME_WINDOW.
+RESUME_STEPS, RESUME_SAVE_EVERY, RESUME_STOP, RESUME_SAVES, RESUME_WINDOW = 6, 3, 8, 1, 3
 # The trainer CLI's small size (trainer_on_card), and the steps of its
 # SIGTERM run (two iterations of half as many; the SIGTERM lands at
 # iteration 1's start, so its first step ends the run).
@@ -544,13 +602,14 @@ GATE_TRAIN, GATE_TEST, GATE_STEPS = 8192, 2048, 300
 NASNET_PARITY_STEPS, NASNET_PARITY_BATCH = 1, 32
 # train_nasnet_mobile: NASNet-A Mobile (12 cells, 44 filters, the ImageNet
 # stem, 1001 classes; the improve_nas defaults otherwise, ADAPTIVE) on
-# 224 x 224 x 3 images drawn from --seed, batch 32, 2 iterations x 16
-# steps through TPUEstimator in windows of 8, a checkpoint every 8, bf16
+# 224 x 224 x 3 images drawn from --seed, batch 32, 2 iterations x 8
+# steps through TPUEstimator in windows of 4, a checkpoint every 4, bf16
 # steps and device prefetch; then predict over a ragged stream of
 # 32 + 32 + 7 rows padded to 32. Iteration 1's first window is timed,
 # its second traced (windows 2 and 3 of the run).
 MOBILE_SIZE, MOBILE_CLASSES, MOBILE_BATCH, MOBILE_EXAMPLES = 224, 1001, 32, 128
-MOBILE_STEPS, MOBILE_WINDOW, MOBILE_EVAL_BATCHES = 16, 8, 2
+# (2 x 16 in windows of 8 until PR 17.)
+MOBILE_STEPS, MOBILE_WINDOW, MOBILE_EVAL_BATCHES = 8, 4, 2
 MOBILE_PREDICT_ROWS = (32, 32, 7)
 MOBILE_TIMED_WINDOW, MOBILE_TRACED_WINDOW = 2, 3
 # windows_vs_steps: the gate model, 2 iterations x WINDOWS_STEPS, windows
@@ -569,12 +628,13 @@ CIFAR_TRAIN, CIFAR_TEST, CIFAR_BATCH, CIFAR_ITERATIONS = 50000, 128, 32, 2
 CIFAR10_STEPS, CIFAR100_STEPS, AUGMENT_REPEATS = 6, 4, 50
 # imagenet_autoensemble: the ImageNet trainer at its defaults (ResNet-50
 # width 64 + EfficientNet-B0, 224 x 224, batch 64, replication) on its fake
-# data (8 classes), 2 iterations x 10 steps; card/CPU forwards of ResNet-18
+# data (8 classes), 2 iterations x 7 steps; card/CPU forwards of ResNet-18
 # (width 8) and B0 with small inputs on a batch of 8 32 x 32 images.
-IMAGENET_STEPS, IMAGENET_ITERATIONS, IMAGENET_BATCH, IMAGENET_CLASSES = 20, 2, 64, 8
+# (2 x 10 until PR 17.)
+IMAGENET_STEPS, IMAGENET_ITERATIONS, IMAGENET_BATCH, IMAGENET_CLASSES = 14, 2, 64, 8
 # Its timed window and traced step in iteration 1 (pulls, `_StepClock`):
 # first timed step, first traced step, window, traced steps.
-IMAGENET_TIMED = (12, 17, 4, 1)
+IMAGENET_TIMED = (9, 13, 3, 1)
 # imagenet_round_robin: each step's subnetwork training losses against the
 # replication run's, in parts of max(1, |loss|). Two replication runs were
 # bitwise equal on the H100 (PERF.md, PR 13), and RoundRobin trains the
@@ -3061,11 +3121,10 @@ def resume_nasnet(model_dir):
        R's architecture files equal U1's byte for byte; R's `frozen-1.pt`
        equals U1's bitwise if U2's does, else deviates from it by at most
        twice U2's deviation; R's launch counts, zeroed just before its
-       train() and read after its evaluate(), are exact;
-    3. the trainer CLI in a subprocess, SIGTERMed inside iteration 1, exits
-       0 with a mid-iteration state in the manifest, and a second run over
-       its --model_dir resumes from that step and finishes.
-    Returns (R's launch counts, the `resume_nasnet:` numbers)."""
+       train() and read after its evaluate(), are exact.
+    The trainer CLI's SIGTERM and resume (`TrainerSigterm`, this phase's
+    third part until PR 17) run beside `nasnet_gate` and
+    `nasnet_train_vs_cpu`. Returns (R's launch counts, the `resume_nasnet:` numbers)."""
     import torch
 
     from adanet_tpu_torch import ops
@@ -3209,9 +3268,6 @@ def resume_nasnet(model_dir):
     if resume_dev > 2 * spread:
         raise AssertionError("resume_nasnet: frozen-1 deviates by %g from U1, U2 by %g" % (resume_dev, spread))
 
-    # 3. SIGTERM through the trainer CLI.
-    trainer = _trainer_sigterm(os.path.join(model_dir, "resume", "trainer"))
-
     out = dict(
         steps=[RESUME_STEPS, RESUME_STEPS],
         stop=RESUME_STOP,
@@ -3230,7 +3286,6 @@ def resume_nasnet(model_dir):
         resume_secs=resume_secs,
         launches=counts,
         best_ensemble=metrics["best_ensemble"],
-        trainer=trainer,
         seconds=time.perf_counter() - t_phase,
         card=card_line(),
     )
@@ -3251,61 +3306,172 @@ def _payload_tensors(tree):
         yield tree
 
 
-def _trainer_sigterm(model_dir):
+class SideGates:
+    """`nasnet_gate_bf16` (`nasnet_gate` under the bf16 step policy and
+    device prefetch) and then `windows_vs_steps` under deterministic cuDNN,
+    in a process of its own (`chip_smoke.py --side-gates DIR`) that
+    `start()` launches; `finish()` waits for it, prints its phase lines
+    and returns the bf16 gate's launch counts (each phase checks its own
+    counts, exactly, in that process)."""
+
+    def __init__(self, directory):
+        self.directory = directory
+
+    def start(self):
+        os.makedirs(self.directory, exist_ok=True)
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]))
+        self._log = open(os.path.join(self.directory, "side_gates.log"), "w")
+        self.proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--side-gates", self.directory],
+                                     cwd=root, env=env, stdout=self._log, stderr=subprocess.STDOUT)
+        self._t0 = time.perf_counter()
+        return self
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def finish(self):
+        try:
+            rc = self.proc.wait(timeout=PROCESS_TIMEOUT * 2)
+        finally:
+            self.kill()
+            self._log.close()
+        with open(self._log.name) as f:
+            out = f.read()
+        phases = [line for line in out.splitlines()
+                  if line.startswith(("nasnet_gate_bf16: ", "windows_vs_steps: ", "side_gates: "))]
+        print("\n".join(phases))
+        counts = [json.loads(line.split(": ", 1)[1]) for line in phases if line.startswith("side_gates: ")]
+        if rc != 0 or not counts:
+            raise AssertionError("side gates: rc %d\n%s" % (rc, out[-4000:]))
+        return counts[-1]["nasnet_gate_bf16_launches"]
+
+
+def side_gates_main(directory):
+    """`SideGates`' process (`--side-gates`): the kernels are built."""
+    from adanet_tpu_torch.ops import _build
+
+    _build.self_test()
+    t0 = time.perf_counter()
+    counts, _, _ = nasnet_gate(directory, "nasnet_gate_bf16", step_compute_dtype="bfloat16", prefetch_buffer=2,
+                               prefetch_to_device=True)
+    with deterministic_cudnn():
+        windows_vs_steps(directory)
+    print("side_gates: " + json.dumps(dict(nasnet_gate_bf16_launches=counts, secs=time.perf_counter() - t0,
+                                           card=card_line())), flush=True)
+
+
+class TrainerSigterm:
     """The trainer CLI on the card at the `trainer_on_card` size, in a
-    subprocess: SIGTERM as soon as its log says iteration 1 has started
-    (its first step then ends the run, whatever the host's pace); it must
-    exit 0 with a mid-iteration state of iteration 1 in the manifest. A
-    second run over the same --model_dir must restore that state and
-    finish. Returns its numbers."""
-    from adanet_tpu_torch.core import checkpoint as ckpt
+    subprocess started by `start()`: a thread sends it SIGTERM as soon as
+    its log says iteration 1 has started (its first step then ends the
+    run, whatever the host's pace). `finish()` waits for it: it must exit
+    0 with a mid-iteration state of iteration 1 in the manifest; a second
+    run of the CLI's `main` over the same --model_dir, in this process,
+    must restore that state and finish. The subprocess runs beside
+    `nasnet_gate` and `nasnet_train_vs_cpu` (since PR 17; inside
+    `resume_nasnet` before)."""
 
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]))
-    argv = [sys.executable, "-m", "adanet_tpu_torch.research.improve_nas.trainer", *TRAINER_SMALL,
-            "--boosting_iterations=2", "--train_steps=%d" % TRAINER_SIGTERM_STEPS, "--model_dir=" + model_dir]
-    os.makedirs(model_dir, exist_ok=True)
+    def __init__(self, model_dir):
+        self.model_dir = model_dir
+        root = os.path.dirname(os.path.abspath(__file__))
+        self._env = dict(os.environ, PYTHONPATH=os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]))
+        self._root = root
+        self.argv = [sys.executable, "-m", "adanet_tpu_torch.research.improve_nas.trainer", *TRAINER_SMALL,
+                     "--boosting_iterations=2", "--train_steps=%d" % TRAINER_SIGTERM_STEPS,
+                     "--model_dir=" + model_dir]
 
-    def run(name, signal_at_iteration_1):
-        err_path = os.path.join(model_dir, name + ".err")
-        with open(os.path.join(model_dir, name + ".out"), "w") as out, open(err_path, "w") as err:
-            t0 = time.perf_counter()
-            proc = subprocess.Popen(argv, cwd=root, env=env, stdout=out, stderr=err)
-            try:
-                deadline = time.time() + 600
-                while signal_at_iteration_1 and proc.poll() is None and time.time() < deadline:
-                    # Logged just before the iteration's first step, with
-                    # the SIGTERM handler already installed.
-                    with open(err_path) as log:
-                        if "Starting iteration 1 at" in log.read():
-                            proc.send_signal(signal.SIGTERM)
-                            break
-                    time.sleep(0.01)
-                rc = proc.wait(timeout=max(1.0, deadline - time.time()))
-            finally:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        text = {key: open(os.path.join(model_dir, "%s.%s" % (name, key))).read() for key in ("out", "err")}
+    def start(self):
+        import threading
+
+        os.makedirs(self.model_dir, exist_ok=True)
+        self._paths = {key: os.path.join(self.model_dir, "sigterm." + key) for key in ("out", "err")}
+        self._files = {key: open(path, "w") for key, path in self._paths.items()}
+        self._t0 = time.perf_counter()
+        self.proc = subprocess.Popen(self.argv, cwd=self._root, env=self._env, stdout=self._files["out"],
+                                     stderr=self._files["err"])
+        self._watcher = threading.Thread(target=self._signal_at_iteration_1, daemon=True)
+        self._watcher.start()
+        return self
+
+    def _signal_at_iteration_1(self):
+        deadline = time.time() + 600
+        while self.proc.poll() is None and time.time() < deadline:
+            # Logged just before the iteration's first step, with the
+            # SIGTERM handler already installed.
+            with open(self._paths["err"]) as log:
+                if "Starting iteration 1 at" in log.read():
+                    self.proc.send_signal(signal.SIGTERM)
+                    return
+            time.sleep(0.01)
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def finish(self):
+        """Returns the `trainer_sigterm:` numbers."""
+        from adanet_tpu_torch.core import checkpoint as ckpt
+
+        try:
+            rc = self.proc.wait(timeout=600)
+            first_secs = time.perf_counter() - self._t0
+        finally:
+            self.kill()
+            self._watcher.join(timeout=60)
+            for f in self._files.values():
+                f.close()
+        text = {key: open(path).read() for key, path in self._paths.items()}
         if rc != 0:
-            raise AssertionError("trainer %s: rc %r\n%s" % (name, rc, text["err"][-3000:]))
-        return time.perf_counter() - t0, text
+            raise AssertionError("trainer sigterm: rc %r\n%s" % (rc, text["err"][-3000:]))
+        info = ckpt.read_manifest(self.model_dir)
+        per_iteration = TRAINER_SIGTERM_STEPS // 2
+        if (info.iteration_number != 1 or info.iteration_state_file != "ckpt-%d.pt" % info.global_step
+                or not per_iteration < info.global_step < 2 * per_iteration):
+            raise AssertionError("trainer: SIGTERM left %s" % info)
+        stopped_at = info.global_step
+        second_secs, text = _trainer_in_process(self.argv[3:])
+        info = ckpt.read_manifest(self.model_dir)
+        if "Restored mid-iteration state from ckpt-%d.pt" % stopped_at not in text["err"]:
+            raise AssertionError("trainer: the second run did not restore ckpt-%d.pt" % stopped_at)
+        if (info.iteration_number, info.global_step, info.iteration_state_file) != (
+                2, TRAINER_SIGTERM_STEPS, None):
+            raise AssertionError("trainer: the second run ended at %s" % info)
+        row = dict(stopped_at=stopped_at, steps=TRAINER_SIGTERM_STEPS, first_secs=first_secs,
+                   second_secs=second_secs, metrics=json.loads(text["out"].strip().splitlines()[-1]),
+                   card=card_line())
+        print("trainer_sigterm: " + json.dumps(row))
+        return row
 
-    first_secs, _ = run("sigterm", True)
-    info = ckpt.read_manifest(model_dir)
-    per_iteration = TRAINER_SIGTERM_STEPS // 2
-    if (info.iteration_number != 1 or info.iteration_state_file != "ckpt-%d.pt" % info.global_step
-            or not per_iteration < info.global_step < 2 * per_iteration):
-        raise AssertionError("trainer: SIGTERM left %s" % info)
-    stopped_at = info.global_step
-    second_secs, text = run("resume", False)
-    info = ckpt.read_manifest(model_dir)
-    if "Restored mid-iteration state from ckpt-%d.pt" % stopped_at not in text["err"]:
-        raise AssertionError("trainer: the second run did not restore ckpt-%d.pt" % stopped_at)
-    if (info.iteration_number, info.global_step, info.iteration_state_file) != (2, TRAINER_SIGTERM_STEPS, None):
-        raise AssertionError("trainer: the second run ended at %s" % info)
-    return dict(stopped_at=stopped_at, steps=TRAINER_SIGTERM_STEPS, first_secs=first_secs,
-                second_secs=second_secs, metrics=json.loads(text["out"].strip().splitlines()[-1]))
+
+def _trainer_in_process(args):
+    """The improve_nas trainer CLI's `main(args)` in this process on the
+    card: (seconds, {"out": its standard output, "err": its log at INFO})."""
+    import io
+    import logging
+    from contextlib import redirect_stdout
+
+    from adanet_tpu_torch.research.improve_nas import trainer
+
+    out, err = io.StringIO(), io.StringIO()
+    handler = logging.StreamHandler(err)
+    logger = logging.getLogger("adanet_tpu_torch")
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    t0 = time.perf_counter()
+    try:
+        with redirect_stdout(out):
+            rc = trainer.main(list(args))
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    if rc != 0:
+        raise AssertionError("trainer: the resumed run returned %r\n%s" % (rc, err.getvalue()[-4000:]))
+    return time.perf_counter() - t0, {"out": out.getvalue(), "err": err.getvalue()}
 
 
 def nasnet_gate(model_dir, label="nasnet_gate", **estimator_kwargs):
@@ -3364,8 +3530,9 @@ def nasnet_gate(model_dir, label="nasnet_gate", **estimator_kwargs):
 
 def train_nasnet_mobile(model_dir, seed):
     """NASNet-A Mobile at full width on the card under the throughput
-    configuration: `TPUEstimator` (windows of 8, bf16 steps, device
-    prefetch, a checkpoint every 8 steps) over 2 iterations x 16 steps of
+    configuration: `TPUEstimator` (windows of MOBILE_WINDOW, bf16 steps,
+    device prefetch, a checkpoint every window) over 2 iterations x
+    MOBILE_STEPS steps of
     224 x 224 x 3 images, 1001 classes, then `evaluate` and `predict` of
     a ragged stream padded to 32: each padded batch's rows bitwise the
     same rows predicted inside an unpadded batch of 32 real rows (the
@@ -4263,8 +4430,8 @@ def bagging_gate(model_dir, **estimator_kwargs):
 
 
 def transfer_on_card(model_dir):
-    """The transfer_learning tutorial at its defaults on the card (300
-    pretraining steps, 2 x 200 search steps), with cuDNN's TF32 at
+    """The transfer_learning tutorial on the card (its 300 pretraining
+    steps, 2 x TRANSFER_STEPS search steps of its default 2 x 200), with cuDNN's TF32 at
     torch's default (on) so that the port's own guards are what turn it
     off: accuracy > 0.3, every f32 convolution of the pretraining loop
     and of a training or eval step run with TF32 off, the frozen
@@ -4300,7 +4467,8 @@ def transfer_on_card(model_dir):
     torch.backends.cudnn.allow_tf32 = True
     t0 = time.perf_counter()
     try:
-        metrics = transfer_learning.main(["--model_dir=%s" % os.path.join(model_dir, "transfer")])
+        metrics = transfer_learning.main(["--model_dir=%s" % os.path.join(model_dir, "transfer"),
+                                          "--search_steps=%d" % TRANSFER_STEPS])
         counts = ops.launch_counts()
     finally:
         torch.backends.cudnn.allow_tf32 = previous_tf32
@@ -4318,8 +4486,9 @@ def transfer_on_card(model_dir):
 
 
 def boston_on_card(model_dir):
-    """The boston_housing tutorial at its defaults on the card (3 x 200
-    steps, the synthetic stand-in): a finite average loss, K1 exact."""
+    """The boston_housing tutorial on the card (3 x BOSTON_STEPS steps, 3 x
+    200 at its defaults; the synthetic stand-in): a finite average loss,
+    K1 exact."""
     import math
 
     from adanet_tpu_torch import ops
@@ -4327,7 +4496,8 @@ def boston_on_card(model_dir):
 
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    metrics = boston_housing.main(["--model_dir=%s" % os.path.join(model_dir, "boston")])
+    metrics = boston_housing.main(["--model_dir=%s" % os.path.join(model_dir, "boston"),
+                                   "--max_steps=%d" % (3 * BOSTON_STEPS)])
     counts = ops.launch_counts()
     test_batches = (506 - int(0.8 * 506)) // 32
     expected = _counts(BOSTON_STEPS * sum(_grow_candidates(2, 3)) + test_batches)
@@ -4717,7 +4887,7 @@ def _family_vs_cpu(gen):
 def imagenet_autoensemble(model_dir, gen):
     """The ImageNet AutoEnsemble trainer CLI at its defaults (ResNet-50
     width 64 + EfficientNet-B0, 224 x 224, batch 64, replication, K1 on)
-    on its fake data, 2 x 10 steps: K1 exact (one a candidate a step, two
+    on its fake data, 2 x 7 steps: K1 exact (one a candidate a step, two
     at t = 0 and three at t = 1, and one a test batch), finite metrics,
     each subnetwork's training loss falling within its iteration; the
     families' card/CPU forwards (`_family_vs_cpu`). Prints ms a step (over
@@ -4767,8 +4937,8 @@ def imagenet_autoensemble(model_dir, gen):
 @contextlib.contextmanager
 def _timed_provider(trainer, clocks):
     """The ImageNet trainer's provider with its training stream through
-    `_StepClock` (appended to `clocks`): steps 12-15 of iteration 1 timed,
-    step 17 traced."""
+    `_StepClock` (appended to `clocks`): steps 9-11 of iteration 1 timed,
+    step 13 traced."""
     make_provider = trainer._provider
 
     class Timed:
@@ -4919,7 +5089,7 @@ def _loss_series(losses):
 def imagenet_round_robin(model_dir, replication_losses):
     """The ImageNet AutoEnsemble trainer CLI at its defaults with
     `--placement=round_robin` (ResNet-50 width 64 + EfficientNet-B0,
-    224 x 224, batch 64, fake data, 2 x 10 steps): K1 exact (the ensemble
+    224 x 224, batch 64, fake data, 2 x 7 steps): K1 exact (the ensemble
     group's updates are replication's, one a candidate a step, and one a
     test batch), finite metrics, each subnetwork's training loss falling
     within its iteration, and each step's training loss within
@@ -5623,6 +5793,9 @@ RING_SHAPE, RING_SHARDS, RING_TIMED = (8, 2048, 4, 32), 8, 3
 # most on an H100), and the same steps at bf16 compute on the CPU, the
 # control, must fall outside it (7.5e-3 from the CPU's f32 run).
 LONG_CONTEXT_CPU_STEPS, LONG_CONTEXT_LOSS_BOUND = 4, 1e-4
+# long_context_search's steps on the card: 2 x 15 of the tutorial's
+# default 2 x 30 (PR 17).
+LONG_CONTEXT_STEPS = 30
 # transformer_full_width: TransformerConfig()'s defaults (vocab 32,000, 2
 # layers, 4 heads, dim 128, MLP 512, sequence 2048, bf16), ring over 8
 # shards, batch 8, one iteration of 10 steps (steps 4-7 timed, 8-9
@@ -5776,8 +5949,8 @@ def _step_losses(metrics):
 
 
 def long_context_search(model_dir):
-    """The long-context tutorial at its defaults on the card (8 shards in
-    one process): accuracy, loss, best ensemble, ms a step, K1 exact
+    """The long-context tutorial on the card (its defaults but
+    LONG_CONTEXT_STEPS steps; 8 shards in one process): accuracy, loss, best ensemble, ms a step, K1 exact
     (one a candidate a step, one a test batch); then its first
     LONG_CONTEXT_CPU_STEPS steps on the CPU from the same seeds, each
     step's losses within LONG_CONTEXT_LOSS_BOUND x max(1, |loss|), and
@@ -5794,7 +5967,8 @@ def long_context_search(model_dir):
     for run, device, dtype in (("cuda", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
                                ("cpu_bf16", "cpu", torch.bfloat16)):
         directory = os.path.join(model_dir, "long_context_" + run)
-        args = tutorial.parse_args(["--model_dir", directory, "--device", device])
+        args = tutorial.parse_args(["--model_dir", directory, "--device", device,
+                                    "--max_steps", str(LONG_CONTEXT_STEPS)])
         estimator = tutorial.build_estimator(args, SequenceMesh(args.devices), _recording(Estimator), dtype)
         train = tutorial.make_batches(0, 10, args.batch_size, args.seq_len)
         ops.reset_launch_counts()
@@ -6670,12 +6844,14 @@ def check_group_combines(seen, gen):
     return worst, shapes
 
 
-def long_context_export_phases(model_dir, long_context_gen):
+def long_context_export_phases(model_dir, long_context_gen, after_sws=None):
     """The fifteenth slice's group: `ring_attention`, `ring_two_process`
     (its processes started first), `long_context_search`,
     `transformer_full_width`, `export_programs`, `serve_while_search`,
-    `serving_example`, then K1 at every shape they launched it at.
-    Returns ({phase: K1 launches}, K1's worst error, the shapes)."""
+    `serving_example`, then K1 at every shape they launched it at;
+    `after_sws()` runs right after `serve_while_search`, while the group
+    waits on its side processes. Returns ({phase: K1 launches}, K1's worst
+    error, the shapes)."""
     started = example = None
     try:
         with _CombineShapes() as shapes:
@@ -6691,6 +6867,8 @@ def long_context_export_phases(model_dir, long_context_gen):
             serving = start_export_programs(model_dir, lc_estimator, lc_row["seq_len"])
             try:
                 sws_counts, sws_row = serve_while_search(model_dir)
+                if after_sws is not None:
+                    after_sws()
             finally:
                 exported = export_programs(serving)
             example_counts, _ = serving_example_on_card(example)
@@ -6705,6 +6883,570 @@ def long_context_export_phases(model_dir, long_context_gen):
                     serve_while_search_searcher=sws_row["restarted_searcher"]["launches"]["combine"],
                     serving_example=example_counts["combine"])
     return launches, worst, combine_shapes
+
+
+# ------------------------------------- the serving fleet, its traces, profiles
+
+# serving_fleet: replicas (r0, r1 through `servectl launch`, the victim r2
+# spawned beside them with the flip's fault armed), their buckets, their
+# heartbeats (s) and the balancer's staleness bound (s); the client
+# threads and the rows of their requests; the distillation's batches of
+# digit features, its held-out calibration rows, its steps and the
+# agreement its calibration targets; the final requests, one at a time.
+# The shadow rolls a replica's cascade back when the level-0 rows'
+# disagreement over at least 64 shadowed rows passes three times the
+# calibrated disagreement, 1 - target: at a target of 0.99 (a student
+# agreeing with its teacher on about 93% of held-out digits) the shadow's
+# first estimates pass that bound by chance about one run in ten a
+# replica, at 0.9 about never, so the distilled level 0 clears rows at
+# 0.9.
+FLEET_REPLICAS, FLEET_VICTIM = ("r0", "r1"), "r2"
+FLEET_BUCKETS = "1,2,4,8,16,32"
+FLEET_HEARTBEAT, FLEET_STALE = 0.2, 2.0
+FLEET_CLIENTS, FLEET_ROWS = 3, (1, 32)
+DISTILL_BATCHES, DISTILL_BATCH, DISTILL_CALIBRATION, DISTILL_STEPS = 32, 128, 2048, 2000
+DISTILL_TARGET_AGREEMENT = 0.9
+FLEET_FINAL_ROWS = (1, 3, 8, 17, 32)
+# trace_view: the in-process search whose spans the trace must hold.
+TRACE_SEARCH_STEPS = 10
+# profile_nasnet: the profiled steps (the tool's other flags at their
+# defaults: batch 128, 18 cells, 32 filters).
+PROFILE_STEPS = 2
+
+
+def _replica_counts(fleet_dir, replica_id):
+    """The counts on a replica's last `REPLICA DRAINED` line (its kernel
+    launches and its program loads and calls by file)."""
+    with open(os.path.join(fleet_dir, "logs", replica_id + ".log")) as f:
+        lines = [line for line in f if line.startswith("REPLICA DRAINED %s " % replica_id)]
+    if not lines:
+        raise AssertionError("serving_fleet: %s printed no drained line" % replica_id)
+    return json.loads(lines[-1].split(" ", 3)[3])
+
+
+def _replica_log_secs(fleet_dir, replica_id, marker):
+    """Seconds on a replica's log lines holding `marker` (`... in X s.`)."""
+    import re
+
+    with open(os.path.join(fleet_dir, "logs", replica_id + ".log")) as f:
+        return [float(m.group(1)) for line in f if marker in line
+                for m in [re.search(r" in ([0-9.]+) s\.", line)] if m]
+
+
+def _offline_answer(full, cheap, local, request):
+    """The answer a replica owes `request` sent alone: `local` (a Batcher
+    over a pool on the same generation, cascade on) runs it, and its
+    answer must be the offline level-0 program's rows where they cleared
+    and the full program's on the residual bucket elsewhere (as
+    `serve_while_search` checks). Returns that answer."""
+    import numpy as np
+
+    from adanet_tpu_torch.serving import batcher as batcher_lib
+
+    n = batcher_lib.request_rows(request)
+    padded, _ = batcher_lib.pad_batch([request], batcher_lib.bucket_for(n, local.config.bucket_sizes))
+    _, (answer,) = local.execute([request])
+    mask = local.last_row_fallthrough
+    want = batcher_lib.split_rows(cheap(padded), [n])[0] if mask is not None else None
+    residual = np.flatnonzero(mask) if mask is not None else np.arange(n)
+    if len(residual):
+        rows = {key: np.asarray(value)[residual] for key, value in request.items()}
+        rpadded, _ = batcher_lib.pad_batch([rows], batcher_lib.bucket_for(len(residual), local.config.bucket_sizes))
+        full_rows = batcher_lib.split_rows(full(rpadded), [len(residual)])[0]
+        if want is None:
+            want = full_rows
+        else:
+            for key in want:
+                want[key] = want[key].copy()
+                want[key][residual] = full_rows[key]
+    for key in want:
+        if not np.array_equal(answer[key], want[key]):
+            raise AssertionError("serving_fleet: the local batcher's %s differs from the offline programs" % key)
+    return answer
+
+
+def start_serving_fleet(model_dir):
+    """`serving_fleet`'s first part, started inside the long-context group
+    right after `serve_while_search` (the group then waits on its side
+    processes): gen-0, a byte copy of `serve_while_search`'s last
+    generation (`_copy_generation`), its ref closure in a shared store;
+    `python -m adanet_tpu_torch.tools.servectl launch` starting r0 and r1
+    on the card, and the victim r2 beside them with
+    `ADANET_FAULTS=serving.fleet_flip:kill`. Returns the handle
+    `serving_fleet` goes on from."""
+    from adanet_tpu_torch.serving import publisher
+    from adanet_tpu_torch.serving.fleet import replica as replica_lib
+    from adanet_tpu_torch.store import ArtifactStore
+    from adanet_tpu_torch.tools import servectl
+
+    fleet = dict(fleet_dir=os.path.join(model_dir, "fleet"), procs=[], t0=time.perf_counter())
+    fleet["model_dir"] = fmodel = os.path.join(fleet["fleet_dir"], "model")
+    fleet["store_root"] = os.path.join(fleet["fleet_dir"], replica_lib.STORE_SUBDIR)
+    source = publisher.list_generations(os.path.join(model_dir, "serve_while_search"))[-1][1]
+    fleet["gen0"] = _copy_generation(source, fmodel, 0)
+    publisher.publish_ref_closure(ArtifactStore(fleet["store_root"]), fmodel, 0)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]))
+    env.pop("ADANET_FAULTS", None)
+    fleet["env"] = env
+    fleet["launch"] = subprocess.Popen(
+        [sys.executable, "-m", "adanet_tpu_torch.tools.servectl", "launch", fleet["fleet_dir"], "--model-dir", fmodel,
+         "--replicas", str(len(FLEET_REPLICAS)), "--buckets", FLEET_BUCKETS, "--timeout", str(PROCESS_TIMEOUT),
+         "--json"], cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fleet["procs"].append(fleet["launch"])
+    fleet["victim"] = spawn_fleet_replica(fleet, FLEET_VICTIM, fault="serving.fleet_flip:kill")
+    return fleet
+
+
+def spawn_fleet_replica(fleet, replica_id, fault=None):
+    """A replica of the fleet on the card (`servectl.spawn_replica`)."""
+    from adanet_tpu_torch.tools import servectl
+
+    env = dict(fleet["env"], ADANET_FAULTS=fault) if fault else fleet["env"]
+    fleet["procs"].append(servectl.spawn_replica(
+        fleet["fleet_dir"], fleet["model_dir"], replica_id, env=env, buckets=FLEET_BUCKETS,
+        heartbeat_interval=FLEET_HEARTBEAT, heartbeat_stale=FLEET_STALE))
+    return fleet["procs"][-1]
+
+
+def stop_fleet(fleet):
+    """Kills every process of the fleet (those `servectl launch` recorded
+    and those this process started) and prints their logs' tails."""
+    from adanet_tpu_torch.tools import servectl
+
+    pids = [proc.pid for proc in fleet["procs"]]
+    try:
+        with open(os.path.join(fleet["fleet_dir"], servectl.FLEET_STATE)) as f:
+            pids += [int(r["pid"]) for r in json.load(f)["replicas"]]
+    except (OSError, ValueError, KeyError):
+        pass
+    for pid in set(pids):
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            pass
+    for proc in fleet["procs"]:
+        proc.wait(timeout=60)
+    for rid in FLEET_REPLICAS + (FLEET_VICTIM,):
+        print("serving_fleet: %s's log ends\n%s" % (rid, _read_replica_log(fleet["fleet_dir"], rid)[-2500:]))
+
+
+def serving_fleet(fleet, gen):
+    """`_serving_fleet` on the fleet `start_serving_fleet` started, every
+    process of it killed if it fails."""
+    try:
+        return _serving_fleet(fleet, gen)
+    except BaseException:
+        stop_fleet(fleet)
+        raise
+
+
+def _serving_fleet(fleet, gen):
+    """The serving fleet on the card (ROADMAP 10.3). `serve_while_search`'s
+    model dir (a simple_dnn weighted ensemble at the tier-1 gate's width,
+    128, with the calibrated member cascade) gives gen-0: a byte copy of
+    its last generation (`_copy_generation`), its ref closure published
+    into a shared artifact store. `servectl launch` starts r0 and r1 on
+    the card (buckets 1-32; `start_serving_fleet`, beside the long-context
+    group's end) and this process distills gen-1:
+    `distill_and_publish(teacher_from_generation(gen-0), ...)` on digit
+    features, a student MLP as the cascade's level 0 (`source ==
+    "distilled"`), calibrated on held-out digits. The victim r2 joins with
+    `ADANET_FAULTS=serving.fleet_flip:kill`. Three client threads send
+    closed-loop traffic of 1 to 32 rows through a `FleetBalancer` while
+    gen-1 is published: the victim dies by SIGKILL mid-flip, the survivors
+    commit, and the victim is respawned and bootstraps gen-1. Then
+    requests one at a time, `servectl status`, `cascade` and `drain`.
+
+    Checks: zero `error` results and every request answered; exactly one
+    flip outcome, `commit`; every replica on gen-1 with its cascade
+    published, `distilled`, row mode, not rolled back; the final answers
+    bitwise the offline programs of gen-1 (level 0 for the rows it
+    cleared, the full program on the residual bucket); a clean
+    `fsck_store` and `ckpt_fsck` rc 0; servectl's exit codes 0; in each
+    drained replica K1 exact (a full-program call launches its program's
+    K1 nodes, a level-0 call none), K0 exact (one a program loaded onto
+    the card: the kernels' self-test), K2 and K3 none; the heartbeat gaps
+    seen by this process within the staleness bound. Returns (this
+    process's launch counts, the drained replicas' counts, the
+    `serving_fleet:` numbers)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from adanet_tpu_torch import ops
+    from adanet_tpu_torch.core import export
+    from adanet_tpu_torch.distributed.scheduler import FileKV
+    from adanet_tpu_torch.examples.synthetic_digits import make_dataset
+    from adanet_tpu_torch.observability import flightrec
+    from adanet_tpu_torch.observability import spans as spans_lib
+    from adanet_tpu_torch.research.distill_to_serve import (DistillConfig, distill_and_publish,
+                                                            teacher_from_generation)
+    from adanet_tpu_torch.serving import Batcher, BatcherConfig, ModelPool, publisher
+    from adanet_tpu_torch.serving.fleet import (NAMESPACE, BalancerConfig, FleetBalancer, read_heartbeats,
+                                                replica as replica_lib)
+    from adanet_tpu_torch.store import ArtifactStore, fsck_store
+    from adanet_tpu_torch.tools import servectl
+
+    t_phase = time.perf_counter()
+    fleet_dir, fmodel, gen0 = fleet["fleet_dir"], fleet["model_dir"], fleet["gen0"]
+    store_root = fleet["store_root"]
+    store = ArtifactStore(store_root)
+    # The spans of this process that `trace_view` reads start here.
+    spans_lib.tracer().clear()
+    flightrec.install_default(os.path.join(fmodel, flightrec.DEFAULT_SUBDIR))
+
+    def record(replica_id, proc):
+        state_path = os.path.join(fleet_dir, servectl.FLEET_STATE)
+        with open(state_path) as f:
+            state = json.load(f)
+        state["replicas"] = [r for r in state["replicas"] if r["id"] != replica_id] + [
+            {"id": replica_id, "pid": proc.pid, "socket": os.path.join(fleet_dir, replica_id + ".sock")}]
+        with open(state_path, "w") as f:
+            json.dump(state, f, indent=2, sort_keys=True)
+
+    # 1. The distillation, while r0, r1 and the victim finish booting.
+    victim = fleet["victim"]
+    features, _ = make_dataset(DISTILL_BATCHES * DISTILL_BATCH + DISTILL_CALIBRATION, seed=13)
+    features = features.reshape(len(features), -1)
+    batches = [{"x": features[i * DISTILL_BATCH:(i + 1) * DISTILL_BATCH]} for i in range(DISTILL_BATCHES)]
+    calibration = {"x": features[DISTILL_BATCHES * DISTILL_BATCH:]}
+    traffic = make_dataset(1024, seed=14)[0]
+    traffic = traffic.reshape(len(traffic), -1)
+    ops.reset_launch_counts()
+    with _CombineShapes() as shapes, _CountedPrograms() as programs:
+        t0 = time.perf_counter()
+        teacher = teacher_from_generation(gen0)
+        staging = os.path.join(fleet_dir, "staging")
+        distilled = distill_and_publish(staging, 1, teacher, batches, DistillConfig(
+            steps=DISTILL_STEPS, logits_key="logits", target_agreement=DISTILL_TARGET_AGREEMENT),
+            calibration_features=calibration)
+        torch.cuda.synchronize()
+        distill_secs = time.perf_counter() - t0
+    distill_counts = ops.launch_counts()
+    launch_out = fleet["launch"].communicate(timeout=PROCESS_TIMEOUT)[0]
+    if fleet["launch"].returncode != 0:
+        raise AssertionError("serving_fleet: servectl launch returned %s\n%s\n%s" % (
+            fleet["launch"].returncode, launch_out[-2000:],
+            "\n".join(_read_replica_log(fleet_dir, r) for r in FLEET_REPLICAS)))
+    launched = json.loads(launch_out.strip().splitlines()[-1])
+    record(FLEET_VICTIM, victim)
+    kv = FileKV(os.path.join(fleet_dir, replica_lib.KV_SUBDIR))
+    every = FLEET_REPLICAS + (FLEET_VICTIM,)
+    _wait_until("the fleet's bootstrap", lambda: all(
+        read_heartbeats(kv, NAMESPACE).get(r, {}).get("generation") == 0 for r in every))
+    boot_secs = {r: _replica_log_secs(fleet_dir, r, "REPLICA BOOTSTRAP") for r in every}
+
+    # 2. Traffic through the balancer; gen-1 published meanwhile.
+    balancer = FleetBalancer(kv, config=BalancerConfig(stale_after_secs=FLEET_STALE))
+    results, lock, stop = [], threading.Lock(), threading.Event()
+    gaps = collections.Counter()
+
+    def client(seed):
+        client_rng = np.random.RandomState(seed)
+        offset = 0
+        while not stop.is_set():
+            n = int(client_rng.randint(FLEET_ROWS[0], FLEET_ROWS[1] + 1))
+            rows = traffic[offset % 992:offset % 992 + n]
+            offset += n
+            t0 = time.perf_counter()
+            result = balancer.submit({"x": rows}, deadline_secs=120.0)
+            with lock:
+                results.append((result, n, time.perf_counter() - t0, time.monotonic()))
+
+    def watch():
+        # The heartbeat ages this process sees, by replica: the victim's
+        # only while it lives.
+        while not stop.is_set():
+            now = time.time()
+            for rid, beat in read_heartbeats(kv, NAMESPACE).items():
+                if rid != FLEET_VICTIM or (beat.get("pid") == victim.pid and victim.poll() is None):
+                    gaps[rid] = max(gaps[rid], now - float(beat.get("ts", now)))
+            time.sleep(0.05)
+
+    threads = [threading.Thread(target=client, args=(seed,), daemon=True) for seed in range(FLEET_CLIENTS)]
+    threads.append(threading.Thread(target=watch, daemon=True))
+    outcome_key = None
+    try:
+        for thread in threads:
+            thread.start()
+        time.sleep(1.0)
+        t_traffic = time.monotonic()
+        # Publication: the staged generation renamed into the chain (its
+        # closure published to the shared store as the publisher does).
+        os.makedirs(publisher.serving_root(fmodel), exist_ok=True)
+        os.replace(distilled, publisher.generation_dir(fmodel, 1))
+        t_pub = time.monotonic()
+        publisher.publish_ref_closure(store, fmodel, 1)
+        _wait_until("the victim's death", lambda: victim.poll() is not None)
+        t_dead = time.monotonic()
+        if victim.returncode != -signal.SIGKILL:
+            raise AssertionError("serving_fleet: the victim returned %s\n%s"
+                                 % (victim.returncode, _read_replica_log(fleet_dir, FLEET_VICTIM)))
+
+        def committed():
+            nonlocal outcome_key
+            for key, value in kv.scan("%s/flip/" % NAMESPACE).items():
+                if key.endswith("/outcome") and json.loads(value).get("decision") == "commit":
+                    outcome_key = key
+                    return True
+            return False
+
+        _wait_until("the survivors' commit", committed)
+        t_commit = time.monotonic()
+        _wait_until("the survivors' flip", lambda: all(
+            read_heartbeats(kv, NAMESPACE).get(r, {}).get("generation") == 1 for r in FLEET_REPLICAS))
+        t_flipped = time.monotonic()
+        victim = spawn_fleet_replica(fleet, FLEET_VICTIM)
+        record(FLEET_VICTIM, victim)
+        _wait_until("the respawned victim's bootstrap",
+                    lambda: read_heartbeats(kv, NAMESPACE).get(FLEET_VICTIM, {}).get("generation") == 1
+                    or victim.poll() is not None)
+        if victim.poll() is not None:
+            raise AssertionError("serving_fleet: the respawned victim exited\n%s"
+                                 % _read_replica_log(fleet_dir, FLEET_VICTIM))
+        t_rejoined = time.monotonic()
+        time.sleep(0.5)
+    finally:
+        stop.set()
+        for thread in threads:
+            thread.join(timeout=120)
+    traffic_secs = time.monotonic() - t_traffic
+
+    def cascades_intact(beats):
+        for rid in every:
+            c = beats.get(rid, {}).get("cascade") or {}
+            if (beats.get(rid, {}).get("generation") != 1 or not c.get("published") or c.get("mode") != "row"
+                    or c.get("rollback") is not None or c.get("source") != "distilled"):
+                raise AssertionError("serving_fleet: %s heartbeats %s" % (rid, beats.get(rid)))
+
+    cascades_intact(read_heartbeats(kv, NAMESPACE))
+
+    # 3. Final answers, one request at a time, against the offline programs.
+    gen1 = publisher.generation_dir(fmodel, 1)
+    local_pool = ModelPool(fmodel)
+    local_pool.poll()
+    # The offline programs: gen-1's, as `load_serving_program` loaded them
+    # for this process's pool.
+    full, cheap = local_pool.active.program, local_pool.active.cascade_program
+    local = Batcher(local_pool, BatcherConfig(bucket_sizes=tuple(int(b) for b in FLEET_BUCKETS.split(","))))
+    final = []
+    for n in FLEET_FINAL_ROWS:
+        request = {"x": traffic[-n:]}
+        result = balancer.submit(request, deadline_secs=120.0)
+        if not result.ok or result.generation != 1:
+            raise AssertionError("serving_fleet: a final request got %s %s from %s"
+                                 % (result.status, result.error, result.generation))
+        want = _offline_answer(full, cheap, local, request)
+        for key in want:
+            got = np.asarray(result.outputs[key])
+            if not np.array_equal(got, want[key]):
+                raise AssertionError(
+                    "serving_fleet: the fleet's %s for %d rows (level %s) differs from the offline programs' "
+                    "(fallthrough %s) by %s; heartbeats %s" % (
+                        key, n, result.cascade_level, local.last_row_fallthrough,
+                        np.abs(got.astype(np.float64) - want[key]).max(axis=-1) if got.shape == want[key].shape
+                        else (got.shape, want[key].shape), {r: b.get("cascade") for r, b in
+                                                            read_heartbeats(kv, NAMESPACE).items()}))
+        final.append(dict(rows=n, level=result.cascade_level))
+
+    # 4. The operator's view, then the drain.
+    def servectl_json(*argv):
+        import io
+        from contextlib import redirect_stdout
+
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            rc = servectl.main(list(argv) + ["--json"])
+        return rc, json.loads(buf.getvalue())
+
+    status_rc, status = servectl_json("status", fleet_dir)
+    cascade_rc, census = servectl_json("cascade", fleet_dir)
+    beats = read_heartbeats(kv, NAMESPACE)
+    drain_rc, drained = servectl_json("drain", fleet_dir)
+    counts = {r: _replica_counts(fleet_dir, r) for r in every}
+
+    # Checks.
+    statuses = collections.Counter(r.status for r, _, _, _ in results)
+    oks = [(r, n, secs, at) for r, n, secs, at in results if r.ok]
+    outcomes = [json.loads(v) for k, v in kv.scan("%s/flip/" % NAMESPACE).items() if k.endswith("/outcome")]
+    if (statuses.get("error") or len(oks) != len(results) or not oks or oks[-1][0].generation != 1
+            or {r.generation for r, _, _, _ in oks} - {0, 1}):
+        raise AssertionError("serving_fleet: statuses %s, generations %s"
+                             % (dict(statuses), collections.Counter(r.generation for r, _, _, _ in oks)))
+    if len(outcomes) != 1 or outcomes[0]["decision"] != "commit":
+        raise AssertionError("serving_fleet: flip outcomes %s" % outcomes)
+    cascades_intact(beats)
+    if (status_rc, cascade_rc, drain_rc) != (0, 0, 0) or sorted(drained["drained"]) != sorted(every):
+        raise AssertionError("serving_fleet: servectl status %d %s, cascade %d %s, drain %d %s"
+                             % (status_rc, status, cascade_rc, census, drain_rc, drained))
+    audit = fsck_store(ArtifactStore(store_root))
+    fsck_rc, fsck_report = _fsck_json([fmodel, "--store", store_root])
+    if not audit["clean"] or fsck_rc != 0:
+        raise AssertionError("serving_fleet: fsck_store %s, ckpt_fsck rc %d %s" % (audit, fsck_rc, fsck_report))
+    k1_nodes = {}
+    for rid, c in counts.items():
+        for path in set(c["calls"]) | set(c["loads"]):
+            if path not in k1_nodes:
+                k1_nodes[path] = _k1_nodes(path)
+        k1 = sum(calls * k1_nodes[path] for path, calls in c["calls"].items())
+        loads = sum(c["loads"].values())
+        if c["launches"] != dict(copy=loads, combine=k1, sepconv=0, cell=0):
+            raise AssertionError("serving_fleet: %s launched %s, expected K0 %d and K1 %d (calls %s, K1 a call %s)"
+                                 % (rid, c["launches"], loads, k1, c["calls"], k1_nodes))
+    stale = {rid: age for rid, age in gaps.items() if age > FLEET_STALE}
+    if stale:
+        raise AssertionError("serving_fleet: heartbeat gaps past %.1f s: %s" % (FLEET_STALE, stale))
+    # This process: the teacher's load (K0) and calls, and the published
+    # full program's export sample run and calibration call (the teacher's
+    # graph, K1 each); the student launches no kernel of the port.
+    teacher_k1 = _k1_nodes(os.path.join(gen0, export.SERVING_FILE))
+    teacher_calls = sum(programs.calls.values())
+    expected = dict(copy=1, combine=(teacher_calls + 2) * teacher_k1, sepconv=0, cell=0)
+    if distill_counts != expected or _k1_nodes(os.path.join(gen1, export.SERVING_FILE)) != teacher_k1:
+        raise AssertionError("serving_fleet: the distillation launched %s, expected %s (teacher calls %d)"
+                             % (distill_counts, expected, teacher_calls))
+    # K1 against its plain version at the fleet's shapes: the teacher's
+    # and the calibration's here, and the replicas' buckets.
+    seen = shapes.seen | {(n, b, c, rank, bias) for n, _, c, rank, bias in shapes.seen
+                          for b in (int(b) for b in FLEET_BUCKETS.split(","))}
+    worst = 0.0
+    for n, b, c, rank, bias in sorted(seen):
+        if rank != 1:
+            raise AssertionError("serving_fleet: K1 with weights of rank %d" % rank)
+        worst = max(worst, *check_search_combine(n, bias, gen, batch=b, classes=c))
+    combine_shapes = sorted({(n, b, c) for n, b, c, _, _ in seen})
+    latencies = sorted(secs for _, _, secs, _ in oks)
+    dead = [1 for _, _, _, at in oks if t_dead <= at <= t_rejoined]
+    signature = export.serving_signature(gen1)
+    agreement = np.mean([np.argmax(cheap(b)["logits"].cpu().numpy(), -1)
+                         == np.argmax(teacher(b)["logits"].cpu().numpy(), -1) for b in batches])
+    row = dict(
+        replicas=list(every), buckets=FLEET_BUCKETS, distill_secs=distill_secs, distill_steps=DISTILL_STEPS,
+        student_train_agreement=float(agreement), cascade=signature["cascade"],
+        flip_secs_publication_to_commit=t_commit - t_pub, flip_secs_publication_to_flipped=t_flipped - t_pub,
+        victim_dead_secs=t_dead - t_pub, requests=len(results), requests_while_victim_dead=len(dead),
+        rows=int(sum(n for _, n, _, _ in oks)), traffic_secs=traffic_secs,
+        rows_per_s=sum(n for _, n, _, _ in oks) / traffic_secs, p50_ms=latencies[len(latencies) // 2] * 1e3,
+        p99_ms=latencies[int(len(latencies) * 0.99)] * 1e3,
+        cascade_levels={str(k): v for k, v in collections.Counter(r.cascade_level for r, _, _, _ in oks).items()},
+        shadow={rid: {k: (beats.get(rid, {}).get("cascade") or {}).get(k) for k in (
+            "shadow_divergence", "shadow_rows", "shadow_divergence_bound", "row_fallthrough_rate")} for rid in every},
+        boot_gate_load_secs=boot_secs,
+        flip_stage_secs={r: _replica_log_secs(fleet_dir, r, "staged on") for r in every},
+        respawn_boot_secs=t_rejoined - t_flipped, max_heartbeat_age_secs=dict(gaps),
+        final=final, replica_launches={r: c["launches"] for r, c in counts.items()},
+        replica_program_calls={r: {os.path.relpath(p, fleet_dir): n for p, n in c["calls"].items()}
+                               for r, c in counts.items()},
+        distill_launches=distill_counts, k1_shapes=combine_shapes, k1_max_abs_err=worst,
+        launched=launched["missing_heartbeats"] == [], seconds=time.perf_counter() - t_phase,
+        seconds_since_start=time.perf_counter() - fleet["t0"], card=card_line(),
+    )
+    print("serving_fleet: " + json.dumps(row))
+    return distill_counts, counts, dict(row, fleet_dir=fleet_dir, model_dir=fmodel, counts=counts)
+
+
+def _read_replica_log(fleet_dir, replica_id):
+    try:
+        with open(os.path.join(fleet_dir, "logs", replica_id + ".log")) as f:
+            return f.read()[-4000:]
+    except OSError:
+        return "<no log>"
+
+
+def trace_view_phase(fleet):
+    """The search's and the replicas' flight records under one model dir,
+    read by the port's `trace_view`: a search of `train_search`'s
+    configuration (2 x TRACE_SEARCH_STEPS) runs in this process, whose
+    tracer also holds `serving_fleet`'s balancer spans; this process's
+    recorder, installed under the fleet's model dir, dumps beside the
+    replicas' SIGTERM-drain dumps; `trace_view --json --export` must
+    hold `search`, `train_window` and `serving.fleet.request` spans of
+    this process and events of every drained replica's process, on one
+    time axis. Returns the `trace_view:` numbers."""
+    import io
+    from contextlib import redirect_stdout
+
+    from adanet_tpu_torch.core.estimator import Estimator
+    from adanet_tpu_torch.examples.synthetic_digits import input_fn, make_dataset
+    from adanet_tpu_torch.observability import flightrec
+    from adanet_tpu_torch.tools import trace_view
+
+    t0 = time.perf_counter()
+    head, generator, ensembler = search_parts()
+    x, y = make_dataset(TRAIN_BATCH * TRACE_SEARCH_STEPS, seed=7)
+    search_dir = os.path.join(fleet["fleet_dir"], "search")
+    estimator = Estimator(head, generator, max_iteration_steps=TRACE_SEARCH_STEPS, max_iterations=2,
+                          ensemblers=[ensembler], model_dir=search_dir, log_every_steps=0, device="cuda")
+    estimator.train(input_fn(x, y, TRAIN_BATCH), max_steps=10**6)
+    flight_dir = os.path.join(fleet["model_dir"], flightrec.DEFAULT_SUBDIR)
+    flightrec.install_default(flight_dir)
+    dump = flightrec.dump_installed("trace_view")
+    export_path = os.path.join(fleet["fleet_dir"], "trace.json")
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = trace_view.main([flight_dir, "--json", "--export", export_path])
+    summary = json.loads(buf.getvalue())
+    with open(export_path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") in ("X", "i")]
+    by_pid = collections.defaultdict(collections.Counter)
+    for e in events:
+        by_pid[e["pid"]][e["name"]] += 1
+    mine = by_pid.get(os.getpid(), {})
+    replicas = {pid: names for pid, names in by_pid.items() if pid != os.getpid()}
+    drained = [fleet["counts"][r] for r in fleet["counts"]]
+    if (rc != 0 or not dump or not all(mine.get(name) for name in ("search", "train_window", "serving.fleet.request"))
+            or len(replicas) < len(drained) or any(e["ts"] < 0 for e in events)):
+        raise AssertionError("trace_view: rc %d, dump %s, this process %s, other processes %s"
+                             % (rc, dump, dict(mine), {p: dict(n) for p, n in replicas.items()}))
+    row = dict(dumps=sorted(os.listdir(flight_dir)), events=len(events), export_bytes=os.path.getsize(export_path),
+               this_process={k: mine[k] for k in ("search", "train_window", "iteration.complete",
+                                                  "serving.fleet.request") if k in mine},
+               replica_processes={str(pid): dict(names.most_common(6)) for pid, names in replicas.items()},
+               spans=summary["spans"].get("serving.fleet.request"), secs=time.perf_counter() - t0,
+               card=card_line())
+    print("trace_view: " + json.dumps(row))
+    return row
+
+
+def profile_nasnet_phase():
+    """The port's `profile_nasnet` tool at its defaults (batch 128, 18
+    cells, 32 filters) with K2 on and PROFILE_STEPS profiled steps, its
+    `main` run in this process (`--pallas_sepconv --steps PROFILE_STEPS
+    --json`): device ms a step and the top kernels by category from
+    torch.profiler's CUDA events; K2's launches over the profiled steps
+    (its launch counter) equal the sep-conv forwards the model made in
+    them, exactly; the trace's K2 kernels are printed beside them (the
+    tracer has delivered one fewer in this process: device ms a step is
+    then short by that kernel); no K0 (this process's self-test ran at
+    the start) and no K3. Launch counts zeroed
+    just before and read just after. Returns the tool's numbers."""
+    import io
+    from contextlib import redirect_stdout
+
+    from adanet_tpu_torch import ops
+    from adanet_tpu_torch.tools import profile_nasnet
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    ops.reset_launch_counts()
+    with redirect_stdout(buf):
+        rc = profile_nasnet.main(["--pallas_sepconv", "--steps", str(PROFILE_STEPS), "--json"])
+    counts = ops.launch_counts()
+    out = buf.getvalue()
+    print("\n".join(line for line in out.splitlines() if not line.startswith("profile_nasnet: ")))
+    lines = [line for line in out.splitlines() if line.startswith("profile_nasnet: ")]
+    if rc != 0 or not lines:
+        raise AssertionError("profile_nasnet: rc %s\n%s" % (rc, out[-3000:]))
+    row = json.loads(lines[-1][len("profile_nasnet: "):])
+    if (row["k2_launches"] != row["sepconv_forwards"] or not row["k2_launches"] or not row["trace_delivered"]
+            or counts["copy"] or counts["cell"]):
+        raise AssertionError("profile_nasnet: %s, launches %s" % (row, counts))
+    row.update(launches=counts, secs=time.perf_counter() - t0, card=card_line())
+    print("profile_nasnet: " + json.dumps(row))
+    return row
 
 
 def trainer_on_card():
@@ -6742,6 +7484,7 @@ def main(argv=None):
     parser.add_argument("--store", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--first", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--sws-search", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--side-gates", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     import torch
@@ -6765,6 +7508,10 @@ def main(argv=None):
     if args.sws_search:
         # `serve_while_search`'s searcher.
         sws_search_main(args.sws_search)
+        return 0
+    if args.side_gates:
+        # `SideGates`' process: the kernels are built already.
+        side_gates_main(args.side_gates)
         return 0
     print(card_line())
     clock = _PhaseClock()
@@ -6872,26 +7619,51 @@ def main(argv=None):
                                                           "card": card_line()}))
         clock.mark("elastic_multihost_phases")
         t_long = time.perf_counter()
-        long_context_launches, long_context_err, _ = long_context_export_phases(model_dir, rng)
+        # `serving_fleet`'s replicas boot while the group waits on its side
+        # processes (since PR 17).
+        fleet_start = {}
+        try:
+            long_context_launches, long_context_err, _ = long_context_export_phases(
+                model_dir, rng, after_sws=lambda: fleet_start.update(start_serving_fleet(model_dir)))
+        except BaseException:
+            if fleet_start:
+                stop_fleet(fleet_start)
+            raise
         errors["combine"] = max(errors["combine"], long_context_err)
         print("long_context_export_phases: " + json.dumps({"secs": time.perf_counter() - t_long,
                                                             "card": card_line()}))
         clock.mark("long_context_export_phases")
+        fleet_counts, fleet_replicas, fleet = serving_fleet(fleet_start, rng)
+        clock.mark("serving_fleet")
+        trace_view_phase(fleet)
+        clock.mark("trace_view")
+        profile = profile_nasnet_phase()
+        clock.mark("profile_nasnet")
         nasnet_counts, _ = train_nasnet(model_dir)
         clock.mark("train_nasnet")
         with deterministic_cudnn():
             resume_counts, _ = resume_nasnet(model_dir)
         clock.mark("resume_nasnet")
-        gate_counts, _, gate_shapes = nasnet_gate(model_dir)
-        clock.mark("nasnet_gate")
-        _, parity_cases = nasnet_train_vs_cpu()
-        clock.mark("nasnet_train_vs_cpu")
-        with deterministic_cudnn():
-            windows_vs_steps(model_dir)
-        clock.mark("windows_vs_steps")
-        gate_bf16_counts, _, _ = nasnet_gate(model_dir, "nasnet_gate_bf16", step_compute_dtype="bfloat16",
-                                             prefetch_buffer=2, prefetch_to_device=True)
-        clock.mark("nasnet_gate_bf16")
+        # `nasnet_gate_bf16` and `windows_vs_steps` run in a process of
+        # their own (`--side-gates`), and the SIGTERMed trainer in another,
+        # beside `nasnet_gate` and `nasnet_train_vs_cpu` (since PR 17; the
+        # script's time limit).
+        side = SideGates(os.path.join(model_dir, "side")).start()
+        sigterm = None
+        try:
+            sigterm = TrainerSigterm(os.path.join(model_dir, "resume", "trainer")).start()
+            gate_counts, _, gate_shapes = nasnet_gate(model_dir)
+            clock.mark("nasnet_gate")
+            _, parity_cases = nasnet_train_vs_cpu()
+            sigterm.finish()
+            clock.mark("nasnet_train_vs_cpu")
+            gate_bf16_counts = side.finish()
+        except BaseException:
+            for process in (side, sigterm):
+                if process is not None:
+                    process.kill()
+            raise
+        clock.mark("side_gates_wait")
         mobile_counts, _, mobile_cases = train_nasnet_mobile(model_dir, args.seed)
         for n in SEARCH_COMBINE_MEMBERS:
             check_search_combine(n, False, rng, batch=MOBILE_BATCH, classes=MOBILE_CLASSES)
@@ -6972,11 +7744,15 @@ def main(argv=None):
             kernels[-1]["serve_while_search_searcher_launches"] = long_context_launches[
                 "serve_while_search_searcher"]
             kernels[-1]["store_warm_start_launches"] = warm_start["graft"]["launches"]["combine"]
+            kernels[-1]["serving_fleet_distill_launches"] = fleet_counts["combine"]
         if name in ("copy", "combine", "sepconv"):
             kernels[-1]["canary_flip_launches"] = canary_counts[name]
             kernels[-1]["canary_window_launches"] = canary_row["window_launches"][name]
+            kernels[-1]["serving_fleet_replica_launches"] = {r: c["launches"][name] for r, c in fleet_replicas.items()}
+            kernels[-1]["profile_nasnet_launches"] = profile["launches"][name]
         if name == "sepconv":
             kernels[-1]["train_launches"] = nasnet_counts["sepconv"]
+            kernels[-1]["profile_nasnet_profiled_launches"] = profile["k2_launches"]
             kernels[-1]["nasnet_gate_launches"] = gate_counts["sepconv"]
             kernels[-1]["resume_launches"] = resume_counts["sepconv"]
             kernels[-1]["nasnet_gate_bf16_launches"] = gate_bf16_counts["sepconv"]

@@ -164,8 +164,18 @@ def test_quarantine_names_do_not_clash(tmp_path):
 
 
 def test_follow_false_waits_for_the_fleet(tmp_path):
-    with pytest.raises(NotImplementedError, match="10.3"):
-        ModelPool(str(tmp_path), PoolConfig(follow=False), device="cpu")
+    """An externally driven pool never flips by itself: `poll()` ignores
+    the chain, and `adopt` installs a generation the fleet gated."""
+    from adanet_tpu_torch.serving.model_pool import gate_generation
+
+    gen = _write_generation(str(tmp_path), 0)
+    pool = ModelPool(str(tmp_path), PoolConfig(follow=False), device="cpu")
+    assert not pool.poll() and pool.active is None
+    pool.adopt(gate_generation(gen, pool.device), how="bootstrap")
+    assert pool.stats()["active_generation"] == 0
+    assert pool.events[-1]["how"] == "bootstrap"
+    _write_generation(str(tmp_path), 1)
+    assert not pool.poll() and pool.stats()["active_generation"] == 0
 
 
 # ------------------------------------------------------ verify-on-load

@@ -62,6 +62,11 @@ COPIES = {
     # The fifteenth slice: the serving cascade (calibration, per-row
     # clearance).
     "adanet_tpu_torch/serving/fleet/cascade.py": "adanet_tpu/serving/fleet/cascade.py",
+    # The seventeenth slice: the fleet's wire protocol and front tier, and
+    # the Chrome-trace export.
+    "adanet_tpu_torch/serving/fleet/transport.py": "adanet_tpu/serving/fleet/transport.py",
+    "adanet_tpu_torch/serving/fleet/balancer.py": "adanet_tpu/serving/fleet/balancer.py",
+    "adanet_tpu_torch/observability/export.py": "adanet_tpu/observability/export.py",
 }
 
 #: Top-level definitions a copy replaces on purpose ("__doc__": the
@@ -152,6 +157,27 @@ SLICE_MODULES = (
     "adanet_tpu_torch.examples.tutorials.serving_example",
     "adanet_tpu_torch.serving.fleet",
     "adanet_tpu_torch.serving.fleet.cascade",
+    "adanet_tpu_torch.serving.fleet.transport",
+    "adanet_tpu_torch.serving.fleet.balancer",
+    "adanet_tpu_torch.serving.fleet.flip_coordinator",
+    "adanet_tpu_torch.serving.fleet.replica",
+    "adanet_tpu_torch.observability.export",
+    "adanet_tpu_torch.research.distill_to_serve",
+    "adanet_tpu_torch.research.distill_to_serve.distill",
+    "adanet_tpu_torch.tools.servectl",
+    "adanet_tpu_torch.tools.trace_view",
+    "adanet_tpu_torch.tools.profile_nasnet",
+)
+
+#: Modules run as `python -m` entry points; each must print its usage
+#: (`--help`) with jax blocked.
+ENTRY_POINTS = (
+    "adanet_tpu_torch.serving.fleet.replica",
+    "adanet_tpu_torch.tools.servectl",
+    "adanet_tpu_torch.tools.trace_view",
+    "adanet_tpu_torch.tools.profile_nasnet",
+    "adanet_tpu_torch.tools.ckpt_fsck",
+    "adanet_tpu_torch.research.distill_to_serve.distill",
 )
 
 
@@ -204,6 +230,25 @@ def test_every_module_imports_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 20
+
+
+@pytest.mark.parametrize("module", ENTRY_POINTS)
+def test_entry_points_run_with_jax_blocked(module):
+    code = (
+        "import sys, runpy\n"
+        "for name in %r: sys.modules[name] = None\n"
+        "sys.argv = [%r, '--help']\n"
+        "try:\n"
+        "    runpy.run_module(%r, run_name='__main__', alter_sys=True)\n"
+        "except SystemExit:\n"
+        "    pass\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in %r and sys.modules[m] is not None)\n"
+        "assert not leaked, leaked\n"
+        "print('ENTRY OK')\n" % (sorted(FORBIDDEN), module, module, sorted(FORBIDDEN))
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and "ENTRY OK" in out.stdout, out.stderr[-2000:]
+    assert "usage" in out.stdout.lower()
 
 
 def _defined_name(node, index):
@@ -289,6 +334,10 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
     from adanet_tpu_torch.distributed import ElasticWorkQueueStrategy, MultiHostRoundRobinExecutor
     from adanet_tpu_torch.examples.tutorials import long_context_ring_attention, serving_example
     from adanet_tpu_torch.serving import publish_generation
+    from adanet_tpu_torch.research.distill_to_serve import distill_student, teacher_from_generation
+    from adanet_tpu_torch.serving.fleet import ReplicaConfig, ServingReplica
+    from adanet_tpu_torch.serving.fleet import replica as replica_lib
+    from adanet_tpu_torch.tools import profile_nasnet
 
     # An iteration built on the CPU, before CUDA is hidden, for the
     # executors that place onto devices of their own.
@@ -359,6 +408,15 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
         lambda: Estimator(head, generator, 10, model_dir=str(tmp_path), export_serving=True),
         lambda: long_context_ring_attention.main(["--seq_len", "16", "--max_steps", "1"]),
         lambda: serving_example.main([]),
+        # The seventeenth slice: a fleet replica (and its CLI), the
+        # distillation, its teacher and the NASNet-A profile.
+        lambda: ServingReplica(ReplicaConfig("r0", str(tmp_path / "fleet"), str(tmp_path))),
+        lambda: replica_lib.main(["--fleet-dir", str(tmp_path / "fleet"), "--model-dir", str(tmp_path),
+                                  "--replica-id", "r0"]),
+        lambda: distill_student(lambda f: {"predictions": np.zeros((2, 3), np.float32)},
+                                [{"x": np.zeros((2, 2), np.float32)}]),
+        lambda: teacher_from_generation(str(tmp_path)),
+        lambda: profile_nasnet.main(["--steps", "1"]),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
