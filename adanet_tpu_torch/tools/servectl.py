@@ -306,7 +306,7 @@ def _cascade_report(fleet_dir: str, stale_secs: float = 3.0) -> dict:
 
     Exit semantics under the shared 0/1/2/64 contract:
         0  cascade live everywhere: every fresh replica serves a
-           published cascade, no rollback
+           published cascade, no rollback of the generation it serves
         1  degraded: a rollback, a replica serving ensemble-only
            (disabled / nothing published / stale), or a mixed fleet
         2  no fleet state or no live replicas
@@ -348,6 +348,13 @@ def _cascade_report(fleet_dir: str, stale_secs: float = 3.0) -> dict:
             degraded = True
             continue
         rollback = cascade.get("rollback")
+        if isinstance(rollback, dict) and rollback.get(
+            "generation"
+        ) != cascade.get("generation"):
+            # A batcher keeps a superseded generation's rollback until its
+            # first level-0 dispatch of the next one; it does not bind the
+            # generation the replica serves.
+            rollback = None
         serving_cascade = (
             bool(cascade.get("enabled"))
             and bool(cascade.get("published"))

@@ -404,6 +404,31 @@
    `main` in this process with K2 on (`--pallas_sepconv --steps
    PROFILE_STEPS`, its defaults otherwise): device ms a step and the top
    kernels by category; K2's launches equal the sep-conv forwards exactly.
+52. `fleet_search`, after the selection phases: the JAX package's fleet gate
+   (bench.py's `_measure_fleet_search`) at its configuration
+   (`FLEET_SEARCH_SPEC`), through `python -m
+   adanet_tpu_torch.tools.fleetctl`'s `launch`, `status` and `report
+   --json` in this process: four simple_dnn trials by successive
+   halving over one store, the champion grafted from it; the a-priori
+   single search (`lam_hi`) at the fleet's total trained steps; the
+   winner's F(w) at most the single search's, equal budgets, at least
+   one cross-trial store hit, a clean store. The chaos gate: the tiny
+   fleet of tests/torch_fleet_common.py in a process of its own
+   (started after `train_search`) with `fleet.promote:kill` dies by
+   SIGKILL at rung 0's promotion, resumes here to the winner and
+   champion architecture of an uninterrupted oracle run here, its
+   champion and store clean under `ckpt_fsck --store`. K1 exact in each
+   part (fleet, single search, resume, oracle), and against its plain
+   version at [1-6, 64, 1] and [1-2, 16, 1].
+
+Moved for the fleet search's time: `store_warm_start`'s grafting
+process starts right after `train_search`, with the fleet's chaos
+process, and is joined after `fleet_search`, both running beside
+`train_vs_cpu` and the selection phases (whose seconds they share; the
+grafting process reports its own wall seconds, `graft_process_secs`); the
+serving tutorial's process starts at the beginning
+of the long-context group (it was the group's longest wait). No gate,
+chaos gate or kernel check was cut.
 
 Cut for the serving fleet's and the trace tools' time (PR 17):
 `resume_nasnet`'s timed save and restore 3 -> 1 repeats, its SIGTERMed
@@ -467,8 +492,13 @@ and `speculation_launches` (0), `serve_while_search_searcher_launches` and
 `serving_fleet:`, `trace_view:` and `profile_nasnet:` lines (K0's, K1's
 and K2's `kernels` rows with `serving_fleet_replica_launches` and
 `profile_nasnet_launches`, K1's with `serving_fleet_distill_launches`,
-K2's with `profile_nasnet_profiled_launches`), and as its last line `{"ok": true, "device": {...}}`. Any failure raises
-and exits non-zero.
+K2's with `profile_nasnet_profiled_launches`), the `fleet_search:` line (K1's `kernels` row with
+`fleet_search_launches`), a `waits:` line (the longest seconds of each
+bounded wait and its limit, which `python3 smoke_odds.py` beside this
+script turns into a chance a run), and as its last line `{"ok": true,
+"device": {...}}`. Any failure prints one `chip_smoke_failed: {"phase":
+..., "error": ..., "secs": ...}` line naming the phase it fell in (the
+one `_PhaseClock.start` named last), then raises and exits non-zero.
 """
 
 import argparse
@@ -483,6 +513,9 @@ import subprocess
 import sys
 import tempfile
 import time
+
+# This process's start, for the wall seconds a subprocess reports.
+STARTED = time.perf_counter()
 
 # H100 SXM peaks (NVIDIA data sheet): device memory bytes/s and dense
 # FLOP/s by the type the work is done in.
@@ -649,6 +682,19 @@ IMAGENET_RR_LOSS_BOUND = 1e-2
 RR_GATE_STEPS, RR_GATE_BATCH, RR_GATE_EXAMPLES, RR_GATE_ACCURACY = 60, 32, 256, 0.5
 # process_phases: each subprocess's time limit, seconds.
 PROCESS_TIMEOUT = 300
+# Every bounded wait of the run: what -> [the longest seconds it took, its
+# limit], printed on the `waits:` line, whose margins `smoke_odds.py`
+# turns into a chance a run.
+WAITS = {}
+
+
+def _waited(what, limit, t0):
+    """Books a bounded wait that began at `t0` (`time.perf_counter`) in
+    WAITS; returns its seconds."""
+    secs = time.perf_counter() - t0
+    if what not in WAITS or secs > WAITS[what][0]:
+        WAITS[what] = [secs, limit]
+    return secs
 # elastic_multihost_phases: the multi-host ImageNet run's steps
 # (2 iterations x 5); the elastic search's window (and speculation)
 # steps; the SIGKILL run's lease TTL, s; the peer-death run's collective
@@ -838,7 +884,9 @@ def start_publisher(model_dir, seed):
 
 def wait_publisher(started, model_dir):
     proc, log, t0 = started
+    t_wait = time.perf_counter()
     rc = proc.wait(timeout=PROCESS_TIMEOUT * 2)
+    _waited("publisher", PROCESS_TIMEOUT * 2, t_wait)
     log.close()
     if rc != 0:
         with open(log.name) as f:
@@ -1702,9 +1750,21 @@ def check_served_program(program, predict_fn, rng):
             raise AssertionError("served program outputs %s, in-process %s" % (sorted(got), sorted(want)))
         for key in want:
             if not torch.equal(got[key], want[key]):
-                err = float((got[key].double() - want[key].double()).abs().max())
-                raise AssertionError("served program %s at %d rows differs from the in-process predict: max abs "
-                                     "diff %g" % (key, n, err))
+                # Each side again on the same rows: which of them, if
+                # either, is not repeatable (ROADMAP section C).
+                again = program({"image": image.numpy()})
+                with torch.inference_mode(), export._serving_precision():
+                    want_again = predict_fn({"image": image.cuda()})
+
+                def diff(a, b):
+                    return float((a.double() - b.double()).abs().max())
+
+                raise AssertionError(
+                    "served program %s at %d rows differs from the in-process predict: max abs diff %g (called "
+                    "again, the program %g from its first answer and %g from the predict's, the predict %g from "
+                    "its first; max |%s| %g)" % (key, n, diff(got[key], want[key]), diff(again[key], got[key]),
+                                                 diff(again[key], want[key]), diff(want_again[key], want[key]), key,
+                                                 float(want[key].double().abs().max())))
     return list(SERVED_CHECK_ROWS)
 
 
@@ -3333,8 +3393,10 @@ class SideGates:
             self.proc.wait()
 
     def finish(self):
+        t_wait = time.perf_counter()
         try:
             rc = self.proc.wait(timeout=PROCESS_TIMEOUT * 2)
+            _waited("side_gates", PROCESS_TIMEOUT * 2, t_wait)
         finally:
             self.kill()
             self._log.close()
@@ -3417,7 +3479,9 @@ class TrainerSigterm:
         from adanet_tpu_torch.core import checkpoint as ckpt
 
         try:
+            t_wait = time.perf_counter()
             rc = self.proc.wait(timeout=600)
+            _waited("trainer_sigterm", 600, t_wait)
             first_secs = time.perf_counter() - self._t0
         finally:
             self.kill()
@@ -5294,7 +5358,9 @@ def _finish(procs, what, want_rcs=None):
     outs = {}
     try:
         for name, proc in procs:
+            t_wait = time.perf_counter()
             out, _ = proc.communicate(timeout=PROCESS_TIMEOUT)
+            _waited("%s %s" % (what, name), PROCESS_TIMEOUT, t_wait)
             outs[name] = out.decode()
             if proc.returncode != want_rcs.get(name, 0):
                 raise AssertionError("%s: %s exited %d:\n%s" % (what, name, proc.returncode, outs[name][-3000:]))
@@ -5492,7 +5558,9 @@ class _Chain:
         self._thread.join(timeout=60)
 
     def join(self):
+        t_wait = time.perf_counter()
         self._thread.join(timeout=4 * PROCESS_TIMEOUT)
+        _waited("process chains", 4 * PROCESS_TIMEOUT, t_wait)
         if self._thread.is_alive():
             raise AssertionError("elastic_multihost_phases: a process chain did not end")
         if self.error is not None:
@@ -6367,9 +6435,12 @@ def serve_while_search(model_dir):
         environ.pop("ADANET_FAULTS", None)
         if fault:
             environ["ADANET_FAULTS"] = fault
-        return subprocess.run([sys.executable, os.path.abspath(__file__), "--sws-search", directory],
+        t_run = time.perf_counter()
+        done = subprocess.run([sys.executable, os.path.abspath(__file__), "--sws-search", directory],
                               env=environ, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                               timeout=PROCESS_TIMEOUT)
+        _waited("serve_while_search searcher", PROCESS_TIMEOUT, t_run)
+        return done
 
     thread = threading.Thread(target=client, daemon=True)
     with _CountedPrograms() as programs, _FlipPrograms() as flipped:
@@ -6489,11 +6560,13 @@ SWS_CANARY_REQUESTS = 2
 
 
 def _wait_until(what, condition, timeout=PROCESS_TIMEOUT):
+    t0 = time.perf_counter()
     deadline = time.monotonic() + timeout
     while not condition():
         if time.monotonic() > deadline:
             raise AssertionError("%s: not within %d s" % (what, timeout))
         time.sleep(0.02)
+    _waited(what, timeout, t0)
 
 
 def _copy_generation(source, model_dir, t, rot=False):
@@ -6654,7 +6727,7 @@ def graft_main(graft_dir, store_root, first_dir):
     first search's `replay.json` and the same store. Counts its training
     steps, batches, launches and nvcc builds, predicts the test digits
     (saved beside it, `predictions.npz`) and prints `graft:` with the
-    numbers."""
+    numbers, its own wall seconds (`process_secs`) among them."""
     import numpy as np
     import torch
 
@@ -6702,19 +6775,34 @@ def graft_main(graft_dir, store_root, first_dir):
     print("graft: " + json.dumps(dict(
         secs=secs, grafts=estimator._store_graft_count, training_steps=steps[0], batches_pulled=pulls[0],
         launches=launches, nvcc_builds=sorted(_build.BUILD_LOG), global_step=estimator.latest_global_step(),
-        iterations=estimator.latest_iteration_number())), flush=True)
+        iterations=estimator.latest_iteration_number(), process_secs=time.perf_counter() - STARTED)), flush=True)
 
 
-def store_warm_start(model_dir, first_secs):
+def start_store_warm_start(model_dir):
+    """`store_warm_start`'s grafting process (`graft_main`), started as
+    soon as `train_search` has published, so that its boot overlaps the
+    phases after it; returns the process."""
+    first_dir, store_root = os.path.join(model_dir, "search"), os.path.join(model_dir, "store")
+    graft_dir = os.path.join(model_dir, "graft")
+    os.makedirs(graft_dir)
+    environ = dict(os.environ, OMP_NUM_THREADS="1")
+    environ.pop("ADANET_FAULTS", None)
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), "--graft-only", graft_dir, "--store",
+                             store_root, "--first", first_dir], env=environ, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def store_warm_start(model_dir, first_secs, proc):
     """`train_search` published both its iterations to `<model_dir>/store`;
-    a second Estimator in a fresh process and model dir, given the first's
-    `replay.json` and the same store, grafts both iterations
-    (`graft_main`) with zero training steps, zero batches, zero launches
-    and zero nvcc builds, lands the first's payloads byte for byte and
-    predicts bitwise as the first; fsck's store section (with the
-    grafted search's closure leased, `--gc --dry-run`) is clean and would
-    remove nothing. Prints `store_warm_start:`, the graft's seconds
-    against the first search's."""
+    a second Estimator in a fresh process and model dir
+    (`start_store_warm_start`), given the first's `replay.json` and the
+    same store, grafts both iterations (`graft_main`) with zero training
+    steps, zero batches, zero launches and zero nvcc builds, lands the
+    first's payloads byte for byte and predicts bitwise as the first;
+    fsck's store section (with the grafted search's closure leased,
+    `--gc --dry-run`) is clean and would remove nothing. Prints
+    `store_warm_start:`, the graft's seconds (and its process's own wall
+    seconds) against the first search's."""
     import numpy as np
 
     from adanet_tpu_torch.core import checkpoint as ckpt_lib
@@ -6724,17 +6812,12 @@ def store_warm_start(model_dir, first_secs):
 
     first_dir, store_root = os.path.join(model_dir, "search"), os.path.join(model_dir, "store")
     graft_dir = os.path.join(model_dir, "graft")
-    os.makedirs(graft_dir)
-    environ = dict(os.environ, OMP_NUM_THREADS="1")
-    environ.pop("ADANET_FAULTS", None)
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--graft-only", graft_dir, "--store",
-                           store_root, "--first", first_dir], env=environ, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True, timeout=PROCESS_TIMEOUT)
-    process_secs = time.perf_counter() - t0
-    lines = [line for line in proc.stdout.splitlines() if line.startswith("graft: ")]
+    t_wait = time.perf_counter()
+    stdout = proc.communicate(timeout=PROCESS_TIMEOUT)[0]
+    _waited("store_warm_start graft", PROCESS_TIMEOUT, t_wait)
+    lines = [line for line in stdout.splitlines() if line.startswith("graft: ")]
     if proc.returncode != 0 or not lines:
-        raise AssertionError("store_warm_start: rc %d\n%s" % (proc.returncode, proc.stdout[-6000:]))
+        raise AssertionError("store_warm_start: rc %d\n%s" % (proc.returncode, stdout[-6000:]))
     graft = json.loads(lines[-1][len("graft: "):])
     if (graft["grafts"] != TRAIN_ITERATIONS or graft["training_steps"] or graft["batches_pulled"]
             or any(graft["launches"].values()) or graft["nvcc_builds"]
@@ -6764,7 +6847,7 @@ def store_warm_start(model_dir, first_secs):
     section = report["store"]
     if rc != 0 or not section["clean"] or section["dangling_refs"] or section["would_gc"] or not section["leases"]["live"]:
         raise AssertionError("store_warm_start: ckpt_fsck rc %d, store %s" % (rc, section))
-    row = dict(graft_secs=graft["secs"], graft_process_secs=process_secs, first_search_secs=first_secs,
+    row = dict(graft_secs=graft["secs"], graft_process_secs=graft["process_secs"], first_search_secs=first_secs,
                graft=graft, store=dict((k, section[k]) for k in ("blob_count", "bytes", "ref_count", "leases",
                                                                  "would_gc", "clean")),
                predictions_bitwise=sorted(want[0]), card=card_line())
@@ -6792,7 +6875,9 @@ def serving_example_on_card(started):
     """The tutorial's process: the two-head search, its export, batches 1
     and 7 served by a process without model code."""
     proc, log, t0 = started
+    t_wait = time.perf_counter()
     rc = proc.wait(timeout=PROCESS_TIMEOUT)
+    _waited("serving_example", PROCESS_TIMEOUT, t_wait)
     log.close()
     with open(log.name) as f:
         out = f.read()
@@ -6855,15 +6940,15 @@ def long_context_export_phases(model_dir, long_context_gen, after_sws=None):
     started = example = None
     try:
         with _CombineShapes() as shapes:
-            # Phases 42-45 have the card to themselves; the tutorial's
-            # process and the programs' serving processes run beside
-            # phases 46-47.
+            # The tutorial's process, the group's longest (about 86 s),
+            # runs beside the whole group; the programs' serving processes
+            # run beside phases 46-47.
+            example = start_serving_example(model_dir)
             ring_attention_phase(long_context_gen)
             started = start_ring_two_process(model_dir)
             ring_two_process(started)
             lc_counts, lc_row, lc_estimator = long_context_search(model_dir)
             fw_counts, _ = transformer_full_width(model_dir)
-            example = start_serving_example(model_dir)
             serving = start_export_programs(model_dir, lc_estimator, lc_row["seq_len"])
             try:
                 sws_counts, sws_row = serve_while_search(model_dir)
@@ -7126,7 +7211,9 @@ def _serving_fleet(fleet, gen):
         torch.cuda.synchronize()
         distill_secs = time.perf_counter() - t0
     distill_counts = ops.launch_counts()
+    t_wait = time.perf_counter()
     launch_out = fleet["launch"].communicate(timeout=PROCESS_TIMEOUT)[0]
+    _waited("servectl launch", PROCESS_TIMEOUT, t_wait)
     if fleet["launch"].returncode != 0:
         raise AssertionError("serving_fleet: servectl launch returned %s\n%s\n%s" % (
             fleet["launch"].returncode, launch_out[-2000:],
@@ -7216,10 +7303,17 @@ def _serving_fleet(fleet, gen):
     traffic_secs = time.monotonic() - t_traffic
 
     def cascades_intact(beats):
+        # gen-1's distilled level 0 active and never rolled back. A
+        # replica keeps reporting a rollback of gen-0's member cascade (its
+        # shadow's bound is 0.01, so one disagreeing row in 64-99 trips
+        # it) until its first gen-1 level-0 dispatch; that record is not
+        # gen-1's. That gen-1's level 0 served is read from the replicas'
+        # program calls (`level0` below).
         for rid in every:
             c = beats.get(rid, {}).get("cascade") or {}
             if (beats.get(rid, {}).get("generation") != 1 or not c.get("published") or c.get("mode") != "row"
-                    or c.get("rollback") is not None or c.get("source") != "distilled"):
+                    or not c.get("active") or (c.get("rollback") or {}).get("generation") == 1
+                    or c.get("source") != "distilled"):
                 raise AssertionError("serving_fleet: %s heartbeats %s" % (rid, beats.get(rid)))
 
     cascades_intact(read_heartbeats(kv, NAMESPACE))
@@ -7267,6 +7361,12 @@ def _serving_fleet(fleet, gen):
     beats = read_heartbeats(kv, NAMESPACE)
     drain_rc, drained = servectl_json("drain", fleet_dir)
     counts = {r: _replica_counts(fleet_dir, r) for r in every}
+    # gen-1's level-0 dispatches a replica: its calls of gen-1's level-0
+    # program past the one of its gate's smoke (`gate_generation`). The
+    # balancer may send a replica no gen-1 request, so the fleet's sum is
+    # held, not each replica's.
+    level0 = {r: sum(n for path, n in c["calls"].items() if os.path.relpath(path, gen1) == export.CASCADE_FILE) - 1
+              for r, c in counts.items()}
 
     # Checks.
     statuses = collections.Counter(r.status for r, _, _, _ in results)
@@ -7279,6 +7379,9 @@ def _serving_fleet(fleet, gen):
     if len(outcomes) != 1 or outcomes[0]["decision"] != "commit":
         raise AssertionError("serving_fleet: flip outcomes %s" % outcomes)
     cascades_intact(beats)
+    if min(level0.values()) < 0 or sum(level0.values()) < 1:
+        raise AssertionError("serving_fleet: gen-1's level-0 dispatches %s (calls %s)"
+                             % (level0, {r: c["calls"] for r, c in counts.items()}))
     if (status_rc, cascade_rc, drain_rc) != (0, 0, 0) or sorted(drained["drained"]) != sorted(every):
         raise AssertionError("serving_fleet: servectl status %d %s, cascade %d %s, drain %d %s"
                              % (status_rc, status, cascade_rc, census, drain_rc, drained))
@@ -7332,6 +7435,7 @@ def _serving_fleet(fleet, gen):
         rows_per_s=sum(n for _, n, _, _ in oks) / traffic_secs, p50_ms=latencies[len(latencies) // 2] * 1e3,
         p99_ms=latencies[int(len(latencies) * 0.99)] * 1e3,
         cascade_levels={str(k): v for k, v in collections.Counter(r.cascade_level for r, _, _, _ in oks).items()},
+        gen1_level0_dispatches=level0,
         shadow={rid: {k: (beats.get(rid, {}).get("cascade") or {}).get(k) for k in (
             "shadow_divergence", "shadow_rows", "shadow_divergence_bound", "row_fallthrough_rate")} for rid in every},
         boot_gate_load_secs=boot_secs,
@@ -7449,6 +7553,204 @@ def profile_nasnet_phase():
     return row
 
 
+# ------------------------------------------------------------ the fleet search
+
+# fleet_search: the JAX package's fleet gate (bench.py's
+# `_measure_fleet_search`, tests/test_fleet.py::
+# test_full_fleet_beats_best_single_search) as a `fleetctl` spec: four
+# trials of simple_dnn 16 wide (SGD 0.02; the mixture weights SGD 0.05,
+# fleetctl's), 8 steps an iteration, seed 1, (lambda, beta) lam_hi (2.0,
+# 0.5), lam_mid (0.1, 0.01), lam_lo (0, 0) and lam_tiny (0.01, 0.001);
+# 512 x 8 rows of linear regression from RandomState(0) in batches of 64;
+# rungs (1, 2), half survive, the comparator's lambda 0.01 and beta
+# 0.001 over 8 batches, one worker. Nothing in it is cut.
+FLEET_SEARCH_SPEC = {
+    "rungs": [1, 2],
+    "max_iteration_steps": 8,
+    "survivor_fraction": 0.5,
+    "workers": 1,
+    "eval_steps": 8,
+    "comparator": {"adanet_lambda": 0.01, "adanet_beta": 0.001},
+    "dataset": {"n": 512, "dim": 8, "batch_size": 64, "seed": 0},
+    "trials": [
+        {"id": trial_id, "adanet_lambda": lam, "adanet_beta": beta, "random_seed": 1, "layer_size": 16,
+         "learning_rate": 0.02}
+        for trial_id, lam, beta in (("lam_hi", 2.0, 0.5), ("lam_mid", 0.1, 0.01), ("lam_lo", 0.0, 0.0),
+                                    ("lam_tiny", 0.01, 0.001))
+    ],
+}
+# The K1 shapes of the phase, [N, batch, 1] f32: the gate's batch with up
+# to six members (the single search's sixth iteration), and the chaos
+# fleet's 16 rows with one or two.
+FLEET_SEARCH_COMBINES = tuple((n, 64) for n in range(1, 7)) + ((1, 16), (2, 16))
+
+
+def _search_k1(steps, iterations):
+    """K1 launches of a simple_dnn-shaped search trained for `iterations`
+    from scratch: each step combines once a weighted candidate, two at
+    t = 0 (two builders) and three after (the carried-over winner too)."""
+    return steps * sum(2 if t == 0 else 3 for t in range(iterations))
+
+
+def start_fleet_chaos(model_dir):
+    """tests/torch_fleet_chaos_runner.py on the card with
+    `ADANET_FAULTS=fleet.promote:kill`, started early so that its boot
+    and its rung 0 overlap other phases' work; returns (work dir,
+    process)."""
+    work = os.path.join(model_dir, "fleet_search", "chaos")
+    os.makedirs(os.path.dirname(work), exist_ok=True)
+    return work, _spawn_runner("torch_fleet_chaos_runner.py", [work, "cuda"], ADANET_FAULTS="fleet.promote:kill")
+
+
+def fleet_search(model_dir, chaos, rng):
+    """The fleet path on the card (`fleet_search:`): `fleetctl launch`,
+    `status` and `report --json` on FLEET_SEARCH_SPEC, then the a-priori
+    single search (`lam_hi`) at the fleet's total trained steps, both
+    scored by the fleet's comparator: the winner's F(w) at most the
+    single search's, equal budgets, at least one cross-trial store hit
+    and a clean store. Then the chaos gate: `start_fleet_chaos`'s
+    process must die by SIGKILL at `fleet.promote` with `next_rung` 0
+    in `fleet.json`; its work dir resumed here must end on the winner
+    and champion architectures (t = 0 and 1) of an uninterrupted run of
+    the same tiny fleet here (the oracle), its champion and store clean
+    under `ckpt_fsck --store`. K1 launches, zeroed before and read after
+    each part, are exactly those the code implies (`_search_k1`, one a
+    comparator batch, none in a champion's grafts); K1 against its plain
+    version at FLEET_SEARCH_COMBINES. Returns (launches, the row)."""
+    import io
+    from contextlib import redirect_stdout
+
+    import torch
+
+    from adanet_tpu_torch import ops
+    from adanet_tpu_torch.fleet import Comparator, load_status
+    from adanet_tpu_torch.store import ArtifactStore, fsck_store
+    from adanet_tpu_torch.tools import fleetctl
+
+    if _tests_dir() not in sys.path:
+        sys.path.insert(0, _tests_dir())
+    import torch_fleet_common
+
+    spec = FLEET_SEARCH_SPEC
+    steps, eval_steps = spec["max_iteration_steps"], spec["eval_steps"]
+    root = os.path.join(model_dir, "fleet_search")
+    os.makedirs(root, exist_ok=True)
+    spec_path = os.path.join(root, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    work = os.path.join(root, "fleet")
+
+    def cli(*argv):
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            rc = fleetctl.main(list(argv))
+        return rc, buf.getvalue()
+
+    # 1. The fleet, through fleetctl, and the operator's view of it.
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    launch_rc, out = cli("launch", work, "--spec", spec_path, "--json")
+    torch.cuda.synchronize()
+    fleet_secs = time.perf_counter() - t0
+    launches = dict(fleet=ops.launch_counts()["combine"])
+    if launch_rc != 0:
+        raise AssertionError("fleet_search: fleetctl launch returned %d\n%s" % (launch_rc, out[-3000:]))
+    report = json.loads(out)
+    status_rc, status_out = cli("status", work)
+    report_rc, audit = cli("report", work, "--json")
+    audit = json.loads(audit)
+    trials = report["trials"]
+    culled = sorted(t for t, e in trials.items() if e["state"] == "culled")
+    n = len(spec["trials"])
+    survivors = max(1, math.ceil(n * spec["survivor_fraction"]))
+    # Rung 0 trains every trial one iteration and scores it; rung 1 the
+    # survivors' second iteration and their scores; the champion grafts
+    # the winner's two iterations and trains nothing.
+    want = dict(fleet=n * (_search_k1(steps, 1) + eval_steps)
+                + survivors * (_search_k1(steps, 2) - _search_k1(steps, 1) + eval_steps))
+
+    # 2. The a-priori single search at the fleet's total trained steps.
+    input_fn = fleetctl._dataset_input_fn(spec)
+    baseline = fleetctl._build_trials(spec)[0]
+    budget = report["total_steps_trained"] // steps
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    single = baseline.build_estimator(os.path.join(root, "single"), None, max_iterations=budget)
+    single.train(input_fn)
+    torch.cuda.synchronize()
+    single_secs = time.perf_counter() - t0
+    comparator = Comparator(input_fn, eval_steps=eval_steps, **spec["comparator"])
+    single_score = comparator.score(single, "single_baseline")
+    launches["single"] = ops.launch_counts()["combine"]
+    want["single"] = _search_k1(steps, budget) + eval_steps
+    store_audit = fsck_store(ArtifactStore(os.path.join(work, "store")))
+    winner = report["winner_score"] or {}
+    verdicts = dict(
+        fleet_beats_single=winner.get("objective") is not None and winner["objective"] <= single_score.objective,
+        equal_budget=single.latest_global_step() == report["total_steps_trained"],
+        cross_trial_store_hits=report["graft_hits"],
+        store_clean=store_audit["clean"] and audit.get("store", {}).get("clean") is True,
+    )
+    if (not verdicts["fleet_beats_single"] or not verdicts["equal_budget"] or verdicts["cross_trial_store_hits"] < 1
+            or not verdicts["store_clean"] or (status_rc, report_rc) != (0, 0) or len(culled) != n - survivors
+            or report["winner_id"] is None or trials[report["winner_id"]]["state"] != "live"):
+        raise AssertionError("fleet_search: verdicts %s, status rc %d, report rc %d, culled %s, report %s, audit %s"
+                             % (verdicts, status_rc, report_rc, culled, report, store_audit))
+
+    # 3. The chaos gate: the SIGKILLed fleet resumed here, and its oracle.
+    chaos_dir, proc = chaos
+    t_wait = time.perf_counter()
+    chaos_out = proc.communicate(timeout=PROCESS_TIMEOUT)[0].decode()
+    _waited("fleet_search chaos", PROCESS_TIMEOUT, t_wait)
+    state = load_status(chaos_dir)
+    if (proc.returncode != -signal.SIGKILL or "DONE" in chaos_out or state is None or state["next_rung"] != 0
+            or state["complete"]):
+        raise AssertionError("fleet_search: the chaos fleet returned %s, state %s\n%s"
+                             % (proc.returncode, state, chaos_out[-3000:]))
+    tiny_steps = torch_fleet_common.MAX_ITERATION_STEPS
+    ops.reset_launch_counts()
+    resumed = torch_fleet_common.build_fleet(chaos_dir, device="cuda").run()
+    launches["chaos_resume"] = ops.launch_counts()["combine"]
+    ops.reset_launch_counts()
+    oracle = torch_fleet_common.build_fleet(os.path.join(root, "oracle"), device="cuda").run()
+    launches["oracle"] = ops.launch_counts()["combine"]
+    # Two trials of 4 comparator batches each, then one survivor.
+    tiny_scores = 2 * 4 + 4
+    want["oracle"] = 2 * _search_k1(tiny_steps, 1) + _search_k1(tiny_steps, 2) - _search_k1(tiny_steps, 1) \
+        + tiny_scores
+    # The resume: rung 0 is on disk; its promotion, rung 1 and the champion.
+    want["chaos_resume"] = _search_k1(tiny_steps, 2) - _search_k1(tiny_steps, 1) + tiny_scores
+    archs = {}
+    for name, fleet_report in (("resumed", resumed), ("oracle", oracle)):
+        archs[name] = []
+        for t in (0, 1):
+            with open(os.path.join(fleet_report.champion_dir, "architecture-%d.json" % t)) as f:
+                archs[name].append(json.load(f))
+    fsck_rc, fsck_report = _fsck_json([resumed.champion_dir, "--store", os.path.join(chaos_dir, "store")])
+    if (resumed.winner_id != oracle.winner_id or not resumed.complete or archs["resumed"] != archs["oracle"]
+            or fsck_rc > 1 or fsck_report["store"]["clean"] is not True):
+        raise AssertionError("fleet_search: resumed %s against the oracle's %s, architectures %s, fsck %d %s"
+                             % (resumed.winner_id, oracle.winner_id, archs, fsck_rc, fsck_report.get("store")))
+    if launches != want:
+        raise AssertionError("fleet_search: K1 launches %s, expected %s" % (launches, want))
+    worst = 0.0
+    for members, batch in FLEET_SEARCH_COMBINES:
+        worst = max(worst, *check_search_combine(members, False, rng, batch=batch, classes=1))
+    row = dict(
+        fleet_objective=winner["objective"], single_objective=single_score.objective, winner=report["winner_id"],
+        culled=culled, graft_hits=report["graft_hits"], graft_attempts=report["graft_attempts"],
+        steps_trained=report["total_steps_trained"], single_steps=single.latest_global_step(),
+        fleet_secs=fleet_secs, single_secs=single_secs, verdicts=verdicts,
+        objectives={t: (e["score"] or {}).get("objective") for t, e in trials.items()},
+        chaos=dict(returncode=proc.returncode, next_rung=state["next_rung"], winner=resumed.winner_id,
+                   oracle_winner=oracle.winner_id, fsck_rc=fsck_rc,
+                   champion_members=[[s["builder_name"] for s in a["subnetworks"]] for a in archs["resumed"]]),
+        k1_launches=launches, k1_max_abs_err=worst, card=card_line(),
+    )
+    print("fleet_search: " + json.dumps(row))
+    return launches, worst, row
+
+
 def trainer_on_card():
     """The trainer CLI on the card, on fake data, at a small size."""
     from adanet_tpu_torch.research.improve_nas import trainer
@@ -7461,18 +7763,30 @@ def trainer_on_card():
 
 
 class _PhaseClock:
-    """Seconds between marks, by the name of the phase that just ended."""
+    """The seconds of each phase of `main`, by its name. `start` names the
+    phase that runs next, so that an exception escaping `main` prints it
+    (`fail`)."""
 
     def __init__(self):
-        self.secs, self._t0 = {}, time.perf_counter()
-        self._t = self._t0
+        self.secs, self.current = {}, None
+        self._t0 = self._t = time.perf_counter()
 
-    def mark(self, name):
+    def start(self, name):
+        """Ends the running phase (its seconds kept) and starts `name`."""
         now = time.perf_counter()
-        self.secs[name] = now - self._t
-        self._t = now
+        if self.current is not None:
+            self.secs[self.current] = now - self._t
+        self.current, self._t = name, now
+
+    def fail(self, exc):
+        """One stdout line naming the running phase, its seconds so far
+        and the exception (the caller re-raises it)."""
+        error = ("%s: %s" % (type(exc).__name__, exc))[:4000]
+        print("chip_smoke_failed: " + json.dumps(dict(phase=self.current, error=error,
+                                                       secs=time.perf_counter() - self._t)), flush=True)
 
     def line(self):
+        """The ended phases' seconds and the total since the clock began."""
         return json.dumps(dict(self.secs, total=time.perf_counter() - self._t0))
 
 
@@ -7515,9 +7829,24 @@ def main(argv=None):
         return 0
     print(card_line())
     clock = _PhaseClock()
+    try:
+        return run_phases(args, clock)
+    except BaseException as exc:
+        clock.fail(exc)
+        raise
+
+
+def run_phases(args, clock):
+    """Every phase of `main` in this process, `clock` starting each by its
+    name."""
+    import torch
+
+    from adanet_tpu_torch.ops import _build
+
+    clock.start("build")
     build_kernels()
     _build.self_test()
-    clock.mark("build")
+    clock.start("kernel_checks")
     rng = torch.Generator().manual_seed(args.seed + 1)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as model_dir:
         # The served ensemble in this process: the kernels' shapes, and
@@ -7534,9 +7863,9 @@ def main(argv=None):
             errors["combine"] = max([errors["combine"]] + list(combine_errors.values()))
             errors["cell"] = check_cells(rng)
             print("kernel checks passed: max abs err %s" % errors)
-            clock.mark("kernel_checks")
+            clock.start("autotune_path")
             tune_counts, tuned = autotune_path(rng)
-            clock.mark("autotune_path")
+            clock.start("kernel_timing")
             # The single-kernel traces come before the large ones of the
             # training phases and the served batch, after which the
             # tracer has been seen to deliver no kernels; device_ms then
@@ -7547,28 +7876,42 @@ def main(argv=None):
             host.update(cell_host)
             time_tuned(tuned)
             trace_served_combine(served_frozen, served_ensembler, rng)
-            clock.mark("kernel_timing")
+            clock.start("sepconv_grads")
             # The serving generation is exported in a process of its own
             # (niced, one thread) while the phases up to the serving
             # phase run here; their timings share the host with it.
             publisher = start_publisher(model_dir, args.seed)
             check_sepconv_grads(sep_shapes, rng)
-            clock.mark("sepconv_grads")
+            clock.start("train_search")
             fused_probes = {}
             train_counts, train_stats = train_search(model_dir, fused_probes)
-            clock.mark("train_search")
-            warm_start = store_warm_start(model_dir, train_stats["search_secs"])
-            clock.mark("store_warm_start")
-            train_vs_cpu()
-            clock.mark("train_vs_cpu")
-            t_selection = time.perf_counter()
-            selection_counts, _ = search_selection(model_dir, args.seed)
-            selection_vs_cpu(args.seed)
-            multi_head_counts, _ = multi_head_search(model_dir)
-            heads_vs_cpu(rng)
-            print("selection_phases: " + json.dumps({"secs": time.perf_counter() - t_selection,
-                                                     "card": card_line()}))
-            clock.mark("selection_phases")
+            clock.start("train_vs_cpu")
+            # `store_warm_start`'s grafting process and `fleet_search`'s
+            # SIGKILLed fleet boot and run in processes of their own while
+            # `train_vs_cpu` and the selection phases run here.
+            grafting = start_store_warm_start(model_dir)
+            fleet_chaos = start_fleet_chaos(model_dir)
+            try:
+                train_vs_cpu()
+                clock.start("selection_phases")
+                t_selection = time.perf_counter()
+                selection_counts, _ = search_selection(model_dir, args.seed)
+                selection_vs_cpu(args.seed)
+                multi_head_counts, _ = multi_head_search(model_dir)
+                heads_vs_cpu(rng)
+                print("selection_phases: " + json.dumps({"secs": time.perf_counter() - t_selection,
+                                                         "card": card_line()}))
+                clock.start("fleet_search")
+                fleet_launches, fleet_err, _ = fleet_search(model_dir, fleet_chaos, rng)
+                errors["combine"] = max(errors["combine"], fleet_err)
+                clock.start("store_warm_start")
+                warm_start = store_warm_start(model_dir, train_stats["search_secs"], grafting)
+            finally:
+                for proc in (grafting, fleet_chaos[1]):
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.communicate()
+            clock.start("gates_autoensemble_replay_phases")
             t_gates = time.perf_counter()
             full_gate_counts, _ = full_dnn_gate(model_dir)
             cnn_counts, _ = cnn_search(model_dir)
@@ -7579,7 +7922,7 @@ def main(argv=None):
             predict_debug(model_dir)
             print("gates_autoensemble_replay_phases: " + json.dumps({"secs": time.perf_counter() - t_gates,
                                                                       "card": card_line()}))
-            clock.mark("gates_autoensemble_replay_phases")
+            clock.start("cifar_imagenet_modelflow_phases")
             t_slice = time.perf_counter()
             cifar_counts, _ = cifar_trainer(model_dir)
             imagenet_counts, _, imagenet_losses = imagenet_autoensemble(model_dir, rng)
@@ -7587,17 +7930,17 @@ def main(argv=None):
             errors["combine"] = max(errors["combine"], check_slice_combines(rng))
             print("cifar_imagenet_modelflow_phases: " + json.dumps({"secs": time.perf_counter() - t_slice,
                                                                      "card": card_line()}))
-            clock.mark("cifar_imagenet_modelflow_phases")
+            clock.start("publish_wait")
             gen_dir, published = wait_publisher(publisher, model_dir)
         finally:
             if publisher is not None and publisher[0].poll() is None:
                 publisher[0].kill()
         print("published %s in %.1f s" % (os.path.basename(gen_dir), published["publish_process_secs"]))
-        clock.mark("publish_wait")
+        clock.start("serve")
         counts, served, served_program, served_pool = serve(model_dir, sep_shapes, rng, served_predict, published)
-        clock.mark("serve")
+        clock.start("canary_flip")
         canary_counts, canary_row = canary_flip(model_dir, served_pool, sep_shapes, rng)
-        clock.mark("canary_flip")
+        clock.start("placement_phases")
         t_placement = time.perf_counter()
         rr_imagenet_counts, _, rr_imagenet_losses = imagenet_round_robin(model_dir, imagenet_losses)
         rr_search_counts, _ = round_robin_search(model_dir, fused_probes)
@@ -7612,12 +7955,12 @@ def main(argv=None):
         spmd_launches, _ = process_phases(model_dir, started)
         errors["combine"] = max(errors["combine"], check_placement_combines(rng))
         print("placement_phases: " + json.dumps({"secs": time.perf_counter() - t_placement, "card": card_line()}))
-        clock.mark("placement_phases")
+        clock.start("elastic_multihost_phases")
         t_elastic = time.perf_counter()
         elastic_launches = elastic_multihost_phases(model_dir, train_stats, rr_imagenet_losses)
         print("elastic_multihost_phases: " + json.dumps({"secs": time.perf_counter() - t_elastic,
                                                           "card": card_line()}))
-        clock.mark("elastic_multihost_phases")
+        clock.start("long_context_export_phases")
         t_long = time.perf_counter()
         # `serving_fleet`'s replicas boot while the group waits on its side
         # processes (since PR 17).
@@ -7632,18 +7975,18 @@ def main(argv=None):
         errors["combine"] = max(errors["combine"], long_context_err)
         print("long_context_export_phases: " + json.dumps({"secs": time.perf_counter() - t_long,
                                                             "card": card_line()}))
-        clock.mark("long_context_export_phases")
+        clock.start("serving_fleet")
         fleet_counts, fleet_replicas, fleet = serving_fleet(fleet_start, rng)
-        clock.mark("serving_fleet")
+        clock.start("trace_view")
         trace_view_phase(fleet)
-        clock.mark("trace_view")
+        clock.start("profile_nasnet")
         profile = profile_nasnet_phase()
-        clock.mark("profile_nasnet")
+        clock.start("train_nasnet")
         nasnet_counts, _ = train_nasnet(model_dir)
-        clock.mark("train_nasnet")
+        clock.start("resume_nasnet")
         with deterministic_cudnn():
             resume_counts, _ = resume_nasnet(model_dir)
-        clock.mark("resume_nasnet")
+        clock.start("nasnet_gate")
         # `nasnet_gate_bf16` and `windows_vs_steps` run in a process of
         # their own (`--side-gates`), and the SIGTERMed trainer in another,
         # beside `nasnet_gate` and `nasnet_train_vs_cpu` (since PR 17; the
@@ -7653,21 +7996,21 @@ def main(argv=None):
         try:
             sigterm = TrainerSigterm(os.path.join(model_dir, "resume", "trainer")).start()
             gate_counts, _, gate_shapes = nasnet_gate(model_dir)
-            clock.mark("nasnet_gate")
+            clock.start("nasnet_train_vs_cpu")
             _, parity_cases = nasnet_train_vs_cpu()
             sigterm.finish()
-            clock.mark("nasnet_train_vs_cpu")
+            clock.start("side_gates_wait")
             gate_bf16_counts = side.finish()
         except BaseException:
             for process in (side, sigterm):
                 if process is not None:
                     process.kill()
             raise
-        clock.mark("side_gates_wait")
+        clock.start("train_nasnet_mobile")
         mobile_counts, _, mobile_cases = train_nasnet_mobile(model_dir, args.seed)
         for n in SEARCH_COMBINE_MEMBERS:
             check_search_combine(n, False, rng, batch=MOBILE_BATCH, classes=MOBILE_CLASSES)
-        clock.mark("train_nasnet_mobile")
+        clock.start("check_train_sepconv")
         train_cases = (
             {(shape, NASNET_BATCH, "bfloat16") for shape in sep_shapes}
             | {(shape, TRAIN_BATCH, "bfloat16") for shape in gate_shapes}
@@ -7676,11 +8019,11 @@ def main(argv=None):
         )
         train_errors = check_train_sepconv(train_cases, rng)
         errors["sepconv"] = max(errors["sepconv"], train_errors["forward_float32"], train_errors["forward_bfloat16"])
-        clock.mark("check_train_sepconv")
+        clock.start("trainer_profile_compare")
         trainer_on_card()
         profile_batch(served_program, rng)
         compare_with_cpu(args.seed, rng)
-        clock.mark("trainer_profile_compare")
+        clock.start("report")
     # Each kernel's launches on the main path that runs it: serving for
     # K0-K2, the autotuner for K3; K1's on the search path beside them.
     counts = dict(counts, cell=tune_counts["cell"])
@@ -7745,6 +8088,7 @@ def main(argv=None):
                 "serve_while_search_searcher"]
             kernels[-1]["store_warm_start_launches"] = warm_start["graft"]["launches"]["combine"]
             kernels[-1]["serving_fleet_distill_launches"] = fleet_counts["combine"]
+            kernels[-1]["fleet_search_launches"] = fleet_launches
         if name in ("copy", "combine", "sepconv"):
             kernels[-1]["canary_flip_launches"] = canary_counts[name]
             kernels[-1]["canary_window_launches"] = canary_row["window_launches"][name]
@@ -7770,6 +8114,7 @@ def main(argv=None):
     print("cell_shapes: " + json.dumps(cell_rows))
     print("cell_forward: " + json.dumps(rows["cell"]))
     print("served: " + json.dumps(served))
+    print("waits: " + json.dumps(WAITS))
     print("phase_secs: " + clock.line())
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -67,6 +67,8 @@ COPIES = {
     "adanet_tpu_torch/serving/fleet/transport.py": "adanet_tpu/serving/fleet/transport.py",
     "adanet_tpu_torch/serving/fleet/balancer.py": "adanet_tpu/serving/fleet/balancer.py",
     "adanet_tpu_torch/observability/export.py": "adanet_tpu/observability/export.py",
+    # The nineteenth slice: the fleet's graft planning.
+    "adanet_tpu_torch/fleet/transfer.py": "adanet_tpu/fleet/transfer.py",
 }
 
 #: Top-level definitions a copy replaces on purpose ("__doc__": the
@@ -167,6 +169,12 @@ SLICE_MODULES = (
     "adanet_tpu_torch.tools.servectl",
     "adanet_tpu_torch.tools.trace_view",
     "adanet_tpu_torch.tools.profile_nasnet",
+    "adanet_tpu_torch.fleet",
+    "adanet_tpu_torch.fleet.trial",
+    "adanet_tpu_torch.fleet.transfer",
+    "adanet_tpu_torch.fleet.comparator",
+    "adanet_tpu_torch.fleet.controller",
+    "adanet_tpu_torch.tools.fleetctl",
 )
 
 #: Modules run as `python -m` entry points; each must print its usage
@@ -178,6 +186,7 @@ ENTRY_POINTS = (
     "adanet_tpu_torch.tools.profile_nasnet",
     "adanet_tpu_torch.tools.ckpt_fsck",
     "adanet_tpu_torch.research.distill_to_serve.distill",
+    "adanet_tpu_torch.tools.fleetctl",
 )
 
 
@@ -338,6 +347,8 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
     from adanet_tpu_torch.serving.fleet import ReplicaConfig, ServingReplica
     from adanet_tpu_torch.serving.fleet import replica as replica_lib
     from adanet_tpu_torch.tools import profile_nasnet
+    from adanet_tpu_torch.fleet import FleetController, TrialSpec
+    from adanet_tpu_torch.tools import fleetctl
 
     # An iteration built on the CPU, before CUDA is hidden, for the
     # executors that place onto devices of their own.
@@ -352,6 +363,8 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
     selection = dict(evaluator=Evaluator(lambda: iter(())), report_materializer=ReportMaterializer(lambda: iter(())),
                      weight_key="w", keep_candidate_states=True, ensemblers=[MeanEnsembler()])
     multi_head = MultiHead([RegressionHead(name="r"), MultiClassHead(3, name="c")])
+    fleet_spec = tmp_path / "fleet_spec.json"
+    fleet_spec.write_text('{"trials": [{"id": "t"}]}')
     for call in (
         lambda: resolve_device(),
         lambda: resolve_device("cuda:0"),
@@ -417,6 +430,12 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
                                 [{"x": np.zeros((2, 2), np.float32)}]),
         lambda: teacher_from_generation(str(tmp_path)),
         lambda: profile_nasnet.main(["--steps", "1"]),
+        # The nineteenth slice: the fleet controller, a trial's Estimator
+        # and fleetctl's launch.
+        lambda: FleetController([TrialSpec("t", lambda: head, lambda: generator, "g", 4)], lambda: iter(()),
+                                str(tmp_path / "fleet")),
+        lambda: TrialSpec("t", lambda: head, lambda: generator, "g", 4).build_estimator(str(tmp_path), None, 1),
+        lambda: fleetctl.main(["launch", str(tmp_path / "fleetctl"), "--spec", str(fleet_spec)]),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

@@ -733,6 +733,34 @@ def test_servectl_cascade_degraded_states(tmp_path, capsys):
     assert "ROLLBACK" in out and "ensemble-only" in out
 
 
+def test_servectl_cascade_ignores_a_superseded_rollback(tmp_path, capsys):
+    """A replica that flipped to generation 4 still carries generation 3's
+    rollback record until its first level-0 dispatch of 4; the census
+    reads it as serving the cascade, while a rollback of 4 degrades it."""
+    from adanet_tpu_torch.serving import fleet as fleet_lib
+    from adanet_tpu_torch.tools import servectl
+
+    fleet_dir = str(tmp_path / "fleet")
+    os.makedirs(fleet_dir)
+    with open(os.path.join(fleet_dir, servectl.FLEET_STATE), "w") as f:
+        json.dump({"model_dir": str(tmp_path / "model"), "replicas": [{"id": r} for r in ("r0", "r1")]}, f)
+    kv = FileKV(os.path.join(fleet_dir, fleet_lib.replica.KV_SUBDIR))
+    base = {"enabled": True, "published": True, "mode": "row", "generation": 4, "source": "distilled",
+            "rollback": None}
+    stale = {"generation": 3, "reason": "shadow divergence 0.0139 past published bound 0.0100"}
+    publish_heartbeat(kv, NAMESPACE, "r0", {"ts": time.time(), "cascade": base})
+    publish_heartbeat(kv, NAMESPACE, "r1", {"ts": time.time(), "cascade": dict(base, rollback=stale)})
+    assert servectl.main(["cascade", fleet_dir, "--json"]) == 0
+    census = json.loads(capsys.readouterr().out)
+    assert {r: e["state"] for r, e in census["replicas"].items()} == {"r0": "cascade", "r1": "cascade"}
+    assert census["replicas"]["r1"]["rollback"] is None
+    publish_heartbeat(kv, NAMESPACE, "r1", {"ts": time.time(), "cascade": dict(
+        base, rollback=dict(stale, generation=4))})
+    assert servectl.main(["cascade", fleet_dir, "--json"]) == 1
+    census = json.loads(capsys.readouterr().out)
+    assert census["replicas"]["r1"]["state"] == "ensemble-only"
+
+
 # ------------------------------------------------------------ the chaos gate
 
 

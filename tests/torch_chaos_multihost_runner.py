@@ -16,8 +16,10 @@ set low by the parent) must turn the silence into `PeerLostError`,
 quarantine "a", finish the iteration with "b", persist it, and stop.
 
 The chief prints one `CHAOS CHIEF DONE <json>` line (wall seconds, the
-iteration and step reached, whether a peer was lost) and exits 0; the
-hung peer never finishes, and the parent kills it.
+iteration and step reached, whether a peer was lost, and the longest
+agreement that returned within the deadline, against which a live
+peer's lateness is measured) and exits 0; the hung peer never finishes,
+and the parent kills it.
 """
 
 import faulthandler
@@ -37,7 +39,7 @@ faulthandler.register(signal.SIGUSR1)
 
 import torch  # noqa: E402
 
-from adanet_tpu_torch.distributed import coordination  # noqa: E402
+from adanet_tpu_torch.distributed import coordination, multihost  # noqa: E402
 from adanet_tpu_torch.distributed.placement import RoundRobinStrategy  # noqa: E402
 
 from torch_chaos_ckpt_runner import build_estimator, input_fn  # noqa: E402
@@ -50,6 +52,17 @@ def main(argv):
     torch.set_num_threads(1)
     coordination.initialize("localhost:%s" % port, world, rank, device=device, backend=backend)
     est = build_estimator(model_dir, device=device, placement_strategy=RoundRobinStrategy([torch.device(device)]))
+    # The seconds of every agreement that returned within its deadline.
+    agreements = []
+    bounded = multihost.call_with_deadline
+
+    def timed(fn, *args, **kwargs):
+        t0 = time.monotonic()
+        value = bounded(fn, *args, **kwargs)
+        agreements.append(time.monotonic() - t0)
+        return value
+
+    multihost.call_with_deadline = timed
     start = time.monotonic()
     est.train(input_fn, max_steps=100)
     wall = time.monotonic() - start
@@ -59,6 +72,8 @@ def main(argv):
             "iteration_number": est.latest_iteration_number(),
             "global_step": est.latest_global_step(),
             "peer_lost": est._peer_lost is not None,
+            "agreements": len(agreements),
+            "max_agreement_secs": round(max(agreements, default=0.0), 3),
         }
         print("CHAOS CHIEF DONE %s" % json.dumps(record), flush=True)
     else:
